@@ -1,0 +1,149 @@
+"""Core NN building blocks (NCHW).
+
+Module names follow torchvision RAFT's state_dict: a conv-norm-act stage is
+an ``nn.Sequential`` whose conv sits at index 0 and whose norm (if any) at
+index 1, so ``convnormrelu.0.weight`` and ``convnormrelu.1.running_mean``
+are the keys a torchvision ``.pth`` carries, and the JAX package's
+``layers_0``/``layers_1`` names map onto them one to one
+(``checkpoint.convert.state_dict_from_flax``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+
+__all__ = [
+    "conv",
+    "instance_norm",
+    "InstanceNorm",
+    "ConvNormAct",
+    "ResidualBlock",
+    "BottleneckBlock",
+]
+
+KernelT = Union[int, Tuple[int, int]]
+
+
+def _pair(k: KernelT) -> Tuple[int, int]:
+    return (k, k) if isinstance(k, int) else tuple(k)
+
+
+def conv(
+    in_channels: int,
+    out_channels: int,
+    kernel: KernelT = 3,
+    stride: KernelT = 1,
+    padding=None,
+    bias: bool = True,
+) -> nn.Conv2d:
+    """``nn.Conv2d`` with ``(k-1)//2`` padding per spatial dim by default."""
+    kernel = _pair(kernel)
+    if padding is None:
+        padding = tuple((k - 1) // 2 for k in kernel)
+    return nn.Conv2d(
+        in_channels, out_channels, kernel, stride=_pair(stride), padding=padding, bias=bias
+    )
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """Parameter-free instance norm over H and W, one-pass fp32 statistics:
+    ``var = max(0, E[x^2] - E[x]^2)`` (the JAX package's formula, clamp
+    included)."""
+    xf = x.float()
+    mu = xf.mean(dim=(2, 3), keepdim=True)
+    m2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
+    var = torch.clamp(m2 - mu * mu, min=0.0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """:func:`instance_norm` as a module (no parameters, no buffers)."""
+
+    def forward(self, x):
+        return instance_norm(x)
+
+
+def _norm(spec: Optional[str], channels: int) -> Optional[nn.Module]:
+    if spec is None:
+        return None
+    if spec == "batch":
+        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    if spec == "instance":
+        return InstanceNorm()
+    raise ValueError(f"unknown norm spec: {spec!r}")
+
+
+class ConvNormAct(nn.Sequential):
+    """Conv -> (norm) -> (relu); conv at index 0, norm at index 1.
+
+    ``bias`` defaults to ``norm is None``, as in the JAX package.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel: KernelT = 3,
+        stride: KernelT = 1,
+        norm: Optional[str] = "batch",
+        act: bool = True,
+        bias: Optional[bool] = None,
+    ):
+        use_bias = bias if bias is not None else norm is None
+        layers = [conv(in_channels, out_channels, kernel, stride, bias=use_bias)]
+        norm_layer = _norm(norm, out_channels)
+        if norm_layer is not None:
+            layers.append(norm_layer)
+        if act:
+            layers.append(nn.ReLU())
+        super().__init__(*layers)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 conv-norm-relu stages with an identity / strided-1x1 skip and
+    a trailing relu on the sum (torchvision RAFT's residual block)."""
+
+    def __init__(self, in_channels: int, out_channels: int, norm: Optional[str], stride: int = 1):
+        super().__init__()
+        self.convnormrelu1 = ConvNormAct(in_channels, out_channels, 3, stride, norm, bias=True)
+        self.convnormrelu2 = ConvNormAct(out_channels, out_channels, 3, 1, norm, bias=True)
+        self.downsample = (
+            ConvNormAct(in_channels, out_channels, 1, stride, norm, act=False, bias=True)
+            if stride != 1
+            else None
+        )
+
+    def forward(self, x):
+        y = self.convnormrelu2(self.convnormrelu1(x))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1(C/4) -> 3x3(C/4, stride) -> 1x1(C) bottleneck with skip
+    (raft_small's block)."""
+
+    def __init__(self, in_channels: int, out_channels: int, norm: Optional[str], stride: int = 1):
+        super().__init__()
+        mid = out_channels // 4
+        self.convnormrelu1 = ConvNormAct(in_channels, mid, 1, 1, norm, bias=True)
+        self.convnormrelu2 = ConvNormAct(mid, mid, 3, stride, norm, bias=True)
+        self.convnormrelu3 = ConvNormAct(mid, out_channels, 1, 1, norm, bias=True)
+        self.downsample = (
+            ConvNormAct(in_channels, out_channels, 1, stride, norm, act=False, bias=True)
+            if stride != 1
+            else None
+        )
+
+    def forward(self, x):
+        y = self.convnormrelu3(self.convnormrelu2(self.convnormrelu1(x)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)

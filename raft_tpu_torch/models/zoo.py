@@ -1,0 +1,221 @@
+"""Model zoo: named RAFT configurations, assembly, and weights.
+
+Hyperparameters reproduce torchvision's raft_large / raft_small, field for
+field as the JAX package's ``RAFTConfig``. Weights are seeded random
+(torchvision's initializer) unless a local checkpoint is given: nothing is
+ever fetched.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from raft_tpu_torch.device import resolve_device
+from raft_tpu_torch.models.corr import CorrBlock
+from raft_tpu_torch.models.encoders import FeatureEncoder
+from raft_tpu_torch.models.layers import BottleneckBlock, ResidualBlock
+from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.models.update import (
+    FlowHead,
+    MaskPredictor,
+    MotionEncoder,
+    RecurrentBlock,
+    UpdateBlock,
+)
+
+__all__ = ["RAFTConfig", "RAFT_LARGE", "RAFT_SMALL", "CONFIGS", "build_raft", "raft_large", "raft_small"]
+
+_BLOCKS = {"residual": ResidualBlock, "bottleneck": BottleneckBlock}
+
+
+@dataclasses.dataclass(frozen=True)
+class RAFTConfig:
+    """Flat hyperparameter set fully describing a RAFT variant."""
+
+    name: str
+    feature_encoder_widths: Tuple[int, int, int, int, int]
+    feature_encoder_block: str  # 'residual' | 'bottleneck'
+    feature_encoder_norm: Optional[str]  # 'batch' | 'instance' | None
+    context_encoder_widths: Tuple[int, int, int, int, int]
+    context_encoder_block: str
+    context_encoder_norm: Optional[str]
+    corr_levels: int
+    corr_radius: int
+    motion_corr_widths: Tuple[int, ...]
+    motion_flow_widths: Tuple[int, int]
+    motion_out_channels: int
+    gru_hidden: int
+    gru_kernels: Tuple[Tuple[int, int], ...]
+    gru_pads: Tuple[Tuple[int, int], ...]
+    flow_head_hidden: int
+    use_mask_predictor: bool
+    mask_predictor_hidden: int = 256
+    # 'dense': plain PyTorch lookup; 'fused': lookup + convcorr1 in the
+    # CUDA kernel (kernels/lookup_xtap.py). Parameter-free either way.
+    corr_impl: str = "dense"
+    compute_dtype: str = "float32"
+    corr_dtype: Optional[str] = None
+
+    def replace(self, **kw) -> "RAFTConfig":
+        return dataclasses.replace(self, **kw)
+
+
+RAFT_LARGE = RAFTConfig(
+    name="raft_large",
+    feature_encoder_widths=(64, 64, 96, 128, 256),
+    feature_encoder_block="residual",
+    feature_encoder_norm="instance",
+    context_encoder_widths=(64, 64, 96, 128, 256),
+    context_encoder_block="residual",
+    context_encoder_norm="batch",
+    corr_levels=4,
+    corr_radius=4,
+    motion_corr_widths=(256, 192),
+    motion_flow_widths=(128, 64),
+    motion_out_channels=128,
+    gru_hidden=128,
+    gru_kernels=((1, 5), (5, 1)),
+    gru_pads=((0, 2), (2, 0)),
+    flow_head_hidden=256,
+    use_mask_predictor=True,
+)
+
+RAFT_SMALL = RAFTConfig(
+    name="raft_small",
+    feature_encoder_widths=(32, 32, 64, 96, 128),
+    feature_encoder_block="bottleneck",
+    feature_encoder_norm="instance",
+    context_encoder_widths=(32, 32, 64, 96, 160),
+    context_encoder_block="bottleneck",
+    context_encoder_norm=None,
+    corr_levels=4,
+    corr_radius=3,
+    motion_corr_widths=(96,),
+    motion_flow_widths=(64, 32),
+    motion_out_channels=82,
+    gru_hidden=96,
+    gru_kernels=((3, 3),),
+    gru_pads=((1, 1),),
+    flow_head_hidden=128,
+    use_mask_predictor=False,
+)
+
+CONFIGS = {"raft_large": RAFT_LARGE, "raft_small": RAFT_SMALL}
+
+
+def _check_supported(config: RAFTConfig) -> None:
+    if config.corr_impl in ("pallas", "onthefly"):
+        raise NotImplementedError(
+            f"corr_impl={config.corr_impl!r} is not ported yet: 'pallas' (the "
+            "volume+pyramid kernel) is ROADMAP queue 2 K3, 'onthefly' is "
+            "ROADMAP queue 1 item 11"
+        )
+    if config.corr_impl not in ("dense", "fused"):
+        raise ValueError(f"unknown corr_impl {config.corr_impl!r}")
+    if config.compute_dtype != "float32" or config.corr_dtype not in (None, "float32"):
+        raise NotImplementedError(
+            "only float32 compute and correlation storage are ported; bf16/int8 "
+            "precision is ROADMAP queue 1 item 7"
+        )
+
+
+def _init_weights(model: nn.Module) -> None:
+    """torchvision RAFT's initializer: kaiming-normal (fan_out) convs with
+    zero bias, unit/zero norm affines."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+def build_raft(config: RAFTConfig, *, device=None, seed: int = 0) -> RAFT:
+    """Assemble a RAFT module from a config with seeded random weights, in
+    eval mode on ``device`` (the CUDA card unless ``'cpu'`` is named)."""
+    _check_supported(config)
+    dev = resolve_device(device)
+    if config.corr_impl == "fused":
+        # imported here: the kernels module builds on models.corr
+        from raft_tpu_torch.kernels.lookup_xtap import FusedLookupCorrBlock
+
+        corr_block = FusedLookupCorrBlock(config.corr_levels, config.corr_radius)
+    else:
+        corr_block = CorrBlock(config.corr_levels, config.corr_radius)
+    hidden = config.gru_hidden
+    context_channels = config.context_encoder_widths[-1] - hidden
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = RAFT(
+            feature_encoder=FeatureEncoder(
+                _BLOCKS[config.feature_encoder_block],
+                config.feature_encoder_widths,
+                config.feature_encoder_norm,
+            ),
+            context_encoder=FeatureEncoder(
+                _BLOCKS[config.context_encoder_block],
+                config.context_encoder_widths,
+                config.context_encoder_norm,
+            ),
+            corr_block=corr_block,
+            update_block=UpdateBlock(
+                MotionEncoder(
+                    corr_block.out_channels,
+                    config.motion_corr_widths,
+                    config.motion_flow_widths,
+                    config.motion_out_channels,
+                ),
+                RecurrentBlock(
+                    hidden,
+                    context_channels + config.motion_out_channels,
+                    config.gru_kernels,
+                    config.gru_pads,
+                ),
+                FlowHead(hidden, config.flow_head_hidden),
+            ),
+            mask_predictor=(
+                MaskPredictor(hidden, config.mask_predictor_hidden)
+                if config.use_mask_predictor
+                else None
+            ),
+        )
+        _init_weights(model)
+    return model.to(dev).eval()
+
+
+def _make(arch: str, pretrained: bool, checkpoint: Optional[str], device, seed: int, **overrides) -> RAFT:
+    if pretrained and checkpoint is None:
+        raise FileNotFoundError(
+            f"pretrained {arch} weights are not bundled and are never "
+            "downloaded; pass checkpoint=<path to a torchvision-layout .pth "
+            "state_dict>"
+        )
+    config = CONFIGS[arch]
+    if overrides:
+        config = config.replace(**overrides)
+    model = build_raft(config, device=device, seed=seed)
+    if checkpoint is not None:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        model.load_state_dict(state, strict=True)
+    return model
+
+
+def raft_large(
+    *, pretrained: bool = False, checkpoint: Optional[str] = None, device=None, seed: int = 0, **overrides
+) -> RAFT:
+    """RAFT large (torchvision widths) on ``device``; config overrides as
+    keyword arguments (e.g. ``corr_impl='fused'``)."""
+    return _make("raft_large", pretrained, checkpoint, device, seed, **overrides)
+
+
+def raft_small(
+    *, pretrained: bool = False, checkpoint: Optional[str] = None, device=None, seed: int = 0, **overrides
+) -> RAFT:
+    """RAFT small (torchvision widths) on ``device``."""
+    return _make("raft_small", pretrained, checkpoint, device, seed, **overrides)

@@ -1,0 +1,70 @@
+"""Package rules of the PyTorch port: no JAX anywhere in it, and the card
+by default."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import raft_tpu_torch as rt
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "flax", "raft_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    """No module of the port (nor the card smoke script) imports jax, flax
+    or the JAX package (``raft_tpu``, not followed by ``_torch``)."""
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    """Importing every module of the port in a fresh interpreter loads
+    neither jax nor the JAX package."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in (ROOT / "raft_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'raft_tpu'))\n"
+        "print(len(bad)); print(bad[:5])\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+def test_default_device_is_the_card():
+    """Without ``device=`` every entry point targets CUDA: with no card it
+    raises rather than running on the CPU."""
+    model = rt.raft_small(device="cpu")
+    if torch.cuda.is_available():
+        assert rt.FlowEstimator(model).device.type == "cuda"
+        assert next(rt.raft_small().parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.FlowEstimator(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.raft_small()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.build_raft(rt.RAFT_LARGE)
