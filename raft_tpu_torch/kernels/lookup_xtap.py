@@ -66,6 +66,12 @@ def lookup_project_reference(
     return project_taps(taps, weight, bias).permute(0, 3, 1, 2)
 
 
+def _tile_smem_bytes(num_levels: int, radius: int) -> int:
+    """K1/K2: a tile's taps, rows padded to a multiple of 4 floats."""
+    s = 2 * radius + 1
+    return QUERY_TILE * (-(-num_levels * s * s // 4) * 4) * 4
+
+
 def _check_no_grad(who: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -75,8 +81,11 @@ def _check_no_grad(who: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def _check_inputs(who: str, pyramid, centroids: torch.Tensor, radius: int, extra=()):
-    """Validate the shared arguments; returns (b, h, w, q)."""
+def _check_inputs(who: str, pyramid, centroids: torch.Tensor, radius: int, extra=(), smem_bytes=None):
+    """Validate the shared arguments; returns (b, h, w, q).
+
+    ``smem_bytes(num_levels, radius)`` is the kernel's dynamic shared
+    memory per block (default: K1/K2's tap tile)."""
     if centroids.dim() != 4 or centroids.shape[-1] != 2:
         raise ValueError(f"{who}: centroids must be (B, h, w, 2), got {tuple(centroids.shape)}")
     b, h, w, _ = centroids.shape
@@ -85,12 +94,10 @@ def _check_inputs(who: str, pyramid, centroids: torch.Tensor, radius: int, extra
         raise ValueError(f"{who}: needs 1..{MAX_LEVELS} pyramid levels, got {len(pyramid)}")
     if radius < 0:
         raise ValueError(f"{who}: radius must be >= 0, got {radius}")
-    s = 2 * radius + 1
-    row = -(-len(pyramid) * s * s // 4) * 4
-    if QUERY_TILE * row * 4 > MAX_SMEM_BYTES:
+    if (smem_bytes or _tile_smem_bytes)(len(pyramid), radius) > MAX_SMEM_BYTES:
         raise ValueError(
             f"{who}: {len(pyramid)} levels at radius {radius} need more shared "
-            "memory per tile than a block has"
+            "memory per block than a block has"
         )
     for level, vol in enumerate(pyramid):
         if vol.dim() != 3 or vol.shape[0] != q or vol.shape[1] < 1 or vol.shape[2] < 1:

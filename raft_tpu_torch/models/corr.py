@@ -207,7 +207,9 @@ class CorrBlock:
     def min_fmap_size(self) -> int:
         return 2 * 2 ** (self.num_levels - 1)
 
-    def build_pyramid(self, fmap1: torch.Tensor, fmap2: torch.Tensor) -> List[torch.Tensor]:
+    def check_fmaps(self, fmap1: torch.Tensor, fmap2: torch.Tensor) -> None:
+        """Raise unless the two NCHW maps match and keep >= 2 px per side
+        at the coarsest level."""
         if fmap1.shape != fmap2.shape:
             raise ValueError("feature maps must have identical shapes")
         min_hw = self.min_fmap_size()
@@ -217,6 +219,9 @@ class CorrBlock:
                 f"{self.num_levels}-level pyramid; need >= {min_hw} per side "
                 f"(inputs are downsampled 8x, so images must be >= {8 * min_hw} px)"
             )
+
+    def build_pyramid(self, fmap1: torch.Tensor, fmap2: torch.Tensor) -> List[torch.Tensor]:
+        self.check_fmaps(fmap1, fmap2)
         return pool_pyramid(correlation_volume(fmap1, fmap2), self.num_levels)
 
     def index_pyramid(self, pyramid: Sequence[torch.Tensor], centroids: torch.Tensor) -> torch.Tensor:

@@ -54,8 +54,10 @@ class RAFTConfig:
     flow_head_hidden: int
     use_mask_predictor: bool
     mask_predictor_hidden: int = 256
-    # 'dense': plain PyTorch lookup; 'fused': lookup + convcorr1 in the
-    # CUDA kernel (kernels/lookup_xtap.py). Parameter-free either way.
+    # 'dense': plain PyTorch volume, pyramid and lookup; 'fused': lookup +
+    # convcorr1 in the CUDA kernel (kernels/lookup_xtap.py); 'pallas':
+    # volume + pyramid in the CUDA kernel (kernels/corr_pallas.py), plain
+    # lookup. Parameter-free either way.
     corr_impl: str = "dense"
     compute_dtype: str = "float32"
     corr_dtype: Optional[str] = None
@@ -108,13 +110,11 @@ CONFIGS = {"raft_large": RAFT_LARGE, "raft_small": RAFT_SMALL}
 
 
 def _check_supported(config: RAFTConfig) -> None:
-    if config.corr_impl in ("pallas", "onthefly"):
+    if config.corr_impl == "onthefly":
         raise NotImplementedError(
-            f"corr_impl={config.corr_impl!r} is not ported yet: 'pallas' (the "
-            "volume+pyramid kernel) is ROADMAP queue 2 K3, 'onthefly' is "
-            "ROADMAP queue 1 item 11"
+            "corr_impl='onthefly' is not ported yet: ROADMAP queue 1 item 11"
         )
-    if config.corr_impl not in ("dense", "fused"):
+    if config.corr_impl not in ("dense", "fused", "pallas"):
         raise ValueError(f"unknown corr_impl {config.corr_impl!r}")
     if config.compute_dtype != "float32" or config.corr_dtype not in (None, "float32"):
         raise NotImplementedError(
@@ -141,11 +141,15 @@ def build_raft(config: RAFTConfig, *, device=None, seed: int = 0) -> RAFT:
     eval mode on ``device`` (the CUDA card unless ``'cpu'`` is named)."""
     _check_supported(config)
     dev = resolve_device(device)
+    # the kernel modules are imported here: they build on models.corr
     if config.corr_impl == "fused":
-        # imported here: the kernels module builds on models.corr
         from raft_tpu_torch.kernels.lookup_xtap import FusedLookupCorrBlock
 
         corr_block = FusedLookupCorrBlock(config.corr_levels, config.corr_radius)
+    elif config.corr_impl == "pallas":
+        from raft_tpu_torch.kernels.corr_pallas import PallasCorrBlock
+
+        corr_block = PallasCorrBlock(config.corr_levels, config.corr_radius)
     else:
         corr_block = CorrBlock(config.corr_levels, config.corr_radius)
     hidden = config.gru_hidden

@@ -254,10 +254,18 @@ class TestEstimatorContract:
 
 
 class TestZoo:
-    @pytest.mark.parametrize("impl,item", [("pallas", "K3"), ("onthefly", "item 11")])
+    @pytest.mark.parametrize("impl,item", [("onthefly", "item 11")])
     def test_unported_corr_impl_raises(self, impl, item):
         with pytest.raises(NotImplementedError, match=item):
             rt.raft_small(device="cpu", corr_impl=impl)
+
+    def test_pallas_builds_the_k3_block(self):
+        from raft_tpu_torch.kernels.corr_pallas import PallasCorrBlock
+
+        model = rt.raft_small(device="cpu", corr_impl="pallas")
+        assert type(model.corr_block) is PallasCorrBlock
+        with pytest.raises(ValueError, match="unknown corr_impl"):
+            rt.raft_small(device="cpu", corr_impl="sparse")
 
     @pytest.mark.parametrize("kw", [{"compute_dtype": "bfloat16"}, {"corr_dtype": "int8"}])
     def test_reduced_precision_raises(self, kw):

@@ -34,6 +34,25 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+SLICE_MODULES = (
+    "raft_tpu_torch/checkpoint/convert.py",
+    "raft_tpu_torch/data/datasets.py",
+    "raft_tpu_torch/data/io.py",
+    "raft_tpu_torch/eval/validate.py",
+    "raft_tpu_torch/kernels/corr_pallas.py",
+    "raft_tpu_torch/kernels/inorm_pallas.py",
+    "raft_tpu_torch/kernels/lookup_pallas.py",
+    "raft_tpu_torch/utils/prefetch.py",
+)
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_checked(module):
+    """The evaluation slice's modules exist and are among those the two
+    no-JAX checks cover."""
+    assert ROOT / module in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     """Importing every module of the port in a fresh interpreter loads
     neither jax nor the JAX package."""
