@@ -10,11 +10,14 @@ Phases, each of which raises on failure (exit code 1):
      cuDNN, so fp32 means fp32 in every comparison below;
   2. build: every CUDA kernel of the package from this checkout's sources,
      one nvcc per source, all started together (the Triton kernel compiles
-     on its first launch, into the same git-ignored ``_build/``);
+     on its first launch, into the same git-ignored ``_build/``), and the
+     count of tensor-core (HMMA) instructions in K3's SASS (``cuobjdump``);
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
      card, at the main paths' shapes and edge cases, with times per launch,
      the card's bound for the same work and, where one PyTorch call (or,
      for K3, the plain chain of calls) computes the same function, its time;
+     K3 with two bounds, its product on the fp32 FMA units and as 3xTF32
+     on the tensor cores against its bytes;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests through
      ``FlowEstimator`` at 32 updates; the launch counts show K1 ran once
@@ -56,8 +59,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "epe_golden"
 
-# NVIDIA H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3
+# NVIDIA H100 SXM published peaks (dense): fp32 outside the tensor cores,
+# TF32 on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 SINTEL = (1, 55, 128)  # the /8 feature grid at 440x1024
@@ -144,10 +149,30 @@ def window_bytes(pyramid, cents, radius) -> int:
     return total
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, tf32_ops: float = 0.0):
+    """The least time in ms for this work: bytes at the HBM rate against
+    ``ops`` at the fp32 FMA rate plus ``tf32_ops`` at the TF32 tensor-core
+    rate, whichever is longer."""
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (ops / PEAK_FP32_FLOPS + tf32_ops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hmma_count(lib_path, kernel: str) -> int:
+    """Tensor-core (HMMA) instructions in the SASS of every function of a
+    built library whose name contains ``kernel``, from ``cuobjdump``."""
+    from raft_tpu_torch.kernels import build
+
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "HMMA" in line:
+            count += 1
+    return count
 
 
 def counters():
@@ -267,6 +292,10 @@ VOLUME_CASES = {
     "kitti_ragged_q": (1, 128, 47, 156, 4),
     "batch2": (2, 128, 55, 128, 4),
     "odd_dims": (1, 128, 45, 99, 4),
+    "channel_tail": (1, 36, 23, 37, 3),  # C not a multiple of 8
+    "one_level": (1, 32, 9, 13, 1),
+    "five_levels": (1, 32, 40, 48, 5),
+    "six_levels": (1, 32, 64, 96, 6),
 }
 
 
@@ -274,7 +303,10 @@ def volume_phase(device):
     """K3 against its plain version on every case, timed at raft_small
     (the main path's shapes) and raft_large. The plain version is the
     library chain K3 replaces (one cuBLAS matmul, L-1 avg_pool2d), so its
-    time is also the library time."""
+    time is also the library time. Two bounds: the product on the fp32
+    FMA units, and as 3xTF32 on the tensor cores (three TF32 products per
+    fp32 product, what K3 runs) against the bytes; K3's time is held to the
+    second."""
     from raft_tpu_torch.kernels import corr_pallas as cp
 
     err, times = 0.0, {}
@@ -295,16 +327,20 @@ def volume_phase(device):
         if name in ("raft_small_sintel", "raft_large_sintel"):
             q = h * w
             nbytes = 2 * b * c * q * 4 + sum(b * q * g.shape[1] * g.shape[2] * 4 for g in got)
-            ops = 2.0 * b * q * q * c + sum(4.0 * b * q * g.shape[1] * g.shape[2] for g in got[1:])
+            gemm = 2.0 * b * q * q * c
+            pool_ops = sum(4.0 * b * q * g.shape[1] * g.shape[2] for g in got[1:])
             t = {
                 "ms": cuda_ms(lambda: cp.fused_volume_pyramid(f1, f2, levels)),
                 "plain_ms": cuda_ms(lambda: cp.volume_pyramid_reference(f1, f2, levels)),
-                "bound": bound(nbytes, ops),
+                "fp32_bound": bound(nbytes, gemm + pool_ops),
+                "bound": bound(nbytes, pool_ops, tf32_ops=3.0 * gemm),
             }
             times[name] = t
             log(f"kernels K3 {name} timing: {t['ms']:.4f} ms (plain = matmul+avg_pool2d chain "
-                f"{t['plain_ms']:.4f}, bound {t['bound'][0]:.4f} by "
-                f"{t['bound'][1]}; {nbytes} bytes, {ops:.4g} operations)")
+                f"{t['plain_ms']:.4f}, {t['plain_ms'] / t['ms']:.2f}x K3); bound {t['bound'][0]:.4f} by "
+                f"{t['bound'][1]} as 3xTF32 (K3 at {t['bound'][0] / t['ms']:.3f} of it), "
+                f"{t['fp32_bound'][0]:.4f} by {t['fp32_bound'][1]} on fp32 FMA units; "
+                f"{nbytes} bytes, {gemm:.4g} GEMM + {pool_ops:.4g} pool operations")
     return err, times
 
 
@@ -638,8 +674,12 @@ def main() -> int:
     log(f"build: {len(libs)} kernel sources in {time.perf_counter() - t0:.2f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
                 log(f"build {name}: {line.strip()}")
+    hmma = hmma_count(libs["corr_pyramid"], "corr_pyramid_kernel")
+    log(f"build corr_pyramid: {hmma} HMMA (tensor-core) instructions in corr_pyramid_kernel's SASS")
+    if hmma == 0:
+        raise AssertionError("K3 has no tensor-core instructions")
 
     lookup_err, lookup_times, lookup_bounds, k4_launches = lookup_phase(device)
     k3_err, k3_times = volume_phase(device)
@@ -670,7 +710,7 @@ def main() -> int:
          "replaces": "raft_tpu/kernels/corr_pallas.py:64", "launches": k3_launches,
          "path": f"validate, raft_small pallas, {REQUESTS} pairs 436x1024", "max_abs_err": k3_err,
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
-         "library_ms": k3["plain_ms"]},
+         "library_ms": k3["plain_ms"], "fp32_fma_bound_ms": k3["fp32_bound"][0], "hmma": hmma},
         {"name": "lookup_dense (K4: separable lookup)", "route": "cuda",
          "source": "raft_tpu_torch/kernels/csrc/lookup_dense.cu",
          "replaces": "raft_tpu/kernels/lookup_pallas.py:50", "launches": k4_launches,

@@ -2,9 +2,11 @@
 kernel for Hopper (K3), and the ``corr_impl='pallas'`` correlation block.
 
 :func:`fused_volume_pyramid` wraps ``csrc/corr_pyramid.cu``: the fp32
-volume ``f1 . f2^T / sqrt(C)`` of each batch element and its L-1 VALID 2x2
-average pools, every level written once, the level-0 volume never read
-back. Beside it sits its plain version, :func:`volume_pyramid_reference`
+volume ``f1 . f2^T / sqrt(C)`` of each batch element (on the tensor cores,
+each operand split into two TF32 halves so the product keeps fp32
+accuracy) and its L-1 VALID 2x2 average pools, every level written once,
+the level-0 volume never read back. Beside it sits its plain version,
+:func:`volume_pyramid_reference`
 (``correlation_volume`` + ``pool_pyramid``), which the CPU tests use and
 the card smoke test holds the kernel against. The wrapper takes its plain
 version only for tensors on the CPU; for CUDA tensors it launches the

@@ -151,6 +151,8 @@ VOLUME_CASES = {
     "odd_dims": (1, 128, 45, 99, 4),
     "one_level": (1, 32, 9, 13, 1),
     "five_levels": (1, 32, 40, 48, 5),
+    "channel_tail": (1, 36, 23, 37, 3),  # C not a multiple of 8: zero-filled channel tail
+    "six_levels": (1, 32, 64, 96, 6),
 }
 
 INORM_CASES = [(1, 32, 220, 512), (1, 64, 220, 512), (2, 16, 24, 32)]

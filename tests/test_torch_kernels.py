@@ -7,7 +7,11 @@ Tolerances: 1e-5 for K3 (a 16-48-term fp32 dot per cell, summed in
 another order, then exact-order 2x2 means), 1e-5 for K4 (two 2-term fp32
 interpolations per tap) and K5 in fp32 (sums over H*W in another order);
 bf16 I/O of K5 may differ by one bf16 rounding step (2^-7 relative).
+``TestK3Arithmetic`` emulates K3's 3xTF32 tensor-core arithmetic on the
+CPU against a tenth of the card's K3 tolerance.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -115,6 +119,77 @@ class TestVolumePyramidK3:
             out = fused_volume_pyramid(f, f, 2)
         assert [tuple(o.shape) for o in out] == [(256, 16, 16), (256, 8, 8)]
         assert fused_volume_pyramid.launches == before
+
+
+VOLUME_TOL = 1e-4  # K3 against its plain version on the card (tests/test_torch_cuda.py)
+
+
+def _tf32(x):
+    """fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, by adding half a TF32 ulp (0x1000) to the bits and
+    clearing the 13 low mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _volume(a, b):
+    """``a^T b / sqrt(C)`` per batch element as ``(B, Q, h, w)``, fp32 sums."""
+    n, c, h, w = a.shape
+    vol = torch.matmul(a.reshape(n, c, h * w).transpose(1, 2), b.reshape(n, c, h * w))
+    return (vol * (1.0 / math.sqrt(c))).reshape(n, h * w, h, w)
+
+
+def _features(c, gain):
+    """Two seeded (1, c, 16, 20) feature maps, normal times ``gain``."""
+    rng = np.random.default_rng(c)
+    return (torch.from_numpy((rng.normal(size=(1, c, 16, 20)) * gain).astype(np.float32)) for _ in range(2))
+
+
+def _volume_3xtf32(f1, f2):
+    """K3's tensor-core arithmetic: each operand split once into
+    hi = tf32(x) and lo = tf32(x - hi); lo*hi + hi*lo, then hi*hi, summed
+    in fp32 (the card interleaves the three per 8 channels)."""
+    a_hi, b_hi = _tf32(f1), _tf32(f2)
+    a_lo, b_lo = _tf32(f1 - a_hi), _tf32(f2 - b_hi)
+    return (_volume(a_lo, b_hi) + _volume(a_hi, b_lo)) + _volume(a_hi, b_hi)
+
+
+class TestK3Arithmetic:
+    """Why K3 splits each operand for the tensor cores: 3xTF32 stays within
+    a tenth of the card tolerance of the fp32 plain version, one TF32 pass
+    does not meet it. The emulation lives here, not in the package.
+
+    VOLUME_TOL is stated for unit-variance features. Features scaled by
+    ``gain`` scale the volume, and the fp32 rounding of the plain version
+    itself, by ``gain**2``, so the absolute tolerance is taken in that unit.
+    """
+
+    def test_tf32_rounding_is_round_to_nearest_ties_away(self):
+        ulp = 2.0**-10  # TF32 keeps 10 mantissa bits
+        x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2.0**-23, -(1 + ulp / 2), 3 * ulp / 4 + 1, 0.0, -2.5])
+        want = torch.tensor([1 + ulp, 1.0, -(1 + ulp), 1 + ulp, 0.0, -2.5])
+        assert torch.equal(_tf32(x), want)
+        v = torch.from_numpy(np.random.default_rng(3).normal(size=4096).astype(np.float32)) * 100
+        hi = _tf32(v)
+        lo = _tf32(v - hi)
+        assert ((hi + lo - v).abs() <= 2.0**-21 * v.abs()).all()
+
+    @pytest.mark.parametrize("gain", [1.0, 10.0], ids=["unit", "x10"])
+    @pytest.mark.parametrize("c", [128, 256])
+    def test_3xtf32_matches_fp32_plain_version(self, c, gain):
+        f1, f2 = _features(c, gain)
+        want = corr_pallas.volume_pyramid_reference(f1, f2, 4)
+        got = corr.pool_pyramid(_volume_3xtf32(f1, f2), 4)
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, rtol=VOLUME_TOL / 10, atol=VOLUME_TOL / 10 * gain**2)
+
+    @pytest.mark.parametrize("gain", [1.0, 10.0], ids=["unit", "x10"])
+    @pytest.mark.parametrize("c", [128, 256])
+    def test_one_tf32_pass_misses_the_tolerance(self, c, gain):
+        f1, f2 = _features(c, gain)
+        want = corr_pallas.volume_pyramid_reference(f1, f2, 1)[0]
+        got = _volume(_tf32(f1), _tf32(f2)).reshape(want.shape)
+        assert not torch.allclose(got, want, rtol=VOLUME_TOL, atol=VOLUME_TOL * gain**2)
 
 
 class TestLookupK4:
