@@ -10,14 +10,16 @@ Phases, each of which raises on failure (exit code 1):
      cuDNN, so fp32 means fp32 in every comparison below;
   2. build: every CUDA kernel of the package from this checkout's sources,
      one nvcc per source, all started together (the Triton kernel compiles
-     on its first launch, into the same git-ignored ``_build/``), and the
-     count of tensor-core (HMMA) instructions in K3's SASS (``cuobjdump``);
+     on its first launch, into the same git-ignored ``_build/``), the
+     count of tensor-core (HMMA) instructions in K1's and K3's SASS
+     (``cuobjdump``), and K1's registers and spills from ptxas;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
      card, at the main paths' shapes and edge cases, with times per launch,
-     the card's bound for the same work and, where one PyTorch call (or,
-     for K3, the plain chain of calls) computes the same function, its time;
-     K3 with two bounds, its product on the fp32 FMA units and as 3xTF32
-     on the tensor cores against its bytes;
+     the card's bound for the same work and, where one PyTorch call or a
+     chain of them computes the same function (K1: grid_sample + addmm +
+     relu; K3: the plain matmul + avg_pool2d chain; K5: F.instance_norm),
+     its time; K1 and K3 with two bounds, the product on the fp32 FMA units
+     and as 3xTF32 on the tensor cores against the bytes;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests through
      ``FlowEstimator`` at 32 updates; the launch counts show K1 ran once
@@ -175,6 +177,18 @@ def hmma_count(lib_path, kernel: str) -> int:
     return count
 
 
+def ptxas_usage(log_text: str, kernel: str) -> str:
+    """The ptxas report (registers, spills, shared memory) of the entry
+    functions whose name contains ``kernel``, from an ``-Xptxas -v`` log."""
+    lines, inside = [], False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return "; ".join(lines) or "not in the log (library built earlier)"
+
+
 def counters():
     """The launch counter of every kernel wrapper, by kernel."""
     from raft_tpu_torch.kernels import corr_pallas, inorm_pallas, lookup_pallas, lookup_xtap
@@ -197,7 +211,7 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def kernel_inputs(device, b, h, w, cent_lo=None, cent_hi=None, seed=0):
+def kernel_inputs(device, b, h, w, cent_lo=None, cent_hi=None, seed=0, radius=RADIUS, c_out=C_OUT):
     """Pyramid of a random-feature correlation volume, centroids, and
     convcorr1-shaped weights. Centroids are the grid plus a smooth random
     flow unless a uniform range is given."""
@@ -213,9 +227,9 @@ def kernel_inputs(device, b, h, w, cent_lo=None, cent_hi=None, seed=0):
         cents = (coords_grid(b, h, w, device=device) + flow).permute(0, 2, 3, 1).contiguous()
     else:
         cents = torch.rand(b, h, w, 2, device=device, generator=gen) * (cent_hi - cent_lo) + cent_lo
-    c_in = LEVELS * (2 * RADIUS + 1) ** 2
-    weight = torch.randn(C_OUT, c_in, device=device, generator=gen) * math.sqrt(2.0 / C_OUT)
-    bias = torch.randn(C_OUT, device=device, generator=gen) * 0.05
+    c_in = LEVELS * (2 * radius + 1) ** 2
+    weight = torch.randn(c_out, c_in, device=device, generator=gen) * math.sqrt(2.0 / c_out)
+    bias = torch.randn(c_out, device=device, generator=gen) * 0.05
     return pyramid, cents, weight, bias
 
 
@@ -225,7 +239,37 @@ LOOKUP_CASES = {
     "batch2": dict(b=2, h=55, w=128),
     "odd_levels": dict(b=1, h=45, w=99),
     "far_out_of_range": dict(b=1, h=55, w=128, cent_lo=-600.0, cent_hi=700.0),
+    # raft_small fused: r 3, C_in 196, convcorr1 to 96 channels
+    "raft_small_fused": dict(b=1, h=55, w=128, radius=3, c_out=96),
+    # h*w = 7285 is odd: K1's 32-query tiles cross the batch boundary mid-tile
+    "batch2_ragged_hw": dict(b=2, h=47, w=155),
 }
+
+
+def k1_library_chain(pyramid, cents, weight, bias, radius):
+    """K1's function as a chain of PyTorch calls (the torchvision
+    formulation): per level ``F.grid_sample`` of the (S, S) offsets around
+    the centroid (align_corners=True, zero padding), the levels
+    concatenated in the reference channel order, the 1x1 projection as
+    ``torch.addmm`` + relu, laid out NCHW. Levels need 2 px a side (the
+    align_corners normalisation divides by size - 1). A yardstick only: the
+    port never calls it."""
+    b, h, w, _ = cents.shape
+    q, s = b * h * w, 2 * radius + 1
+    d = torch.arange(-radius, radius + 1, device=cents.device, dtype=torch.float32)
+    off = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1)  # [i, j] = (d_i, d_j): x, y
+    taps = []
+    for level, vol in enumerate(pyramid):
+        hl, wl = vol.shape[1], vol.shape[2]
+        if min(hl, wl) < 2:
+            raise ValueError(f"k1_library_chain: level {level} is {hl}x{wl}, under 2 px a side")
+        xy = cents.reshape(q, 1, 1, 2) / 2.0**level + off
+        grid = torch.stack((xy[..., 0] * (2.0 / (wl - 1)) - 1.0, xy[..., 1] * (2.0 / (hl - 1)) - 1.0), dim=-1)
+        sampled = torch.nn.functional.grid_sample(vol.view(q, 1, hl, wl), grid, mode="bilinear",
+                                                  padding_mode="zeros", align_corners=True)
+        taps.append(sampled.view(q, s * s))  # channel i*S + j
+    proj = torch.relu(torch.addmm(bias, torch.cat(taps, dim=1), weight.t()))
+    return proj.view(b, h, w, -1).permute(0, 3, 1, 2).contiguous()
 
 
 def lookup_phase(device):
@@ -235,29 +279,38 @@ def lookup_phase(device):
 
     err = {"k1": 0.0, "k2": 0.0, "k4": 0.0}
     for name, kw in LOOKUP_CASES.items():
+        r = kw.get("radius", RADIUS)
         pyr, cents, weight, bias = kernel_inputs(device, **kw)
-        got1 = lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS)
-        got2 = lx.lookup_pyramid_fused(pyr, cents, RADIUS)
-        got4 = lp.lookup_pyramid_pallas(pyr, cents, RADIUS)
+        got1 = lx.lookup_project_fused(pyr, cents, weight, bias, r)
+        got2 = lx.lookup_pyramid_fused(pyr, cents, r)
+        got4 = lp.lookup_pyramid_pallas(pyr, cents, r)
         torch.cuda.synchronize()
-        taps = lx.lookup_pyramid_reference(pyr, cents, RADIUS)
-        e1 = (got1 - lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS)).abs().max().item()
+        taps = lx.lookup_pyramid_reference(pyr, cents, r)
+        e1 = (got1 - lx.lookup_project_reference(pyr, cents, weight, bias, r)).abs().max().item()
         e2 = (got2 - taps).abs().max().item()
-        e4 = (got4 - lp.lookup_pyramid_reference(pyr, cents, RADIUS)).abs().max().item()
+        e4 = (got4 - lp.lookup_pyramid_reference(pyr, cents, r)).abs().max().item()
         levels = [tuple(v.shape[1:]) for v in pyr]
         log(f"kernels {name}: Q={cents.shape[0] * cents.shape[1] * cents.shape[2]} levels={levels} "
-            f"K1 max_abs_err={e1:.3e} (tol {PROJECT_TOL:g}) K2 max_abs_err={e2:.3e} "
-            f"K4 max_abs_err={e4:.3e} (tol {LOOKUP_TOL:g})")
-        if not (e1 <= PROJECT_TOL and e2 <= LOOKUP_TOL and e4 <= LOOKUP_TOL):
+            f"r={r} C_out={weight.shape[0]} K1 max_abs_err={e1:.3e} (tol {PROJECT_TOL:g}) "
+            f"K2 max_abs_err={e2:.3e} K4 max_abs_err={e4:.3e} (tol {LOOKUP_TOL:g})")
+        if not (got1.shape == (cents.shape[0], weight.shape[0]) + cents.shape[1:3]
+                and e1 <= PROJECT_TOL and e2 <= LOOKUP_TOL and e4 <= LOOKUP_TOL):
             raise AssertionError(f"a lookup kernel disagrees with its plain version on {name}")
         err = {"k1": max(err["k1"], e1), "k2": max(err["k2"], e2), "k4": max(err["k4"], e4)}
 
     pyr, cents, weight, bias = kernel_inputs(device, *SINTEL)
     q = cents.shape[0] * cents.shape[1] * cents.shape[2]
     c_in = weight.shape[1]
+    plain1 = lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS)
+    e_lib = (k1_library_chain(pyr, cents, weight, bias, RADIUS) - plain1).abs().max().item()
+    log(f"kernels K1 library chain (grid_sample + addmm + relu) vs plain: max_abs_err={e_lib:.3e} "
+        f"(tol {PROJECT_TOL:g})")
+    if not e_lib <= PROJECT_TOL:
+        raise AssertionError("K1's library chain does not compute K1's function")
     times = {
         "k1": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS)),
         "k1_plain": cuda_ms(lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS)),
+        "k1_library": cuda_ms(lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS)),
         "k2": cuda_ms(lambda: lx.lookup_pyramid_fused(pyr, cents, RADIUS)),
         "k2_plain": cuda_ms(lambda: lx.lookup_pyramid_reference(pyr, cents, RADIUS)),
         "k4": cuda_ms(lambda: lp.lookup_pyramid_pallas(pyr, cents, RADIUS)),
@@ -267,11 +320,17 @@ def lookup_phase(device):
     interp_ops = 11.0 * q * c_in
     windows = window_bytes(pyr, cents, RADIUS)
     in_bytes = windows + cents.numel() * 4
-    b1 = bound(in_bytes + (weight.numel() + bias.numel() + q * C_OUT) * 4,
-               2.0 * q * c_in * C_OUT + 2.0 * q * C_OUT + interp_ops)
+    k1_bytes = in_bytes + (weight.numel() + bias.numel() + q * C_OUT) * 4
+    gemm = 2.0 * q * c_in * C_OUT
+    # K1 runs its product as 3xTF32 on the tensor cores; on the fp32 FMA
+    # units it would be bound by the second
+    b1 = bound(k1_bytes, 2.0 * q * C_OUT + interp_ops, tf32_ops=3.0 * gemm)
+    b1_fma = bound(k1_bytes, gemm + 2.0 * q * C_OUT + interp_ops)
     b2 = bound(in_bytes + q * c_in * 4, interp_ops)
     log(f"kernels sintel timing: window bytes {windows}, "
-        f"K1 {times['k1']:.4f} ms (plain {times['k1_plain']:.4f}, bound {b1[0]:.4f} by {b1[1]}), "
+        f"K1 {times['k1']:.4f} ms (plain {times['k1_plain']:.4f}, library chain {times['k1_library']:.4f}, "
+        f"{times['k1_library'] / times['k1']:.2f}x K1; bound {b1[0]:.4f} by {b1[1]} as 3xTF32, K1 at "
+        f"{b1[0] / times['k1']:.3f} of it; {b1_fma[0]:.4f} by {b1_fma[1]} on fp32 FMA units), "
         f"K2 {times['k2']:.4f} ms (plain {times['k2_plain']:.4f}, bound {b2[0]:.4f} by {b2[1]}), "
         f"K4 {times['k4']:.4f} ms (plain {times['k4_plain']:.4f}, bound {b2[0]:.4f} by {b2[1]})")
 
@@ -281,7 +340,7 @@ def lookup_phase(device):
     k4_launches = read_counts()["k4"]
     if k4_launches != 1:
         raise AssertionError(f"lookup_pyramid_pallas launched K4 {k4_launches} times, expected 1")
-    return err, times, {"k1": b1, "k2": b2, "k4": b2}, k4_launches
+    return err, times, {"k1": b1, "k1_fma": b1_fma, "k2": b2, "k4": b2}, k4_launches
 
 
 VOLUME_CASES = {
@@ -680,6 +739,11 @@ def main() -> int:
     log(f"build corr_pyramid: {hmma} HMMA (tensor-core) instructions in corr_pyramid_kernel's SASS")
     if hmma == 0:
         raise AssertionError("K3 has no tensor-core instructions")
+    hmma1 = hmma_count(libs["lookup_xtap"], "xtap_project_kernel")
+    log(f"build lookup_xtap: {hmma1} HMMA (tensor-core) instructions in xtap_project_kernel's SASS; "
+        f"ptxas: {ptxas_usage(build.build_logs.get('lookup_xtap', ''), 'xtap_project_kernel')}")
+    if hmma1 == 0:
+        raise AssertionError("K1 has no tensor-core instructions")
 
     lookup_err, lookup_times, lookup_bounds, k4_launches = lookup_phase(device)
     k3_err, k3_times = volume_phase(device)
@@ -699,7 +763,8 @@ def main() -> int:
          "replaces": "raft_tpu/kernels/lookup_xtap.py:412", "launches": launches["k1"],
          "path": "FlowEstimator, raft_large fused (main path)", "max_abs_err": lookup_err["k1"],
          "ms": lookup_times["k1"], "plain_ms": lookup_times["k1_plain"], "bound_ms": lookup_bounds["k1"][0],
-         "bound_by": lookup_bounds["k1"][1], "library_ms": None},
+         "bound_by": lookup_bounds["k1"][1], "library_ms": lookup_times["k1_library"],
+         "fp32_fma_bound_ms": lookup_bounds["k1_fma"][0], "hmma": hmma1},
         {"name": "xtap (K2: lookup)", "route": "cuda", "source": lookup_src,
          "replaces": "raft_tpu/kernels/lookup_xtap.py:385", "launches": k2_launches,
          "path": "LazyCorrFeatures.materialize (FlowEstimator launches it 0 times)",

@@ -43,8 +43,11 @@ __all__ = [
 ]
 
 MAX_LEVELS = 8  # the kernel's pyramid descriptor holds at most this many levels
-QUERY_TILE = 32  # queries per thread block
+QUERY_TILE = 32  # K2: queries per thread block
 MAX_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
+# K1's block tile (csrc/lookup_xtap.cu): queries x channels, weight slices
+# of PROJECT_KC columns in a ring of PROJECT_STAGES
+PROJECT_BM, PROJECT_BN, PROJECT_KC, PROJECT_STAGES = 32, 256, 16, 3
 
 
 def lookup_pyramid_reference(
@@ -67,9 +70,28 @@ def lookup_project_reference(
 
 
 def _tile_smem_bytes(num_levels: int, radius: int) -> int:
-    """K1/K2: a tile's taps, rows padded to a multiple of 4 floats."""
+    """K2: a tile's taps, rows padded to a multiple of 4 floats."""
     s = 2 * radius + 1
     return QUERY_TILE * (-(-num_levels * s * s // 4) * 4) * 4
+
+
+def _project_k_pad(c_in: int) -> int:
+    """K1: the product's depth, C_in rounded up to the m16n8k8 step of 8
+    (zero columns in shared memory only)."""
+    return -(-c_in // 8) * 8
+
+
+def _project_smem_bytes(num_levels: int, radius: int) -> int:
+    """K1: the A tile (rows of K padded + 4 floats, 4 mod 8), a region that
+    holds the weight ring, the epilogue tile and at least one level's
+    (S+1)^2 windows, and a 16-byte table entry per (query, level) window;
+    ``project_smem`` in the source."""
+    s1 = 2 * radius + 2
+    lda = _project_k_pad(num_levels * (s1 - 1) ** 2) + 4
+    ring = PROJECT_STAGES * PROJECT_BN * (PROJECT_KC + 4)
+    tile = PROJECT_BN * (PROJECT_BM + 4)  # the epilogue's channel-major tile
+    region = max(ring, tile, PROJECT_BM * s1 * s1)
+    return 4 * (PROJECT_BM * lda + region + 4 * PROJECT_BM * MAX_LEVELS)
 
 
 def _check_no_grad(who: str, *tensors: torch.Tensor) -> None:
@@ -85,7 +107,7 @@ def _check_inputs(who: str, pyramid, centroids: torch.Tensor, radius: int, extra
     """Validate the shared arguments; returns (b, h, w, q).
 
     ``smem_bytes(num_levels, radius)`` is the kernel's dynamic shared
-    memory per block (default: K1/K2's tap tile)."""
+    memory per block (default: K2's tap tile)."""
     if centroids.dim() != 4 or centroids.shape[-1] != 2:
         raise ValueError(f"{who}: centroids must be (B, h, w, 2), got {tuple(centroids.shape)}")
     b, h, w, _ = centroids.shape
@@ -200,7 +222,8 @@ def lookup_project_fused(
     if tuple(bias.shape) != (c_out,):
         raise ValueError(f"{who}: bias must be ({c_out},), got {tuple(bias.shape)}")
     b, h, w, q = _check_inputs(
-        who, pyramid, centroids, radius, extra=[("weight", weight), ("bias", bias)]
+        who, pyramid, centroids, radius, extra=[("weight", weight), ("bias", bias)],
+        smem_bytes=_project_smem_bytes,
     )
     if centroids.device.type == "cpu":
         return lookup_project_reference(pyramid, centroids, weight, bias, radius)

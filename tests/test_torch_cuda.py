@@ -41,6 +41,8 @@ CASES = {
     "odd_dims": (1, 27, 37, 3, 3, (-6.0, 43.0)),
     "radius1_levels6": (1, 64, 64, 1, 6, (-3.0, 67.0)),
     "far_out": (1, 16, 24, 4, 4, (-500.0, 600.0)),
+    "raft_small_fused": (1, 23, 41, 3, 4, (-6.0, 47.0)),  # C_in 196
+    "batch2_ragged_hw": (2, 13, 19, 4, 4, (-6.0, 25.0)),  # 32-query tiles cross the batch at odd h*w
 }
 
 
@@ -74,13 +76,14 @@ def test_k2_matches_plain(cuda_device, case):
     torch.testing.assert_close(got, want, rtol=LOOKUP_TOL, atol=LOOKUP_TOL)
 
 
+@pytest.mark.parametrize("c_out", [256, 96, 48, 20])  # raft_large, raft_small, fixture, ragged
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_k1_matches_plain(cuda_device, case):
+def test_k1_matches_plain(cuda_device, case, c_out):
     pyr, cents, radius = _inputs(case, cuda_device)
     c_in = len(pyr) * (2 * radius + 1) ** 2
     gen = torch.Generator(device="cpu").manual_seed(1)
-    weight = (torch.randn(64, c_in, generator=gen) * 0.1).to(cuda_device)
-    bias = torch.randn(64, generator=gen).to(cuda_device)
+    weight = (torch.randn(c_out, c_in, generator=gen) * 0.1).to(cuda_device)
+    bias = torch.randn(c_out, generator=gen).to(cuda_device)
     before = lookup_project_fused.launches
     got = lookup_project_fused(pyr, cents, weight, bias, radius)
     torch.cuda.synchronize()

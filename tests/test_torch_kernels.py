@@ -7,8 +7,9 @@ Tolerances: 1e-5 for K3 (a 16-48-term fp32 dot per cell, summed in
 another order, then exact-order 2x2 means), 1e-5 for K4 (two 2-term fp32
 interpolations per tap) and K5 in fp32 (sums over H*W in another order);
 bf16 I/O of K5 may differ by one bf16 rounding step (2^-7 relative).
-``TestK3Arithmetic`` emulates K3's 3xTF32 tensor-core arithmetic on the
-CPU against a tenth of the card's K3 tolerance.
+``TestK3Arithmetic`` and ``TestK1Arithmetic`` emulate the 3xTF32
+tensor-core arithmetic of K3 and K1 on the CPU against a tenth of the
+card's tolerance; ``TestK1Tile`` checks the wrapper's view of K1's tile.
 """
 
 import math
@@ -29,7 +30,7 @@ from raft_tpu.kernels.inorm_pallas import instance_norm_pallas as jax_instance_n
 from raft_tpu.kernels.lookup_pallas import lookup_pyramid_pallas as jax_lookup_pyramid_pallas
 from raft_tpu.models import corr as jcorr
 
-from raft_tpu_torch.kernels import corr_pallas, inorm_pallas, lookup_pallas
+from raft_tpu_torch.kernels import corr_pallas, inorm_pallas, lookup_pallas, lookup_xtap
 from raft_tpu_torch.kernels.corr_pallas import PallasCorrBlock, fused_volume_pyramid, level_dims
 from raft_tpu_torch.kernels.inorm_pallas import instance_norm_pallas
 from raft_tpu_torch.kernels.lookup_pallas import lookup_pyramid_pallas
@@ -190,6 +191,85 @@ class TestK3Arithmetic:
         want = corr_pallas.volume_pyramid_reference(f1, f2, 1)[0]
         got = _volume(_tf32(f1), _tf32(f2)).reshape(want.shape)
         assert not torch.allclose(got, want, rtol=VOLUME_TOL, atol=VOLUME_TOL * gain**2)
+
+
+PROJECT_TOL = 1e-4  # K1 against its plain version on the card (tests/test_torch_cuda.py)
+
+
+def _project_3xtf32(taps, weight, bias):
+    """K1's tensor-core arithmetic: taps and weight split once into
+    hi = tf32(x) and lo = tf32(x - hi); lo*hi + hi*lo, then hi*hi, summed in
+    fp32 (the card interleaves the three per 8 channels), then bias + relu."""
+    a_hi, w_hi = _tf32(taps), _tf32(weight)
+    a_lo, w_lo = _tf32(taps - a_hi), _tf32(weight - w_hi)
+    return torch.relu(((a_lo @ w_hi.t() + a_hi @ w_lo.t()) + a_hi @ w_hi.t()) + bias)
+
+
+class TestK1Arithmetic:
+    """Why K1 splits each operand for the tensor cores, at a reduced K1
+    shape (512 queries x C_in 324 x C_out 256, raft_large's widths):
+    3xTF32 stays within a tenth of the card tolerance of the fp32 plain
+    projection, one TF32 pass misses it. Unit-normal taps (the scale of a
+    1/sqrt(C) correlation) and He-scaled weights, seeded."""
+
+    @staticmethod
+    def _operands():
+        rng = np.random.default_rng(324)
+        taps = torch.from_numpy(rng.normal(size=(512, 324)).astype(np.float32))
+        weight = torch.from_numpy((rng.normal(size=(256, 324)) * math.sqrt(2.0 / 256)).astype(np.float32))
+        bias = torch.from_numpy((rng.normal(size=256) * 0.05).astype(np.float32))
+        return taps, weight, bias
+
+    def test_3xtf32_matches_fp32_plain_version(self):
+        taps, weight, bias = self._operands()
+        want = corr.project_taps(taps, weight, bias)
+        got = _project_3xtf32(taps, weight, bias)
+        torch.testing.assert_close(got, want, rtol=PROJECT_TOL / 10, atol=PROJECT_TOL / 10)
+
+    def test_one_tf32_pass_misses_the_tolerance(self):
+        taps, weight, bias = self._operands()
+        want = corr.project_taps(taps, weight, bias)
+        got = torch.relu(_tf32(taps) @ _tf32(weight).t() + bias)
+        assert not torch.allclose(got, want, rtol=PROJECT_TOL, atol=PROJECT_TOL)
+
+
+class TestK1Tile:
+    """The wrapper's view of K1's block tile (``project_smem`` in
+    ``csrc/lookup_xtap.cu``): K padding and shared-memory bytes."""
+
+    @pytest.mark.parametrize("c_in,k_pad", [(324, 328), (196, 200), (147, 152), (54, 56), (8, 8), (1, 8)])
+    def test_k_pads_to_the_mma_step(self, c_in, k_pad):
+        assert lookup_xtap._project_k_pad(c_in) == k_pad
+
+    @pytest.mark.parametrize(
+        "levels,radius,nbytes",
+        [(4, 4, 108032), (4, 3, 91648), (3, 3, 85504), (6, 1, 73216)],
+        ids=["raft_large", "raft_small_fused", "fixture", "r1_l6"],
+    )
+    def test_two_blocks_fit_an_sm_at_the_model_shapes(self, levels, radius, nbytes):
+        smem = lookup_xtap._project_smem_bytes(levels, radius)
+        assert smem == nbytes
+        assert 2 * (smem + 1024) <= 228 * 1024  # the SM's shared memory, 1 KB reserved a block
+
+    def test_rows_are_4_mod_8_floats(self):
+        for c_in in (324, 196, 147, 54):
+            lda = lookup_xtap._project_k_pad(c_in) + 4
+            assert lda % 8 == 4  # conflict-free m16n8k8 A fragments
+        assert (lookup_xtap.PROJECT_KC + 4) % 8 == 4  # the weight ring's rows
+        assert (lookup_xtap.PROJECT_BM + 4) % 16 == 4  # the epilogue tile's rows
+
+    def test_wrapper_refuses_what_the_tile_cannot_hold(self):
+        """8 levels at radius 6 (C_in 1352) need more than a block's shared
+        memory for K1's tile, while K2's tap tile still takes them; radius 5
+        (C_in 968) fits both."""
+        cents = torch.zeros(1, 2, 3, 2)
+        pyr = [torch.zeros(6, 4, 4) for _ in range(8)]
+        assert lookup_xtap._project_smem_bytes(8, 6) > lookup_xtap.MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match="shared memory"):
+            lookup_xtap.lookup_project_fused(pyr, cents, torch.zeros(4, 1352), torch.zeros(4), 6)
+        assert tuple(lookup_xtap.lookup_pyramid_fused(pyr, cents, 6).shape) == (1, 2, 3, 1352)
+        out = lookup_xtap.lookup_project_fused(pyr, cents, torch.zeros(4, 968), torch.zeros(4), 5)
+        assert tuple(out.shape) == (1, 4, 2, 3)
 
 
 class TestLookupK4:
