@@ -6,8 +6,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code 1):
-  1. card: name and power limit from nvidia-smi; TF32 off for matmuls and
-     cuDNN, so fp32 means fp32 in every comparison below;
+  1. card: name and power limit from nvidia-smi; the TF32 flags are left
+     at torch's defaults (the plain versions' matmuls are IEEE fp32 by
+     default, and the model pins its own precision), and logged;
   2. build: every CUDA kernel of the package from this checkout's sources,
      one nvcc per source, all started together (the Triton kernel compiles
      on its first launch, into the same git-ignored ``_build/``), the
@@ -17,27 +18,38 @@ Phases, each of which raises on failure (exit code 1):
      card, at the main paths' shapes and edge cases, with times per launch,
      the card's bound for the same work and, where one PyTorch call or a
      chain of them computes the same function (K1: grid_sample + addmm +
-     relu; K3: the plain matmul + avg_pool2d chain; K5: F.instance_norm),
-     its time; K1 and K3 with two bounds, the product on the fp32 FMA units
-     and as 3xTF32 on the tensor cores against the bytes;
+     relu; K2, K4: grid_sample per level; K3: the plain matmul +
+     avg_pool2d chain; K5: F.instance_norm), its time; then the
+     reduced-precision forms: K1 and K2 on bf16 and int8 levels (K1 with
+     an fp32 and a bf16 product) and K3 storing bf16 levels, each against
+     its plain version, timed, bounded (2x and 4x fewer level bytes) and
+     beside its library chain;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests through
      ``FlowEstimator`` at 32 updates; the launch counts show K1 ran once
      per update, and the same weights through ``corr_impl='dense'`` give
      the same flow; one more request runs under torch.profiler;
   5. materialize path: the block's raw correlation features
-     (``LazyCorrFeatures.materialize``) through K2;
-  6. golden EPE: the trained fixture weights (``tests/fixtures/epe_golden``)
-     read with ``load_msgpack``, Sintel clean and final through
-     ``validate`` at 32 updates with ``corr_impl`` 'pallas' (K3 once per
-     pair), 'fused' (K1 once per update) and 'dense', each held to the
-     reference EPE within 1e-3 px;
-  7. full-width Sintel path: raft_small (full widths, seeded, flow head
+     (``LazyCorrFeatures.materialize``) through K2, on fp32 levels here and
+     on bf16 and int8 levels below;
+  6. throughput path: raft_large through
+     ``FlowEstimator.from_preset("throughput", pretrained=False)`` (bf16
+     convs and pyramid, K1's bf16 product), 3 requests after a warm-up,
+     K1 once per update on bf16 levels, latency, peak memory, a profile;
+     the TF32 flags are checked unchanged after the model calls;
+  7. golden EPE: the trained fixture weights read by
+     ``raft_small(checkpoint=<the fixture's .msgpack>)``, Sintel through
+     ``validate`` at 32 updates at 'pallas', 'fused' and 'quality' (clean
+     and final, 1e-3 px), fused + bf16 corr and 'pallas' + bf16 corr (5e-3
+     px), and the 'throughput' and 'edge' presets (3e-2 px);
+  8. full-width Sintel path: raft_small (full widths, seeded, flow head
      scaled) with ``corr_impl='pallas'``: 3 synthetic 436x1024 pairs
      through ``validate`` (K3 once per pair), fps from
      ``chained_pairs_per_s``, latency and peak memory, the same weights at
      ``'dense'`` giving the same flow, one request under torch.profiler;
-  8. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+  9. bench: ``python -m raft_tpu_torch.bench`` at 2 pairs a configuration,
+     its lines checked against the protocol's schema;
+ 10. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -62,9 +74,10 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "epe_golden"
 
 # NVIDIA H100 SXM published peaks (dense): fp32 outside the tensor cores,
-# TF32 on the tensor cores, HBM3
+# TF32 and bf16 on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 SINTEL = (1, 55, 128)  # the /8 feature grid at 440x1024
@@ -147,16 +160,16 @@ def window_bytes(pyramid, cents, radius) -> int:
         lo = start.clamp(min=0)
         hi = torch.minimum(start + s, torch.tensor([wl - 1.0, hl - 1.0], device=c.device, dtype=c.dtype))
         n = (hi - lo + 1).clamp(min=0)
-        total += int((n[:, 0] * n[:, 1]).sum().item()) * 4
+        total += int((n[:, 0] * n[:, 1]).sum().item()) * vol.element_size()
     return total
 
 
-def bound(nbytes: float, ops: float, tf32_ops: float = 0.0):
+def bound(nbytes: float, ops: float, tf32_ops: float = 0.0, bf16_ops: float = 0.0):
     """The least time in ms for this work: bytes at the HBM rate against
-    ``ops`` at the fp32 FMA rate plus ``tf32_ops`` at the TF32 tensor-core
-    rate, whichever is longer."""
+    ``ops`` at the fp32 FMA rate plus ``tf32_ops`` at the TF32 and
+    ``bf16_ops`` at the bf16 tensor-core rate, whichever is longer."""
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = (ops / PEAK_FP32_FLOPS + tf32_ops / PEAK_TF32_FLOPS) * 1e3
+    t_ops = (ops / PEAK_FP32_FLOPS + tf32_ops / PEAK_TF32_FLOPS + bf16_ops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -246,12 +259,13 @@ LOOKUP_CASES = {
 }
 
 
-def k1_library_chain(pyramid, cents, weight, bias, radius):
-    """K1's function as a chain of PyTorch calls (the torchvision
+def k2_library_chain(pyramid, cents, radius, scales=None):
+    """K2's (and K4's) function as a chain of PyTorch calls (the torchvision
     formulation): per level ``F.grid_sample`` of the (S, S) offsets around
-    the centroid (align_corners=True, zero padding), the levels
-    concatenated in the reference channel order, the 1x1 projection as
-    ``torch.addmm`` + relu, laid out NCHW. Levels need 2 px a side (the
+    the centroid (align_corners=True, zero padding), concatenated in the
+    reference channel order, ``(Q, L*S*S)`` fp32 (bf16 levels widened and
+    int8 levels dequantized by ``scales`` first, grid_sample taking one
+    dtype for values and coordinates). Levels need 2 px a side (the
     align_corners normalisation divides by size - 1). A yardstick only: the
     port never calls it."""
     b, h, w, _ = cents.shape
@@ -262,13 +276,23 @@ def k1_library_chain(pyramid, cents, weight, bias, radius):
     for level, vol in enumerate(pyramid):
         hl, wl = vol.shape[1], vol.shape[2]
         if min(hl, wl) < 2:
-            raise ValueError(f"k1_library_chain: level {level} is {hl}x{wl}, under 2 px a side")
+            raise ValueError(f"k2_library_chain: level {level} is {hl}x{wl}, under 2 px a side")
+        vol = vol.float() * scales[level] if scales is not None else vol.float()
         xy = cents.reshape(q, 1, 1, 2) / 2.0**level + off
         grid = torch.stack((xy[..., 0] * (2.0 / (wl - 1)) - 1.0, xy[..., 1] * (2.0 / (hl - 1)) - 1.0), dim=-1)
         sampled = torch.nn.functional.grid_sample(vol.view(q, 1, hl, wl), grid, mode="bilinear",
                                                   padding_mode="zeros", align_corners=True)
         taps.append(sampled.view(q, s * s))  # channel i*S + j
-    proj = torch.relu(torch.addmm(bias, torch.cat(taps, dim=1), weight.t()))
+    return torch.cat(taps, dim=1)
+
+
+def k1_library_chain(pyramid, cents, weight, bias, radius, scales=None, dtype=torch.float32):
+    """K1's function as a chain of PyTorch calls: :func:`k2_library_chain`,
+    then the 1x1 projection as ``torch.addmm`` + relu at ``dtype``, laid out
+    NCHW. A yardstick only: the port never calls it."""
+    b, h, w, _ = cents.shape
+    taps = k2_library_chain(pyramid, cents, radius, scales).to(dtype)
+    proj = torch.relu(torch.addmm(bias.to(dtype), taps, weight.t().to(dtype)))
     return proj.view(b, h, w, -1).permute(0, 3, 1, 2).contiguous()
 
 
@@ -307,10 +331,17 @@ def lookup_phase(device):
         f"(tol {PROJECT_TOL:g})")
     if not e_lib <= PROJECT_TOL:
         raise AssertionError("K1's library chain does not compute K1's function")
+    taps = lx.lookup_pyramid_reference(pyr, cents, RADIUS)
+    e_lib2 = (k2_library_chain(pyr, cents, RADIUS) - taps.reshape(q, -1)).abs().max().item()
+    log(f"kernels K2/K4 library chain (grid_sample per level) vs plain: max_abs_err={e_lib2:.3e} "
+        f"(tol {PROJECT_TOL:g})")
+    if not e_lib2 <= PROJECT_TOL:
+        raise AssertionError("K2's library chain does not compute K2's function")
     times = {
         "k1": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS)),
         "k1_plain": cuda_ms(lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS)),
         "k1_library": cuda_ms(lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS)),
+        "k2_library": cuda_ms(lambda: k2_library_chain(pyr, cents, RADIUS)),
         "k2": cuda_ms(lambda: lx.lookup_pyramid_fused(pyr, cents, RADIUS)),
         "k2_plain": cuda_ms(lambda: lx.lookup_pyramid_reference(pyr, cents, RADIUS)),
         "k4": cuda_ms(lambda: lp.lookup_pyramid_pallas(pyr, cents, RADIUS)),
@@ -332,7 +363,8 @@ def lookup_phase(device):
         f"{times['k1_library'] / times['k1']:.2f}x K1; bound {b1[0]:.4f} by {b1[1]} as 3xTF32, K1 at "
         f"{b1[0] / times['k1']:.3f} of it; {b1_fma[0]:.4f} by {b1_fma[1]} on fp32 FMA units), "
         f"K2 {times['k2']:.4f} ms (plain {times['k2_plain']:.4f}, bound {b2[0]:.4f} by {b2[1]}), "
-        f"K4 {times['k4']:.4f} ms (plain {times['k4_plain']:.4f}, bound {b2[0]:.4f} by {b2[1]})")
+        f"K4 {times['k4']:.4f} ms (plain {times['k4_plain']:.4f}, bound {b2[0]:.4f} by {b2[1]}); "
+        f"K2/K4 library chain (grid_sample x{LEVELS}) {times['k2_library']:.4f} ms")
 
     reset_counts()  # K4's own entry point, once at the Sintel shapes
     lp.lookup_pyramid_pallas(pyr, cents, RADIUS)
@@ -401,6 +433,147 @@ def volume_phase(device):
                 f"{t['fp32_bound'][0]:.4f} by {t['fp32_bound'][1]} on fp32 FMA units; "
                 f"{nbytes} bytes, {gemm:.4g} GEMM + {pool_ops:.4g} pool operations")
     return err, times
+
+
+# -- the reduced-precision forms of K1, K2 (bf16 / int8 levels) and K3 (bf16) --
+
+INT8_PROJECT_RTOL = 1e-4  # K1, fp32 out from int8 levels: exact integer rows, fp32 sums in another order
+# (storage, product) of each K1 form; K2 has one form per storage
+K1_FORMS = {"k1_bf16": ("bf16", None), "k1_bf16_bf16": ("bf16", torch.bfloat16),
+            "k1_int8": ("int8", None), "k1_int8_bf16": ("int8", torch.bfloat16)}
+K2_FORMS = {"k2_bf16": "bf16", "k2_int8": "int8"}
+
+
+def bf16_ulps(want, n: int = 2) -> float:
+    """``n`` bf16 ulps of the largest magnitude of ``want``: a bf16 output
+    may round the other way when its fp32 value is summed in another order."""
+    top = want.float().abs().max().item()
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def lowp_pyramid(pyr, storage: str):
+    from raft_tpu_torch.kernels.lookup_xtap import quantize_pyramid
+
+    return quantize_pyramid(pyr) if storage == "int8" else [lvl.to(torch.bfloat16) for lvl in pyr]
+
+
+def k1_tolerance(want, storage, proj) -> float:
+    if proj is not None:
+        return bf16_ulps(want)
+    return INT8_PROJECT_RTOL * want.abs().max().item() if storage == "int8" else PROJECT_TOL
+
+
+def lowp_lookup_phase(device):
+    """K1 and K2 on bf16 and int8 levels against their plain versions on
+    every lookup case, and their times, bounds and library chains at
+    raft_large Sintel."""
+    from raft_tpu_torch.kernels import lookup_xtap as lx
+
+    err = {k: 0.0 for k in (*K1_FORMS, *K2_FORMS)}
+    for name, kw in LOOKUP_CASES.items():
+        r = kw.get("radius", RADIUS)
+        pyr32, cents, weight, bias = kernel_inputs(device, **kw)
+        parts = []
+        for key2, storage in K2_FORMS.items():
+            pyr = lowp_pyramid(pyr32, storage)
+            got, want = lx.lookup_pyramid_fused(pyr, cents, r), lx.lookup_pyramid_reference(pyr, cents, r)
+            torch.cuda.synchronize()
+            e, tol = (got.float() - want.float()).abs().max().item(), bf16_ulps(want)
+            parts.append(f"{key2} {e:.3e} (tol {tol:.3e})")
+            if not (got.dtype == want.dtype == torch.bfloat16 and e <= tol):
+                raise AssertionError(f"{key2} disagrees with its plain version on {name}")
+            err[key2] = max(err[key2], e)
+            for key1, (st, proj) in K1_FORMS.items():
+                if st != storage:
+                    continue
+                got = lx.lookup_project_fused(pyr, cents, weight, bias, r, proj)
+                want = lx.lookup_project_reference(pyr, cents, weight, bias, r, proj)
+                torch.cuda.synchronize()
+                e, tol = (got.float() - want.float()).abs().max().item(), k1_tolerance(want, st, proj)
+                parts.append(f"{key1} {e:.3e} (tol {tol:.3e})")
+                if not (got.dtype == want.dtype and e <= tol):
+                    raise AssertionError(f"{key1} disagrees with its plain version on {name}")
+                err[key1] = max(err[key1], e)
+        log(f"kernels low-precision {name}: r={r} C_out={weight.shape[0]} max_abs_err " + ", ".join(parts))
+
+    pyr32, cents, weight, bias = kernel_inputs(device, *SINTEL)
+    q = cents.shape[0] * cents.shape[1] * cents.shape[2]
+    c_in = weight.shape[1]
+    interp_ops = 11.0 * q * c_in
+    gemm = 2.0 * q * c_in * C_OUT
+    times, bounds = {}, {}
+    for storage in ("bf16", "int8"):
+        pyr = lowp_pyramid(pyr32, storage)
+        scales = getattr(pyr, "scales", None)
+        windows = window_bytes(pyr, cents, RADIUS)
+        in_bytes = windows + cents.numel() * 4 + (scales.numel() * 4 if scales is not None else 0)
+        key2 = f"k2_{storage}"
+        times[key2] = {
+            "ms": cuda_ms(lambda: lx.lookup_pyramid_fused(pyr, cents, RADIUS)),
+            "plain_ms": cuda_ms(lambda: lx.lookup_pyramid_reference(pyr, cents, RADIUS)),
+            "library_ms": cuda_ms(lambda: k2_library_chain(pyr, cents, RADIUS, scales)),
+        }
+        bounds[key2] = bound(in_bytes + q * c_in * 2, interp_ops)
+        for key1, (st, proj) in K1_FORMS.items():
+            if st != storage:
+                continue
+            out_bytes = q * C_OUT * (2 if proj is not None else 4)
+            nbytes = in_bytes + (weight.numel() + bias.numel()) * 4 + out_bytes
+            # the bf16 product at the bf16 rate; the fp32 one as K1 runs it, 3xTF32
+            bounds[key1] = (bound(nbytes, 2.0 * q * C_OUT + interp_ops, bf16_ops=gemm) if proj is not None
+                            else bound(nbytes, 2.0 * q * C_OUT + interp_ops, tf32_ops=3.0 * gemm))
+            dt = proj or torch.float32
+            times[key1] = {
+                "ms": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj)),
+                "plain_ms": cuda_ms(lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj)),
+                "library_ms": cuda_ms(lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS, scales, dt)),
+            }
+        log(f"kernels low-precision sintel timing, {storage} levels (window bytes {windows}): " + "; ".join(
+            f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library chain {t['library_ms']:.4f}, "
+            f"bound {bounds[k][0]:.4f} by {bounds[k][1]})" for k, t in times.items() if storage in k))
+    return err, times, bounds
+
+
+def volume_bf16_phase(device):
+    """K3 storing bf16 levels against its plain version on every volume
+    case (the fp32 tolerance plus one bf16 ulp of each cell), timed at
+    raft_small and raft_large Sintel; the plain version is the library
+    chain (matmul, avg_pool2d, a cast)."""
+    from raft_tpu_torch.kernels import corr_pallas as cp
+
+    worst, times = 0.0, {}
+    for name, (b, c, h, w, levels) in VOLUME_CASES.items():
+        gen = torch.Generator(device=device).manual_seed(3)
+        f1 = torch.randn(b, c, h, w, device=device, generator=gen)
+        f2 = torch.randn(b, c, h, w, device=device, generator=gen)
+        got = cp.fused_volume_pyramid(f1, f2, levels, torch.bfloat16)
+        torch.cuda.synchronize()
+        want = cp.volume_pyramid_reference(f1, f2, levels, torch.bfloat16)
+        # the fp32 cells agree within VOLUME_TOL; rounding each to bf16 adds at
+        # most one bf16 ulp of the larger of the two (2^-7 relative)
+        ulps = max(((g.float() - w_.float()).abs() - VOLUME_TOL).clamp(min=0).div(
+            (torch.maximum(g.float().abs(), w_.float().abs()) * 2.0**-7).clamp(min=1e-30)).max().item()
+            for g, w_ in zip(got, want))
+        e = max((g.float() - w_.float()).abs().max().item() for g, w_ in zip(got, want))
+        log(f"kernels K3 bf16 {name}: max_abs_err={e:.3e}, worst cell {ulps:.3f} bf16 ulp beyond the fp32 "
+            f"tolerance {VOLUME_TOL:g} (tol 1)")
+        if not (all(g.dtype == torch.bfloat16 and g.shape == w_.shape for g, w_ in zip(got, want)) and ulps <= 1.0):
+            raise AssertionError(f"K3 bf16 disagrees with its plain version on {name}")
+        worst = max(worst, e)
+        if name in ("raft_small_sintel", "raft_large_sintel"):
+            q = h * w
+            nbytes = 2 * b * c * q * 4 + sum(b * q * g.shape[1] * g.shape[2] * 2 for g in got)
+            gemm = 2.0 * b * q * q * c
+            pool_ops = sum(4.0 * b * q * g.shape[1] * g.shape[2] for g in got[1:])
+            t = {
+                "ms": cuda_ms(lambda: cp.fused_volume_pyramid(f1, f2, levels, torch.bfloat16)),
+                "plain_ms": cuda_ms(lambda: cp.volume_pyramid_reference(f1, f2, levels, torch.bfloat16)),
+                "bound": bound(nbytes, pool_ops, tf32_ops=3.0 * gemm),
+            }
+            times[name] = t
+            log(f"kernels K3 bf16 {name} timing: {t['ms']:.4f} ms (plain = library chain {t['plain_ms']:.4f}); "
+                f"bound {t['bound'][0]:.4f} by {t['bound'][1]} ({nbytes} bytes)")
+    return worst, times
 
 
 INORM_SHAPES = [(1, 32, 220, 512), (1, 64, 220, 512), (2, 16, 24, 32)]
@@ -473,7 +646,7 @@ def main_path(device, card):
     model = rt.raft_large(corr_impl="fused", device=device, seed=0)
     with torch.no_grad():
         model.update_block.flow_head.conv2.weight.mul_(FLOW_HEAD_SCALE)
-    est = rt.FlowEstimator(model, num_flow_updates=UPDATES)
+    est = rt.FlowEstimator(model, num_flow_updates=UPDATES, device=device)
     pairs = [request_pair(seed)[:2] for seed in range(REQUESTS)]
     est(*pairs[0])  # warm-up: cuDNN algorithm choice, allocator growth
     torch.cuda.synchronize()
@@ -500,12 +673,70 @@ def main_path(device, card):
         f"(mean {np.mean(latencies):.3f}), peak device memory {peak} B "
         f"({peak / 2**30:.3f} GiB), card {card}")
 
-    profile_request(est, pairs[0])
+    log_shares("main path", profile_request(est, pairs[0]))
 
     dense = rt.raft_large(corr_impl="dense", device=device)
     dense.load_state_dict(model.state_dict())
-    compare_flows("main path: fused", flows, rt.FlowEstimator(dense, num_flow_updates=UPDATES), pairs)
-    return model, pairs[0], launches
+    compare_flows("main path: fused", flows, rt.FlowEstimator(dense, num_flow_updates=UPDATES, device=device), pairs)
+    return model, pairs, flows, launches
+
+
+def throughput_path(device, card, pairs, quality_flows):
+    """raft_large at the 'throughput' preset (bf16 convs, bf16 pyramid, K1
+    with a bf16 product) through ``FlowEstimator.from_preset`` on seeded
+    weights, the flow head scaled as on the fp32 main path: 3 requests
+    after a warm-up, K1 once per update on bf16 levels, latency, peak
+    memory, one request under torch.profiler (device time and its conv
+    share), and the flow's distance from the fp32 path's (reported, not
+    gated: random weights)."""
+    import raft_tpu_torch as rt
+
+    est = rt.FlowEstimator.from_preset("throughput", pretrained=False, device=device, num_flow_updates=UPDATES)
+    model = est.model
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(FLOW_HEAD_SCALE)
+    est(*pairs[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    flows, latencies = [], []
+    for pair in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flows.append(est(*pair))
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    with torch.inference_mode():
+        x = torch.zeros((1, 3) + tuple(-(-d // 8) * 8 for d in IMAGE), device=device)
+        level_dtype = model.begin_pair(x, x)["pyramid"][0].dtype
+    log(f"throughput path: launches {launches} over {len(pairs)} requests x {UPDATES} updates; pyramid levels "
+        f"{level_dtype}; corr block {type(model.corr_block).__name__} dtype {model.corr_block.dtype}")
+    if launches["k1"] != len(pairs) * UPDATES or level_dtype != torch.bfloat16:
+        raise AssertionError(f"throughput path: K1 launched {launches['k1']} times on {level_dtype} levels")
+    for f in flows:
+        if f.shape != IMAGE + (2,) or not np.isfinite(f).all():
+            raise AssertionError(f"bad flow: shape {f.shape}, finite {np.isfinite(f).all()}")
+    d = [np.abs(a - b) for a, b in zip(flows, quality_flows)]
+    log(f"throughput path: per-request latency ms {[round(t, 3) for t in latencies]} (mean "
+        f"{np.mean(latencies):.3f}), peak device memory {peak} B ({peak / 2**30:.3f} GiB), card {card}; "
+        f"|dflow| vs the fp32 main path mean {np.mean([x.mean() for x in d]):.3e} px, max "
+        f"{max(x.max() for x in d):.3e} px (same seed, bf16: not gated)")
+    log_shares("throughput path", profile_request(est, pairs[0]))
+    return model, launches["k1"]
+
+
+def log_shares(what, prof):
+    """The convolutions' and K1's share of one profiled request's device
+    busy time (cuDNN's kernels carry 'conv' or 'fprop' in their names)."""
+    if prof is None:
+        return
+    by_name, busy_us = prof
+    conv_us = sum(us for name, us in by_name.items() if "conv" in name.lower() or "fprop" in name.lower())
+    k1_us = sum(us for name, us in by_name.items() if "xtap_project_kernel" in name)
+    log(f"{what} profile: convolutions {conv_us / 1e3:.3f} ms = {conv_us / busy_us:.4f} of device busy time "
+        f"({busy_us / 1e3:.3f} ms), K1 {k1_us / 1e3:.3f} ms = {k1_us / busy_us:.4f}")
 
 
 def compare_flows(what, flows, est_dense, pairs):
@@ -556,10 +787,13 @@ def profile_request(est, pair, top: int = 12):
 
 def materialize_path(device, model, pair):
     """The block's raw correlation features at the refined coordinates of
-    one request, through K2, against the dense block."""
+    one request, through K2, against the dense block (fp32 levels) or K2's
+    plain version (bf16 and int8 levels, whose lookup the dense block does
+    not compute). Returns (K2 launches, max abs error)."""
     from raft_tpu_torch import FlowEstimator
     from raft_tpu_torch.eval.padder import InputPadder
-    from raft_tpu_torch.models.corr import CorrBlock, LazyCorrFeatures
+    from raft_tpu_torch.kernels import lookup_xtap as lx
+    from raft_tpu_torch.models.corr import CorrBlock, LazyCorrFeatures, map_levels
 
     im1, im2 = (FlowEstimator._normalize(im) for im in pair)
     p1, p2 = (
@@ -569,37 +803,61 @@ def materialize_path(device, model, pair):
         state = model.begin_pair(p1, p2)
         for _ in range(4):
             state = model.iterate_step(state)
-        pyramid = [lvl.reshape((-1,) + tuple(lvl.shape[2:])) for lvl in state["pyramid"]]
+        pyramid = map_levels(state["pyramid"], lambda lvl: lvl.reshape((-1,) + tuple(lvl.shape[2:])))
         cents = state["coords1"].permute(0, 2, 3, 1).contiguous()
         reset_counts()
         taps = LazyCorrFeatures(model.corr_block, pyramid, cents).materialize()
         torch.cuda.synchronize()
         launches = read_counts()["k2"]
-        want = LazyCorrFeatures(CorrBlock(LEVELS, RADIUS), pyramid, cents).materialize()
-    err = (taps - want).abs().max().item()
-    log(f"materialize path: K2 launches {launches}, taps {tuple(taps.shape)}, "
-        f"max_abs_err vs dense block {err:.3e} (tol {LOOKUP_TOL:g})")
-    if launches != 1 or not err <= LOOKUP_TOL:
+        storage = pyramid[0].dtype
+        if storage == torch.float32:
+            want, tol = LazyCorrFeatures(CorrBlock(LEVELS, RADIUS), pyramid, cents).materialize(), LOOKUP_TOL
+        else:
+            want = lx.lookup_pyramid_reference(pyramid, cents, RADIUS)
+            tol = bf16_ulps(want)
+    err = (taps.float() - want.float()).abs().max().item()
+    log(f"materialize path ({storage} levels): K2 launches {launches}, taps {tuple(taps.shape)} {taps.dtype}, "
+        f"max_abs_err vs {'dense block' if storage == torch.float32 else 'plain version'} {err:.3e} (tol {tol:.3e})")
+    if launches != 1 or not err <= tol:
         raise AssertionError("materialize path did not go through K2 or disagrees")
-    return launches
+    return launches, err
+
+
+# The golden gate's configurations: (label, model knobs or a preset's name,
+# passes, EPE bound, the kernel each pair launches and how often: None for
+# once per update). The bounds are the JAX package's
+# (tests/test_epe_golden.py): 1e-3 px at fp32, 5e-3 at bf16 correlation
+# storage, 3e-2 with bf16 convs (throughput) or int8 storage (edge). The
+# quality preset is fp32 at the architecture's own corr_impl, 'dense'.
+GOLDEN_CONFIGS = [
+    ("pallas", dict(corr_impl="pallas"), ("clean", "final"), EPE_TOL, "k3", 1),
+    ("fused", dict(corr_impl="fused"), ("clean", "final"), EPE_TOL, "k1", None),
+    ("quality", "quality", ("clean", "final"), EPE_TOL, "k3", 0),
+    ("fused + bf16 corr", dict(corr_impl="fused", corr_dtype="bfloat16"), ("clean",), 5e-3, "k1", None),
+    ("throughput", "throughput", ("clean",), 3e-2, "k1", None),
+    ("edge", "edge", ("clean",), 3e-2, "k1", None),
+    ("pallas + bf16 corr", dict(corr_impl="pallas", corr_dtype="bfloat16"), ("clean",), 5e-3, "k3", 1),
+]
 
 
 def golden_phase(device):
     """The trained-weight gate: the fixture's Sintel passes through
-    ``validate`` at each corr_impl, held to the reference EPE."""
+    ``validate`` at each configuration, the weights read by
+    ``raft_small(checkpoint=<the fixture's .msgpack>)``, held to the
+    reference EPE. Returns ({label/pass: EPE}, {label: launches of its
+    kernel})."""
     import raft_tpu_torch as rt
-    from raft_tpu_torch.checkpoint import load_msgpack, state_dict_from_flax
     from raft_tpu_torch.data import Sintel
     from raft_tpu_torch.eval import validate
 
     expected = json.loads((FIXTURE / "expected.json").read_text())
     iters = expected["protocol"]["iters"]
-    state = state_dict_from_flax(load_msgpack(str(FIXTURE / "weights.msgpack")))
-    epes, k3_launches = {}, {}
-    for impl in ("pallas", "fused", "dense"):
-        model = rt.build_raft(rt.RAFT_SMALL.replace(corr_impl=impl, **FIXTURE_ARCH), device=device)
-        model.load_state_dict(state, strict=True)
-        for dstype in ("clean", "final"):
+    epes, launched = {}, {}
+    for label, knobs, passes, tol, kernel, per_pair in GOLDEN_CONFIGS:
+        if isinstance(knobs, str):
+            knobs = rt.ServeConfig.preset(knobs).model_overrides()
+        model = rt.raft_small(checkpoint=str(FIXTURE / "weights.msgpack"), device=device, **FIXTURE_ARCH, **knobs)
+        for dstype in passes:
             ds = Sintel(str(FIXTURE), split="training", dstype=dstype)
             reset_counts()
             m = validate(model, ds, num_flow_updates=iters, mode="sintel", fps_pairs=0)
@@ -608,20 +866,19 @@ def golden_phase(device):
             ref = expected["reference"][dstype]
             gen = expected["ours_at_generation"][dstype]
             worst = max(abs(m[k] - gen[k]) for k in ("1px", "3px", "5px"))
-            log(f"golden EPE {impl} {dstype}: epe {m['epe']:.7f} (reference {ref:.7f}, "
-                f"|d| {abs(m['epe'] - ref):.3e}, tol {EPE_TOL:g}); 1px {m['1px']:.6f} 3px {m['3px']:.6f} "
+            log(f"golden EPE {label} {dstype}: epe {m['epe']:.7f} (reference {ref:.7f}, "
+                f"|d| {abs(m['epe'] - ref):.3e}, tol {tol:g}); 1px {m['1px']:.6f} 3px {m['3px']:.6f} "
                 f"5px {m['5px']:.6f} (max |d| vs generation {worst:.3e}); launches {launches}")
-            want = {"pallas": ("k3", len(ds)), "fused": ("k1", len(ds) * iters), "dense": ("k3", 0)}[impl]
-            if launches[want[0]] != want[1]:
-                raise AssertionError(f"golden {impl} {dstype}: {want[0]} launched {launches[want[0]]}, "
-                                     f"expected {want[1]}")
-            if not (abs(m["epe"] - ref) < EPE_TOL and worst < EPE_TOL):
-                raise AssertionError(f"golden EPE {impl} {dstype} misses the reference")
-            epes[f"{impl}/{dstype}"] = m["epe"]
-            if impl == "pallas":
-                k3_launches[dstype] = launches["k3"]
+            want = len(ds) * (iters if per_pair is None else per_pair)
+            if launches[kernel] != want:
+                raise AssertionError(f"golden {label} {dstype}: {kernel} launched {launches[kernel]}, expected {want}")
+            # the 1/3/5 px shares are pinned at fp32 only, as the JAX gate pins them
+            if not (abs(m["epe"] - ref) < tol and (tol != EPE_TOL or worst < EPE_TOL)):
+                raise AssertionError(f"golden EPE {label} {dstype} misses the reference")
+            epes[f"{label}/{dstype}"] = m["epe"]
+            launched[label] = launched.get(label, 0) + launches[kernel]
     log(f"golden EPE: {json.dumps(epes)}")
-    return epes, k3_launches
+    return epes, launched
 
 
 def shift_pairs(seeds):
@@ -683,7 +940,7 @@ def sintel_path(device, card):
     prepared = [_prepare(data[i], "sintel")[0] for i in range(len(data))]
     fps = chained_pairs_per_s(model, [p["image1"] for p in prepared], [p["image2"] for p in prepared],
                               num_flow_updates=UPDATES)
-    est = rt.FlowEstimator(model, num_flow_updates=UPDATES)
+    est = rt.FlowEstimator(model, num_flow_updates=UPDATES, device=device)
     flows, latencies = [], []
     for s in data.samples:
         torch.cuda.synchronize()
@@ -699,7 +956,7 @@ def sintel_path(device, card):
 
     dense = rt.raft_small(corr_impl="dense", device=device)
     dense.load_state_dict(model.state_dict())
-    compare_flows("sintel path: pallas", flows, rt.FlowEstimator(dense, num_flow_updates=UPDATES),
+    compare_flows("sintel path: pallas", flows, rt.FlowEstimator(dense, num_flow_updates=UPDATES, device=device),
                   [(s["image1"], s["image2"]) for s in data.samples])
 
     prof = profile_request(est, (data.samples[0]["image1"], data.samples[0]["image2"]))
@@ -713,6 +970,41 @@ def sintel_path(device, card):
     return launches["k3"]
 
 
+def bench_phase():
+    """``python -m raft_tpu_torch.bench`` at 2 pairs a configuration, in
+    this process (its kernels are built): the lines and their schema. The
+    full protocol is 128 pairs, the command logged here."""
+    import contextlib
+    import io
+
+    from raft_tpu_torch import bench
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--pairs", "2"])
+    lines = [json.loads(s) for s in out.getvalue().strip().splitlines()]
+    for line in lines:
+        log(f"bench: {json.dumps(line)}")
+    want = ["raft_small_sintel_fps_exact", "raft_small_sintel_fps_native", "raft_small_sintel_fps_b8",
+            "raft_small_sintel_fps", "raft_large_sintel_fps_exact", "raft_large_sintel_fps_b8",
+            "raft_large_sintel_fps"]
+    metrics = lines[1:]
+    ok = rc == 0 and [m["metric"] for m in metrics] == want and all(
+        {"metric", "value", "unit", "vs_baseline", "config"} <= set(m) and m["value"] > 0
+        and "tf32=off" in m["config"] for m in metrics) and lines[0].get("card")
+    log(f"bench: schema {'ok' if ok else 'WRONG'}, {time.perf_counter() - t0:.1f} s at --pairs 2; the full "
+        "protocol is `python -m raft_tpu_torch.bench` (128 pairs a configuration)")
+    if not ok:
+        raise AssertionError("the bench's lines do not follow its protocol")
+
+
+def tf32_flags():
+    """The TF32 settings of cuDNN convolutions and cuBLAS matmuls as the
+    per-operator API reads them (it reads legacy settings too)."""
+    return torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
@@ -724,9 +1016,10 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("tf32: off for cuBLAS matmuls and cuDNN convolutions (fp32 comparisons)")
+    # No global TF32 switch: the plain versions' matmuls are IEEE fp32 by
+    # PyTorch's default, and the model pins fp32 itself (F2).
+    flags = tf32_flags()
+    log(f"tf32 flags left at torch's defaults: cudnn.conv {flags[0]!r}, cuda.matmul {flags[1]!r}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -740,54 +1033,89 @@ def main() -> int:
     if hmma == 0:
         raise AssertionError("K3 has no tensor-core instructions")
     hmma1 = hmma_count(libs["lookup_xtap"], "xtap_project_kernel")
-    log(f"build lookup_xtap: {hmma1} HMMA (tensor-core) instructions in xtap_project_kernel's SASS; "
-        f"ptxas: {ptxas_usage(build.build_logs.get('lookup_xtap', ''), 'xtap_project_kernel')}")
+    log(f"build lookup_xtap: {hmma1} HMMA (tensor-core) instructions in xtap_project_kernel's SASS "
+        f"(its six forms); ptxas: {ptxas_usage(build.build_logs.get('lookup_xtap', ''), 'xtap_project_kernel')}")
     if hmma1 == 0:
         raise AssertionError("K1 has no tensor-core instructions")
 
     lookup_err, lookup_times, lookup_bounds, k4_launches = lookup_phase(device)
+    lowp_err, lowp_times, lowp_bounds = lowp_lookup_phase(device)
     k3_err, k3_times = volume_phase(device)
+    k3b_err, k3b_times = volume_bf16_phase(device)
     t0 = time.perf_counter()
     k5_err, k5_times, k5_launches = inorm_phase(device)
     log(f"kernels K5 phase (Triton compiles included) {time.perf_counter() - t0:.2f} s")
-    model, pair, launches = main_path(device, card)
-    k2_launches = materialize_path(device, model, pair)
-    del model
-    golden_phase(device)
+
+    model, pairs, quality_flows, launches = main_path(device, card)
+    k2_launches, _ = materialize_path(device, model, pairs[0])
+    throughput_model, k1_throughput = throughput_path(device, card, pairs, quality_flows)
+    k2b_launches, _ = materialize_path(device, throughput_model, pairs[0])
+    del throughput_model
+    import raft_tpu_torch as rt
+
+    edge_model = rt.raft_large(corr_impl="fused", corr_dtype="int8", device=device)
+    edge_model.load_state_dict(model.state_dict())
+    k2q_launches, _ = materialize_path(device, edge_model, pairs[0])
+    del model, edge_model
+    if tf32_flags() != flags:
+        raise AssertionError(f"the model left the tf32 flags changed: {tf32_flags()} after {flags}")
+    log(f"tf32 flags after the main paths: unchanged, {tf32_flags()}")
+    _, golden_launches = golden_phase(device)
     k3_launches = sintel_path(device, card)
+    bench_phase()
 
     k3 = k3_times["raft_small_sintel"]
+    k3b = k3b_times["raft_small_sintel"]
     lookup_src = "raft_tpu_torch/kernels/csrc/lookup_xtap.cu"
+
+    def entry(name, source, replaces, launches_, path, err, t, b, route="cuda", **extra):
+        return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches_,
+                "path": path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": t.get("library_ms"), **extra}
+
+    k1_src, k2_src = "raft_tpu/kernels/lookup_xtap.py:412", "raft_tpu/kernels/lookup_xtap.py:385"
+    k1 = {"ms": lookup_times["k1"], "plain_ms": lookup_times["k1_plain"], "library_ms": lookup_times["k1_library"]}
+    k2 = {"ms": lookup_times["k2"], "plain_ms": lookup_times["k2_plain"], "library_ms": lookup_times["k2_library"]}
+    k4 = {"ms": lookup_times["k4"], "plain_ms": lookup_times["k4_plain"], "library_ms": lookup_times["k2_library"]}
+    k3_lib = "raft_tpu_torch/kernels/csrc/corr_pyramid.cu"
     kernels = [
-        {"name": "xtap_project (K1: lookup + convcorr1)", "route": "cuda", "source": lookup_src,
-         "replaces": "raft_tpu/kernels/lookup_xtap.py:412", "launches": launches["k1"],
-         "path": "FlowEstimator, raft_large fused (main path)", "max_abs_err": lookup_err["k1"],
-         "ms": lookup_times["k1"], "plain_ms": lookup_times["k1_plain"], "bound_ms": lookup_bounds["k1"][0],
-         "bound_by": lookup_bounds["k1"][1], "library_ms": lookup_times["k1_library"],
-         "fp32_fma_bound_ms": lookup_bounds["k1_fma"][0], "hmma": hmma1},
-        {"name": "xtap (K2: lookup)", "route": "cuda", "source": lookup_src,
-         "replaces": "raft_tpu/kernels/lookup_xtap.py:385", "launches": k2_launches,
-         "path": "LazyCorrFeatures.materialize (FlowEstimator launches it 0 times)",
-         "max_abs_err": lookup_err["k2"], "ms": lookup_times["k2"], "plain_ms": lookup_times["k2_plain"],
-         "bound_ms": lookup_bounds["k2"][0], "bound_by": lookup_bounds["k2"][1], "library_ms": None},
-        {"name": "corr_pyramid (K3: volume + pooled pyramid)", "route": "cuda",
-         "source": "raft_tpu_torch/kernels/csrc/corr_pyramid.cu",
-         "replaces": "raft_tpu/kernels/corr_pallas.py:64", "launches": k3_launches,
-         "path": f"validate, raft_small pallas, {REQUESTS} pairs 436x1024", "max_abs_err": k3_err,
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
-         "library_ms": k3["plain_ms"], "fp32_fma_bound_ms": k3["fp32_bound"][0], "hmma": hmma},
-        {"name": "lookup_dense (K4: separable lookup)", "route": "cuda",
-         "source": "raft_tpu_torch/kernels/csrc/lookup_dense.cu",
-         "replaces": "raft_tpu/kernels/lookup_pallas.py:50", "launches": k4_launches,
-         "path": "lookup_pyramid_pallas (own entry point)", "max_abs_err": lookup_err["k4"],
-         "ms": lookup_times["k4"], "plain_ms": lookup_times["k4_plain"], "bound_ms": lookup_bounds["k4"][0],
-         "bound_by": lookup_bounds["k4"][1], "library_ms": None},
-        {"name": "instance_norm (K5: stats + normalize)", "route": "triton",
-         "source": "raft_tpu_torch/kernels/inorm_pallas.py",
-         "replaces": "raft_tpu/kernels/inorm_pallas.py:47", "launches": k5_launches,
-         "path": "instance_norm_pallas (own entry point)", "max_abs_err": k5_err["fp32"],
-         "ms": k5_times["ms"], "plain_ms": k5_times["plain_ms"], "bound_ms": k5_times["bound"][0],
-         "bound_by": k5_times["bound"][1], "library_ms": k5_times["library_ms"]},
+        entry("xtap_project (K1: lookup + convcorr1), fp32 levels, 3xTF32 product", lookup_src, k1_src,
+              launches["k1"], "FlowEstimator, raft_large fused fp32 (main path)", lookup_err["k1"], k1,
+              lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1),
+        entry("xtap_project (K1), bf16 levels, 3xTF32 product", lookup_src, k1_src,
+              golden_launches["fused + bf16 corr"], "validate, golden fixture at fused + bf16 corr (clean)",
+              lowp_err["k1_bf16"], lowp_times["k1_bf16"], lowp_bounds["k1_bf16"]),
+        entry("xtap_project (K1), bf16 levels, bf16 product", lookup_src, k1_src, k1_throughput,
+              "FlowEstimator.from_preset('throughput'), raft_large (main path)", lowp_err["k1_bf16_bf16"],
+              lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"]),
+        entry("xtap_project (K1), int8 levels, 3xTF32 product", lookup_src, k1_src, golden_launches["edge"],
+              "validate, golden fixture at 'edge' (clean)", lowp_err["k1_int8"], lowp_times["k1_int8"],
+              lowp_bounds["k1_int8"]),
+        entry("xtap_project (K1), int8 levels, bf16 product", lookup_src, k1_src, 0,
+              "no preset runs it (int8 storage with bf16 convs); kernels phase only", lowp_err["k1_int8_bf16"],
+              lowp_times["k1_int8_bf16"], lowp_bounds["k1_int8_bf16"]),
+        entry("xtap (K2: lookup), fp32 levels", lookup_src, k2_src, k2_launches,
+              "LazyCorrFeatures.materialize, raft_large fused fp32 (FlowEstimator launches it 0 times)",
+              lookup_err["k2"], k2, lookup_bounds["k2"]),
+        entry("xtap (K2), bf16 levels, bf16 taps", lookup_src, k2_src, k2b_launches,
+              "LazyCorrFeatures.materialize, raft_large 'throughput'", lowp_err["k2_bf16"], lowp_times["k2_bf16"],
+              lowp_bounds["k2_bf16"]),
+        entry("xtap (K2), int8 levels, bf16 taps", lookup_src, k2_src, k2q_launches,
+              "LazyCorrFeatures.materialize, raft_large 'edge'", lowp_err["k2_int8"], lowp_times["k2_int8"],
+              lowp_bounds["k2_int8"]),
+        entry("corr_pyramid (K3: volume + pooled pyramid), fp32 levels", k3_lib,
+              "raft_tpu/kernels/corr_pallas.py:64", k3_launches,
+              f"validate, raft_small pallas, {REQUESTS} pairs 436x1024", k3_err,
+              dict(k3, library_ms=k3["plain_ms"]), k3["bound"], fp32_fma_bound_ms=k3["fp32_bound"][0], hmma=hmma),
+        entry("corr_pyramid (K3), bf16 levels", k3_lib, "raft_tpu/kernels/corr_pallas.py:64",
+              golden_launches["pallas + bf16 corr"], "validate, golden fixture at pallas + bf16 corr (clean)",
+              k3b_err, dict(k3b, library_ms=k3b["plain_ms"]), k3b["bound"]),
+        entry("lookup_dense (K4: separable lookup)", "raft_tpu_torch/kernels/csrc/lookup_dense.cu",
+              "raft_tpu/kernels/lookup_pallas.py:50", k4_launches, "lookup_pyramid_pallas (own entry point)",
+              lookup_err["k4"], k4, lookup_bounds["k4"]),
+        entry("instance_norm (K5: stats + normalize)", "raft_tpu_torch/kernels/inorm_pallas.py",
+              "raft_tpu/kernels/inorm_pallas.py:47", k5_launches, "instance_norm_pallas (own entry point)",
+              k5_err["fp32"], k5_times, k5_times["bound"], route="triton"),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

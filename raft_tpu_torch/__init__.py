@@ -8,10 +8,23 @@ unless ``device='cpu'`` is passed.
     from raft_tpu_torch import FlowEstimator, raft_large
     estimate = FlowEstimator(raft_large(corr_impl="fused"))
     flow = estimate(image1, image2)   # (H, W, 2) float32 numpy, pixels
+
+    # a deployment preset: 'quality' | 'throughput' | 'edge'
+    estimate = FlowEstimator.from_preset("throughput", checkpoint="raft_large.msgpack")
 """
 
 from raft_tpu_torch.inference import FlowEstimator, FlowStream
-from raft_tpu_torch.models import RAFT, RAFT_LARGE, RAFT_SMALL, RAFTConfig, build_raft, raft_large, raft_small
+from raft_tpu_torch.models import (
+    RAFT,
+    RAFT_LARGE,
+    RAFT_SMALL,
+    RAFTConfig,
+    build_raft,
+    raft_for_serving,
+    raft_large,
+    raft_small,
+)
+from raft_tpu_torch.serve import ServeConfig
 
 __all__ = [
     "FlowEstimator",
@@ -20,7 +33,9 @@ __all__ = [
     "RAFTConfig",
     "RAFT_LARGE",
     "RAFT_SMALL",
+    "ServeConfig",
     "build_raft",
+    "raft_for_serving",
     "raft_large",
     "raft_small",
 ]

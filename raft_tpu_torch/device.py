@@ -1,17 +1,23 @@
-"""Device resolution for the port's entry points.
+"""Device resolution and numeric precision for the port's entry points.
 
 Every entry point runs on the CUDA card unless the caller asks for the CPU
 by name: a machine without a card raises instead of silently falling back,
 so a CPU run can never be mistaken for a run on the card.
+
+:func:`fp32_precision` pins what ``float32`` means while the port runs a
+model: IEEE fp32 convolutions and matmuls, whatever TF32 flags the caller
+has set globally (PyTorch lets cuDNN convolutions use TF32 by default).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+import threading
+from typing import Iterator, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "fp32_precision"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -25,3 +31,48 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+# fp32_precision's state: how many blocks are open, in any thread, and the
+# settings they found when the first of them opened
+_lock = threading.Lock()
+_depth = 0
+_saved: tuple = ()
+
+
+def _knobs() -> tuple:
+    """The per-operator ``fp32_precision`` settings of cuDNN convolutions
+    and cuBLAS matmuls."""
+    return torch.backends.cudnn.conv, torch.backends.cuda.matmul
+
+
+@contextlib.contextmanager
+def fp32_precision() -> Iterator[None]:
+    """IEEE fp32 convolutions and matmuls while any such block is open, in
+    any thread; the settings found by the first block come back when the
+    last one closes.
+
+    It reads and writes only the per-operator ``fp32_precision`` API
+    (PyTorch >= 2.9): reading the legacy ``allow_tf32`` flags raises once a
+    caller has used the new API, while the new API reads either kind of
+    setting and restoring its values restores the legacy view too. The
+    settings are process-global, so the blocks of all threads share one
+    count under a lock: a thread that closes its block while another still
+    runs leaves the pin in place. Harmless on the CPU, where no setting is
+    read.
+    """
+    global _depth, _saved
+    with _lock:
+        if _depth == 0:
+            _saved = tuple(k.fp32_precision for k in _knobs())
+            for k in _knobs():
+                k.fp32_precision = "ieee"
+        _depth += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _depth -= 1
+            if _depth == 0:
+                for k, value in zip(_knobs(), _saved):
+                    k.fp32_precision = value

@@ -47,6 +47,34 @@ class FlowEstimator:
         self.num_flow_updates = num_flow_updates
         self.pad_mode = pad_mode
 
+    @classmethod
+    def from_preset(
+        cls,
+        preset: str = "throughput",
+        *,
+        arch: str = "raft_large",
+        pretrained: bool = True,
+        checkpoint: Optional[str] = None,
+        device=None,
+        seed: int = 0,
+        **kw,
+    ) -> "FlowEstimator":
+        """An estimator at a named deployment precision preset
+        (``'quality'``, ``'throughput'``, the default, or ``'edge'``; see
+        :mod:`raft_tpu_torch.serve.config`). Weights come from
+        ``checkpoint`` (a ``.pth`` or a Flax ``.msgpack``); ``pretrained``
+        without a checkpoint raises, since nothing is ever fetched, and
+        ``pretrained=False`` gives seeded random weights. Extra ``**kw`` go
+        to :class:`FlowEstimator`."""
+        from raft_tpu_torch.models.zoo import raft_for_serving
+        from raft_tpu_torch.serve.config import ServeConfig
+
+        model = raft_for_serving(
+            ServeConfig.preset(preset), arch=arch, pretrained=pretrained,
+            checkpoint=checkpoint, device=device, seed=seed,
+        )
+        return cls(model, device=device, **kw)
+
     @staticmethod
     def _normalize(img) -> np.ndarray:
         """[0, 255] uint8/float -> [-1, 1] float32 ``(B, H, W, 3)``."""

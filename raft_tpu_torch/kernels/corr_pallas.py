@@ -13,6 +13,12 @@ version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises, at every width (no fallback). It counts its launches in
 ``fused_volume_pyramid.launches``.
 
+``out_dtype=torch.bfloat16`` is the JAX kernel's ``out_dtype``: the volume
+still accumulates and pools in fp32, and each level is rounded to bf16
+(round to nearest even) where it is stored, so level l is ``bf16(fp32 level
+l)``. The dense block's bf16 pyramid (``CorrBlock(dtype=bf16)``) casts the
+volume before pooling instead; both forms are kept, as in the JAX package.
+
 The kernel is inference-only, as the JAX package's is (``pallas_call`` has
 no autodiff rule): a call with grad enabled on inputs that require grad
 raises.
@@ -51,10 +57,12 @@ def level_dims(h: int, w: int, num_levels: int) -> List[tuple]:
 
 
 def volume_pyramid_reference(
-    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int
+    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int, out_dtype=torch.float32
 ) -> List[torch.Tensor]:
-    """Plain version of K3: ``num_levels`` levels of ``(B*h*w, hl, wl)``."""
-    return pool_pyramid(correlation_volume(fmap1, fmap2), num_levels)
+    """Plain version of K3: ``num_levels`` levels of ``(B*h*w, hl, wl)``,
+    pooled in fp32 and stored as ``out_dtype``."""
+    levels = pool_pyramid(correlation_volume(fmap1, fmap2), num_levels)
+    return [lvl.to(out_dtype) for lvl in levels]
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,24 +71,27 @@ def _lib() -> ctypes.CDLL:
     lib.corr_pyramid_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.corr_pyramid_launch.restype = ctypes.c_int
     return lib
 
 
 def fused_volume_pyramid(
-    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4
+    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, out_dtype=torch.float32
 ) -> List[torch.Tensor]:
     """K3: the correlation pyramid of two NCHW feature maps in one kernel.
 
     Args:
         fmap1, fmap2: ``(B, C, h, w)`` fp32 contiguous, on one device.
         num_levels: 1..:data:`MAX_LEVELS`; every level must keep >= 1 px.
+        out_dtype: ``torch.float32`` or ``torch.bfloat16`` storage.
     Returns:
-        ``num_levels`` fp32 levels of ``(B*h*w, hl, wl)``.
+        ``num_levels`` levels of ``(B*h*w, hl, wl)`` in ``out_dtype``.
     """
     who = "fused_volume_pyramid"
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{who}: out_dtype must be float32 or bfloat16, got {out_dtype}")
     if torch.is_grad_enabled() and (fmap1.requires_grad or fmap2.requires_grad):
         raise RuntimeError(
             f"{who} is inference-only: its inputs require grad. Run under "
@@ -105,16 +116,16 @@ def fused_volume_pyramid(
     if fmap1.device != fmap2.device or fmap1.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{who}: maps on {fmap1.device} and {fmap2.device}")
     if fmap1.device.type == "cpu":
-        return volume_pyramid_reference(fmap1, fmap2, num_levels)
+        return volume_pyramid_reference(fmap1, fmap2, num_levels, out_dtype)
     q = h * w
-    outs = [torch.empty((b * q, hl, wl), device=fmap1.device, dtype=torch.float32) for hl, wl in dims]
+    outs = [torch.empty((b * q, hl, wl), device=fmap1.device, dtype=out_dtype) for hl, wl in dims]
     ptrs = (ctypes.c_void_p * num_levels)(*[o.data_ptr() for o in outs])
     lib = _lib()
     with torch.cuda.device(fmap1.device):
         stream = torch.cuda.current_stream(fmap1.device).cuda_stream
         rc = lib.corr_pyramid_launch(
             fmap1.data_ptr(), fmap2.data_ptr(), ptrs, b, c, h, w, num_levels,
-            1.0 / math.sqrt(c), stream,
+            1.0 / math.sqrt(c), int(out_dtype == torch.bfloat16), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{who}: kernel launch failed with cudaError_t {rc}")
@@ -127,10 +138,16 @@ fused_volume_pyramid.launches = 0
 
 class PallasCorrBlock(CorrBlock):
     """Dense correlation block whose pyramid build runs in K3
-    (``corr_impl='pallas'``). Lookup and projection stay the plain
-    separable matmuls of :class:`CorrBlock`, as in the JAX package, where
-    the lookup runs in XLA outside any kernel."""
+    (``corr_impl='pallas'``), storing its levels in ``dtype`` (``None``:
+    fp32). Lookup and projection stay the plain separable matmuls of
+    :class:`CorrBlock` (bf16 weights and rows at bf16), as in the JAX
+    package, where the lookup runs in XLA outside any kernel. bf16 feature
+    maps (bf16 convs) are widened to fp32 exactly; their products stay
+    exact in the kernel's fp32 accumulation, as in the JAX kernel's."""
 
     def build_pyramid(self, fmap1: torch.Tensor, fmap2: torch.Tensor) -> List[torch.Tensor]:
         self.check_fmaps(fmap1, fmap2)
-        return fused_volume_pyramid(fmap1.contiguous(), fmap2.contiguous(), self.num_levels)
+        return fused_volume_pyramid(
+            fmap1.float().contiguous(), fmap2.float().contiguous(), self.num_levels,
+            self.dtype or torch.float32,
+        )

@@ -71,7 +71,18 @@
 //     them; nothing is padded in device memory.
 //   * about 102 KB of shared memory and <= 128 registers a thread for
 //     L <= 4: two blocks an SM.
+//
+// bf16 storage (corr_pallas.py out_dtype, l.77, 97, 106, 227; the
+// corr_impl='pallas' block at corr_dtype bf16): the volume accumulates and
+// pools in fp32 exactly as above, and each cell is rounded to bf16
+// (round to nearest even, __float2bfloat16_rn) only where it is stored, so
+// level l is bf16(fp32 level l). This is the JAX kernel's semantics, and
+// differs from the dense block's bf16 pyramid, which casts the volume to
+// bf16 before pooling. It halves the 261 MB of levels written at raft_small
+// Sintel: the byte bound falls from 0.080 to 0.041 ms, below the 3xTF32
+// product's 0.077 ms, which then bounds the kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,7 +97,7 @@ constexpr int kMaxLevels = 6;
 constexpr size_t kMaxSmem = 232448;
 
 struct Levels {
-  float* out[kMaxLevels];
+  void* out[kMaxLevels];  // OutT: float or __nv_bfloat16
   int h[kMaxLevels];
   int w[kMaxLevels];
   int num;
@@ -119,6 +130,20 @@ struct Tile {
   static_assert(WM % 16 == 0 && WN % 8 == 0 && KC % 8 == 0, "m16n8k8 fragments");
   static_assert(BM % 4 == 0 && BN % 4 == 0, "16-byte chunks");
 };
+
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Four consecutive cells, 16-byte (fp32) or 8-byte (bf16) aligned.
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -231,7 +256,7 @@ __device__ __forceinline__ void load_stage(float* as, float* bs, const float* f1
   }
 }
 
-template <int BM, int BN, int WM, int WN, int KC>
+template <int BM, int BN, int WM, int WN, int KC, typename OutT>
 __global__ void __launch_bounds__(kThreads, 2)
 corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, Levels lv, Geometry g) {
   using T = Tile<BM, BN, WM, WN, KC>;
@@ -334,7 +359,7 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, 
 
   // level 0: each existing cell of the tile once
   {
-    float* out = lv.out[0];
+    OutT* out = static_cast<OutT*>(lv.out[0]);
     const int64_t row0 = int64_t(b) * g.q + q0;
     if (g.vec_out) {
       constexpr int kRow = BN / 4;
@@ -344,8 +369,7 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, 
         const int y = y0 + (j >> g.tw_log2);
         const int x = x0 + (j & (g.tw - 1));
         if (t < nq && y < g.h && x < g.w)
-          *reinterpret_cast<float4*>(out + (row0 + t) * g.q + y * g.w + x) =
-              *reinterpret_cast<const float4*>(tile + t * T::kLdt + j);
+          store4(out + (row0 + t) * g.q + y * g.w + x, *reinterpret_cast<const float4*>(tile + t * T::kLdt + j));
       }
     } else {
       for (int i = tid; i < BM * BN; i += kThreads) {
@@ -353,7 +377,7 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, 
         const int j = i - t * BN;
         const int y = y0 + (j >> g.tw_log2);
         const int x = x0 + (j & (g.tw - 1));
-        if (t < nq && y < g.h && x < g.w) out[(row0 + t) * g.q + y * g.w + x] = tile[t * T::kLdt + j];
+        if (t < nq && y < g.h && x < g.w) store_val(out + (row0 + t) * g.q + y * g.w + x, tile[t * T::kLdt + j]);
       }
     }
   }
@@ -377,7 +401,7 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, 
     const int wl = lv.w[l];
     const int yl0 = y0 >> l;
     const int xl0 = x0 >> l;
-    float* out = lv.out[l];
+    OutT* out = static_cast<OutT*>(lv.out[l]);
     for (int idx = tid; idx < (BM << pq_log2); idx += kThreads) {
       const int t = idx >> pq_log2;
       const int rr = (idx >> wd_log2) & ((1 << rd_log2) - 1);
@@ -389,7 +413,7 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, 
       dst[idx] = v;
       const int yl = yl0 + rr;
       const int xl = xl0 + cc;
-      if (t < nq && yl < hl && xl < wl) out[((int64_t(b) * g.q + q0 + t) * hl + yl) * wl + xl] = v;
+      if (t < nq && yl < hl && xl < wl) store_val(out + ((int64_t(b) * g.q + q0 + t) * hl + yl) * wl + xl, v);
     }
     __syncthreads();
     src = dst;
@@ -400,7 +424,7 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2, 
   }
 }
 
-template <int BM, int BN, int WM, int WN, int KC>
+template <int BM, int BN, int WM, int WN, int KC, typename OutT>
 int launch(const float* f1, const float* f2, const Levels& lv, Geometry g, int b, cudaStream_t stream) {
   using T = Tile<BM, BN, WM, WN, KC>;
   g.tw = BN / g.band;
@@ -414,7 +438,7 @@ int launch(const float* f1, const float* f2, const Levels& lv, Geometry g, int b
   for (int l = 1; l < lv.num; ++l) pooled += size_t(g.band >> l) * size_t(g.tw >> l);
   const size_t smem = std::max(size_t(T::kRing), size_t(BM) * (T::kLdt + pooled)) * sizeof(float);
   if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
-  auto kernel = corr_pyramid_kernel<BM, BN, WM, WN, KC>;
+  auto kernel = corr_pyramid_kernel<BM, BN, WM, WN, KC, OutT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -431,11 +455,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 extern "C" {
 
-// K3: f1, f2 (B, C, h, w) fp32 contiguous; outs[l] (B*h*w, h_l, w_l) fp32
-// with h_l = h_{l-1} / 2, w_l = w_{l-1} / 2, every level at least 1x1.
-// Returns a cudaError_t.
+// K3: f1, f2 (B, C, h, w) fp32 contiguous; outs[l] (B*h*w, h_l, w_l), fp32
+// or bf16 when out_bf16, with h_l = h_{l-1} / 2, w_l = w_{l-1} / 2, every
+// level at least 1x1. Returns a cudaError_t.
 int corr_pyramid_launch(const void* f1, const void* f2, void* const* outs, int b, int c, int h,
-                        int w, int num_levels, float scale, void* stream) {
+                        int w, int num_levels, float scale, int out_bf16, void* stream) {
   if (b < 1 || c < 1 || h < 1 || w < 1 || num_levels < 1 || num_levels > kMaxLevels)
     return int(cudaErrorInvalidValue);
   if (int64_t(h) * w > (int64_t(1) << 30)) return int(cudaErrorInvalidValue);
@@ -445,7 +469,7 @@ int corr_pyramid_launch(const void* f1, const void* f2, void* const* outs, int b
   for (int l = 0; l < kMaxLevels; ++l) {
     if (l < num_levels) {
       if (hl < 1 || wl < 1 || outs[l] == nullptr) return int(cudaErrorInvalidValue);
-      lv.out[l] = static_cast<float*>(outs[l]);
+      lv.out[l] = outs[l];
       lv.h[l] = hl;
       lv.w[l] = wl;
       hl /= 2;
@@ -472,9 +496,15 @@ int corr_pyramid_launch(const void* f1, const void* f2, void* const* outs, int b
   const float* k = static_cast<const float*>(f2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // BM x BN = R rows x TW columns of keys; warp tiles hold 64 accumulators
-  if (num_levels <= 4) return launch<128, 128, 64, 32, 32>(a, k, lv, g, b, s);
-  if (num_levels == 5) return launch<64, 256, 64, 32, 16>(a, k, lv, g, b, s);
-  return launch<16, 1024, 16, 128, 8>(a, k, lv, g, b, s);
+  if (out_bf16) {
+    using B16 = __nv_bfloat16;
+    if (num_levels <= 4) return launch<128, 128, 64, 32, 32, B16>(a, k, lv, g, b, s);
+    if (num_levels == 5) return launch<64, 256, 64, 32, 16, B16>(a, k, lv, g, b, s);
+    return launch<16, 1024, 16, 128, 8, B16>(a, k, lv, g, b, s);
+  }
+  if (num_levels <= 4) return launch<128, 128, 64, 32, 32, float>(a, k, lv, g, b, s);
+  if (num_levels == 5) return launch<64, 256, 64, 32, 16, float>(a, k, lv, g, b, s);
+  return launch<16, 1024, 16, 128, 8, float>(a, k, lv, g, b, s);
 }
 
 }  // extern "C"

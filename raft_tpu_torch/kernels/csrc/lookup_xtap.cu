@@ -83,10 +83,47 @@
 //     (Q, L*S*S).
 // Ragged tiles (Q not a multiple of 32) are masked; batch > 1 is handled
 // by computing (b, p) from q.
+//
+// Reduced-precision forms (the has_scales / weight_dtype / mxu_dtype paths
+// of raft_tpu/kernels/lookup_xtap.py, l.263-283, 380-381, 438-447), both
+// kernels, chosen per launch:
+//   * levels stored as fp32, bf16, or int8 with one fp32 dequantization
+//     factor per level (scales, read on the card: no host sync). A value is
+//     loaded and widened to fp32 exactly (bf16 -> fp32, int8 -> fp32); K1's
+//     windows then go to shared memory as fp32 by plain loads, not cp.async
+//     (a 2- or 1-byte element has no 4-byte copy), so its shared memory
+//     layout is the fp32 one.
+//   * each level's taps are formed by its kind, which the wrapper picks with
+//     the JAX package's level split (_split_levels: level 0 and the larger
+//     levels take the y-dot, the small ones the flat 4-corner path):
+//       flat: the bilinear sum with fp32 weights on the widened values,
+//         times the level's scale for int8;
+//       y-dot bf16: the y-weights relu(1 - |(cy + j - r) - y|) rounded to
+//         bf16, each tap row sum_y wy * v summed in fp32 and rounded to bf16
+//         (RNE), then the fp32 x-combine (1 - fx) row[x0] + fx row[x0 + 1];
+//       y-dot int8: the y-weights quantized as round(127 wy), the row an
+//         exact integer dot, times scale * (1/127) in fp32 (no bf16
+//         rounding), then the same x-combine.
+//     fp32 levels take the flat form at every level (the two are the same
+//     function up to fp32 rounding).
+//   * K2 writes bf16 taps (RNE) when the levels are bf16 or int8 (the JAX
+//     kernel's weight_dtype output), else fp32.
+//   * K1's product at bf16 (proj_dtype): the A and B operands are rounded
+//     to bf16 (RNE) where the fp32 ones are split; a bf16 value is exact in
+//     TF32 (8 against 10 mantissa bits), so one m16n8k8 TF32 pass of them,
+//     accumulated in fp32, is the exact bf16 product; the bias is added in
+//     fp32, relu, and the result stored as bf16. At fp32 the product stays
+//     3xTF32 whatever the levels' storage.
+// What bounds them: the same operations as the fp32 forms (one TF32 pass
+// instead of three for K1's bf16 product), and fewer bytes of windows (2x
+// fewer for bf16, 4x for int8) and, for bf16 outputs, half the output.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -118,10 +155,18 @@ constexpr int kLdt = kBM + 4;  // epilogue row, 36 = 4 (mod 16): conflict-free s
 constexpr int kTileFloats = kBN * kLdt;
 static_assert(kBM % kWM == 0 && kWM % 16 == 0 && kWN % 8 == 0 && kKC % 8 == 0, "m16n8k8 fragments");
 
+// level storage (Pyramid::elem) and how a level's taps are formed (kind)
+enum : int { kElemF32 = 0, kElemBf16 = 1, kElemInt8 = 2 };
+enum : int { kFlat = 0, kYdotBf16 = 1, kYdotInt8 = 2 };
+constexpr float kInv127 = float(1.0 / 127.0);  // the JAX package's fp32 1/127
+
 struct Pyramid {
-  const float* level[kMaxLevels];
+  const void* level[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
+  int kind[kMaxLevels];
+  const float* scales;  // int8: (num_levels,) dequantization factors; else null
+  int elem;
   int num_levels;
 };
 
@@ -137,11 +182,74 @@ struct ProjectArgs {
   int vec_out;          // float4 stores: hw % 4 == 0, out aligned
 };
 
+// ---- shared: values, taps ----------------------------------------------
+
+// One stored value widened to fp32, exactly.
+template <typename T>
+__device__ __forceinline__ float load_val(const T* p);
+template <>
+__device__ __forceinline__ float load_val<float>(const float* p) { return __ldg(p); }
+template <>
+__device__ __forceinline__ float load_val<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __uint_as_float(uint32_t(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
+template <>
+__device__ __forceinline__ float load_val<int8_t>(const int8_t* p) {
+  return float(__ldg(reinterpret_cast<const signed char*>(p)));
+}
+
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+template <typename T>
+__device__ __forceinline__ void store_val(T* p, float v);
+template <>
+__device__ __forceinline__ void store_val<float>(float* p, float v) { *p = v; }
+template <>
+__device__ __forceinline__ void store_val<__nv_bfloat16>(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// The factor a level's formed taps are scaled by: its dequantization factor
+// (flat int8), that over 127 (y-dot int8, whose y-weights carry 127), else 1.
+__device__ __forceinline__ float level_mul(const Pyramid& pyr, int l) {
+  if (pyr.elem != kElemInt8) return 1.f;
+  const float sc = __ldg(pyr.scales + l);
+  return pyr.kind[l] == kYdotInt8 ? __fmul_rn(sc, kInv127) : sc;
+}
+
+// Tap (i, j) of one (query, level) from its corners (rows y0, y0+1 by
+// columns x0, x0+1, zero outside the level), fx = x - x0, fy = y - y0, and
+// p = the tap row's centre cy + (j - r) (y-dot kinds; y0 = floor(p)).
+__device__ __forceinline__ float form_tap(int kind, float v00, float v01, float v10, float v11, float fx,
+                                          float fy, float p, int y0, float mul) {
+  if (kind == kFlat) {
+    const float t = (1.f - fy) * ((1.f - fx) * v00 + fx * v01) + fy * ((1.f - fx) * v10 + fx * v11);
+    return mul == 1.f ? t : __fmul_rn(t, mul);
+  }
+  // the JAX y-weights of the two rows: relu(1 - |p - y|)
+  const float w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(p, float(y0)))));
+  const float w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(p, float(y0 + 1)))));
+  float ra, rb;
+  if (kind == kYdotBf16) {
+    // bf16 weights times bf16 values are exact in fp32; one rounding per row
+    const float b0 = bf16_round(w0);
+    const float b1 = bf16_round(w1);
+    ra = bf16_round(__fadd_rn(__fmul_rn(b0, v00), __fmul_rn(b1, v10)));
+    rb = bf16_round(__fadd_rn(__fmul_rn(b0, v01), __fmul_rn(b1, v11)));
+  } else {
+    // int8 weights round(127 wy) times int8 values: an exact integer row
+    const float q0 = rintf(__fmul_rn(w0, 127.f));
+    const float q1 = rintf(__fmul_rn(w1, 127.f));
+    ra = __fmul_rn(__fadd_rn(__fmul_rn(q0, v00), __fmul_rn(q1, v10)), mul);
+    rb = __fmul_rn(__fadd_rn(__fmul_rn(q0, v01), __fmul_rn(q1, v11)), mul);
+  }
+  return __fadd_rn(__fmul_rn(ra, 1.f - fx), __fmul_rn(rb, fx));
+}
+
 // ---- K2: 4-corner gather ------------------------------------------------
 
-// Bilinear sample of the (h, w) grid at (x, y) with zero padding.
-__device__ __forceinline__ float sample_zero_pad(const float* __restrict__ vol, int h, int w,
-                                                 float x, float y) {
+// Tap of the (h, w) grid at (x, y) with zero padding, formed by kind.
+template <typename T>
+__device__ __forceinline__ float sample_zero_pad(const T* __restrict__ vol, int h, int w, float x, float y,
+                                                 int kind, float mul) {
   if (isnan(x) || isnan(y)) return nanf("");
   // Beyond one cell outside the grid every corner is out of range; the
   // clamp keeps the float -> int conversion defined for far-off centroids
@@ -158,17 +266,18 @@ __device__ __forceinline__ float sample_zero_pad(const float* __restrict__ vol, 
   const bool xb = x0 + 1 >= 0 && x0 + 1 < w;
   const bool ya = y0 >= 0 && y0 < h;
   const bool yb = y0 + 1 >= 0 && y0 + 1 < h;
-  const float v00 = (ya && xa) ? __ldg(vol + y0 * w + x0) : 0.f;
-  const float v01 = (ya && xb) ? __ldg(vol + y0 * w + x0 + 1) : 0.f;
-  const float v10 = (yb && xa) ? __ldg(vol + (y0 + 1) * w + x0) : 0.f;
-  const float v11 = (yb && xb) ? __ldg(vol + (y0 + 1) * w + x0 + 1) : 0.f;
-  return (1.f - fy) * ((1.f - fx) * v00 + fx * v01) + fy * ((1.f - fx) * v10 + fx * v11);
+  const float v00 = (ya && xa) ? load_val(vol + y0 * w + x0) : 0.f;
+  const float v01 = (ya && xb) ? load_val(vol + y0 * w + x0 + 1) : 0.f;
+  const float v10 = (yb && xa) ? load_val(vol + (y0 + 1) * w + x0) : 0.f;
+  const float v11 = (yb && xb) ? load_val(vol + (y0 + 1) * w + x0 + 1) : 0.f;
+  return form_tap(kind, v00, v01, v10, v11, fx, fy, y, y0, mul);
 }
 
 // Fill taps[t * row + c] (c = l*S*S + i*S + j) for the nq queries of the
 // tile starting at q0; padding columns and rows past nq are zero.
-__device__ void gather_taps(const Pyramid& pyr, const float* __restrict__ cents, int64_t q0,
-                            int nq, int radius, int row, float* taps) {
+template <typename T>
+__device__ void gather_taps(const Pyramid& pyr, const float* __restrict__ cents, int64_t q0, int nq,
+                            int radius, int row, float* taps) {
   const int s = 2 * radius + 1;
   const int ss = s * s;
   const int c_in = pyr.num_levels * ss;
@@ -188,32 +297,37 @@ __device__ void gather_taps(const Pyramid& pyr, const float* __restrict__ cents,
     const float cy = cents[2 * q + 1] * inv;
     const int hl = pyr.h[l];
     const int wl = pyr.w[l];
-    const float* vol = pyr.level[l] + q * int64_t(hl) * wl;
+    const T* vol = static_cast<const T*>(pyr.level[l]) + q * int64_t(hl) * wl;
+    const int kind = pyr.kind[l];
+    const float mul = level_mul(pyr, l);
     float* dst = taps + t * row + l * ss;
     for (int ij = lane; ij < ss; ij += 32) {
       const int j = ij / s;
       const int i = ij - j * s;
-      dst[i * s + j] = sample_zero_pad(vol, hl, wl, cx + float(i - radius), cy + float(j - radius));
+      dst[i * s + j] =
+          sample_zero_pad(vol, hl, wl, cx + float(i - radius), cy + float(j - radius), kind, mul);
     }
   }
 }
 
+// OutT: fp32 taps for fp32 levels, bf16 for bf16 and int8 levels.
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-xtap_lookup_kernel(Pyramid pyr, const float* __restrict__ cents, float* __restrict__ out,
-                   int64_t q, int radius, int row) {
+xtap_lookup_kernel(Pyramid pyr, const float* __restrict__ cents, OutT* __restrict__ out, int64_t q,
+                   int radius, int row) {
   extern __shared__ float4 smem[];
   float* taps = reinterpret_cast<float*>(smem);
   const int64_t q0 = int64_t(blockIdx.x) * kTile;
   const int nq = int(q - q0 < kTile ? q - q0 : kTile);
-  gather_taps(pyr, cents, q0, nq, radius, row, taps);
+  gather_taps<T>(pyr, cents, q0, nq, radius, row, taps);
   __syncthreads();
 
   const int s = 2 * radius + 1;
   const int c_in = pyr.num_levels * s * s;
-  float* dst = out + q0 * c_in;
+  OutT* dst = out + q0 * c_in;
   for (int idx = threadIdx.x; idx < nq * c_in; idx += blockDim.x) {
     const int t = idx / c_in;
-    dst[idx] = taps[t * row + (idx - t * c_in)];
+    store_val(dst + idx, taps[t * row + (idx - t * c_in)]);
   }
 }
 
@@ -268,10 +382,22 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[
   mma_tf32(d, ahi, bhi);
 }
 
+// Window cell (y, x) of a level into shared memory as fp32: cp.async for
+// fp32 levels, a widening load for bf16 and int8 ones; zero outside.
+template <typename T>
+__device__ __forceinline__ void copy_cell(float* dst, const T* vol, int64_t off, bool ok) {
+  *dst = ok ? load_val(vol + off) : 0.f;
+}
+template <>
+__device__ __forceinline__ void copy_cell<float>(float* dst, const float* vol, int64_t off, bool ok) {
+  cp_async4(dst, ok ? vol + off : vol, ok);
+}
+
 // Taps of the block's queries into the A tile a[t * lda + k]; rows past nq
 // and K's padding columns are zero. win is the window region; at[t *
 // kMaxLevels + l] holds the window of (query t, level l): its first cell
-// (xs, ys) as int bits and the fraction (fx, fy).
+// (xs, ys) as int bits, the fraction fx and the clamped centre y.
+template <typename T>
 __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* __restrict__ cents,
                                                int64_t q0, int nq, const ProjectArgs& g, float* a,
                                                float* win, float4* at) {
@@ -288,11 +414,11 @@ __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* 
     int xs = 0;
     int ys = 0;
     float fx = 0.f;
-    float fy = 0.f;
+    float y = 0.f;
     if (t < nq) {
       const float inv = 1.f / float(1 << l);  // exact: a power of two
       float x = __ldg(cents + 2 * (q0 + t)) * inv;
-      float y = __ldg(cents + 2 * (q0 + t) + 1) * inv;
+      y = __ldg(cents + 2 * (q0 + t) + 1) * inv;
       const bool nan_in = isnan(x) || isnan(y);
       // Beyond r + 1 cells outside the level every window cell is out of
       // range; the clamp keeps the float -> int conversion defined for
@@ -302,11 +428,10 @@ __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* 
       const float xf = floorf(x);
       const float yf = floorf(y);
       fx = nan_in ? nanf("") : x - xf;  // a NaN fraction makes every tap NaN
-      fy = y - yf;
       xs = int(xf) - g.radius;
       ys = int(yf) - g.radius;
     }
-    at[t * kMaxLevels + l] = make_float4(__int_as_float(xs), __int_as_float(ys), fx, fy);
+    at[t * kMaxLevels + l] = make_float4(__int_as_float(xs), __int_as_float(ys), fx, y);
   }
   __syncthreads();
 
@@ -328,7 +453,7 @@ __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* 
       const int ys = __float_as_int(wd.y);
       const int hl = pyr.h[l];
       const int wl = pyr.w[l];
-      const float* vol = pyr.level[l] + (q0 + t) * int64_t(hl) * wl;
+      const T* vol = static_cast<const T*>(pyr.level[l]) + (q0 + t) * int64_t(hl) * wl;
       float* dst = win + pair * ww;
       for (int yy = ry; yy < s1; yy += rps) {
         const int y = ys + yy;
@@ -336,15 +461,15 @@ __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* 
         for (int xx = rx; xx < s1; xx += lpr) {
           const int x = xs + xx;
           const bool ok = row_ok && x >= 0 && x < wl;
-          cp_async4(dst + yy * s1 + xx, ok ? vol + y * wl + x : pyr.level[l], ok);
+          copy_cell(dst + yy * s1 + xx, vol, int64_t(y) * wl + x, ok);
         }
       }
     }
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    // tap (i, j) is the bilinear sample at window cell (x = i, y = j), its
-    // corners summed in sample_zero_pad's order
+    // tap (i, j) is formed from window cells (x = i, i+1; y = j, j+1) by
+    // the level's kind (form_tap; the flat form in sample_zero_pad's order)
     for (int pair = warp; pair < kBM * nl; pair += kProjWarps) {
       const int t = pair / nl;
       const int l = l0 + pair - t * nl;
@@ -354,14 +479,22 @@ __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* 
         continue;
       }
       const float4 wd = at[t * kMaxLevels + l];
+      const int ys = __float_as_int(wd.y);
       const float fx = wd.z;
-      const float fy = wd.w;
+      const float fy = __fsub_rn(wd.w, float(ys + g.radius));  // y - floor(y)
+      const int kind = pyr.kind[l];
+      const float mul = level_mul(pyr, l);
       const float* w = win + pair * ww;
       for (int ij = lane; ij < ss; ij += 32) {
         const int i = int(__fmul_rn(__fadd_rn(float(ij), 0.5f), inv_s));  // ij / s, exact here
         const int j = ij - i * s;
         const float* c = w + j * s1 + i;
-        dst[ij] = (1.f - fy) * ((1.f - fx) * c[0] + fx * c[1]) + fy * ((1.f - fx) * c[s1] + fx * c[s1 + 1]);
+        if (kind == kFlat && mul == 1.f) {
+          dst[ij] = (1.f - fy) * ((1.f - fx) * c[0] + fx * c[1]) + fy * ((1.f - fx) * c[s1] + fx * c[s1 + 1]);
+        } else {
+          dst[ij] = form_tap(kind, c[0], c[1], c[s1], c[s1 + 1], fx, fy,
+                             __fadd_rn(wd.w, float(j - g.radius)), ys + j, mul);
+        }
       }
     }
   }
@@ -394,9 +527,17 @@ __device__ __forceinline__ void load_w_stage(float* ws, const float* __restrict_
   }
 }
 
+// x rounded to bf16 (RNE), as TF32 operand bits: exact in TF32.
+__device__ __forceinline__ uint32_t bf16_bits(float x) { return __float_as_uint(bf16_round(x)); }
+
+// T: the levels' storage; kBf16: the product at bf16 (operands rounded to
+// bf16, one TF32 pass, bf16 output), else 3xTF32 with fp32 output.
+template <typename T, bool kBf16>
 __global__ void __launch_bounds__(kProjThreads, kProjBlocksPerSm)
 xtap_project_kernel(Pyramid pyr, const float* __restrict__ cents, const float* __restrict__ weight,
-                    const float* __restrict__ bias, float* __restrict__ out, ProjectArgs g) {
+                    const float* __restrict__ bias, void* __restrict__ out_ptr, ProjectArgs g) {
+  using OutT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+  OutT* out = static_cast<OutT*>(out_ptr);
   extern __shared__ float4 smem4[];
   float* a = reinterpret_cast<float*>(smem4);                  // [query][k] taps
   float* region = a + kBM * g.lda;                             // windows, then ring, then tile
@@ -414,7 +555,7 @@ xtap_project_kernel(Pyramid pyr, const float* __restrict__ cents, const float* _
   const int wn0 = (warp / kWarpsM) * kWN;
   const bool warp_live = n0 + wn0 < g.c_out;
 
-  gather_windows(pyr, cents, q0, nq, g, a, region, at);
+  gather_windows<T>(pyr, cents, q0, nq, g, a, region, at);
   __syncthreads();  // A is complete; the windows are dead
 
   float acc[kMf][kNf][4];
@@ -443,23 +584,42 @@ xtap_project_kernel(Pyramid pyr, const float* __restrict__ cents, const float* _
 #pragma unroll
     for (int k8 = 0; k8 < kKC; k8 += 8) {
       if (k0 + k8 >= g.k_pad) break;
-      uint32_t ahi[kMf][4], alo[kMf][4];
+      if constexpr (kBf16) {
+        uint32_t af[kMf][4];
 #pragma unroll
-      for (int i = 0; i < kMf; ++i) {
-        const float* ap = a + (wm0 + i * 16 + gid) * g.lda + k0 + k8 + tig;
-        split_tf32(ap[0], ahi[i][0], alo[i][0]);
-        split_tf32(ap[8 * g.lda], ahi[i][1], alo[i][1]);
-        split_tf32(ap[4], ahi[i][2], alo[i][2]);
-        split_tf32(ap[8 * g.lda + 4], ahi[i][3], alo[i][3]);
-      }
+        for (int i = 0; i < kMf; ++i) {
+          const float* ap = a + (wm0 + i * 16 + gid) * g.lda + k0 + k8 + tig;
+          af[i][0] = bf16_bits(ap[0]);
+          af[i][1] = bf16_bits(ap[8 * g.lda]);
+          af[i][2] = bf16_bits(ap[4]);
+          af[i][3] = bf16_bits(ap[8 * g.lda + 4]);
+        }
 #pragma unroll
-      for (int j = 0; j < kNf; ++j) {
-        const float* bp = ws + (wn0 + j * 8 + gid) * kLdw + k8 + tig;
-        uint32_t bhi[2], blo[2];
-        split_tf32(bp[0], bhi[0], blo[0]);
-        split_tf32(bp[4], bhi[1], blo[1]);
+        for (int j = 0; j < kNf; ++j) {
+          const float* bp = ws + (wn0 + j * 8 + gid) * kLdw + k8 + tig;
+          const uint32_t bf[2] = {bf16_bits(bp[0]), bf16_bits(bp[4])};
 #pragma unroll
-        for (int i = 0; i < kMf; ++i) mma_3xtf32(acc[i][j], ahi[i], alo[i], bhi, blo);
+          for (int i = 0; i < kMf; ++i) mma_tf32(acc[i][j], af[i], bf);
+        }
+      } else {
+        uint32_t ahi[kMf][4], alo[kMf][4];
+#pragma unroll
+        for (int i = 0; i < kMf; ++i) {
+          const float* ap = a + (wm0 + i * 16 + gid) * g.lda + k0 + k8 + tig;
+          split_tf32(ap[0], ahi[i][0], alo[i][0]);
+          split_tf32(ap[8 * g.lda], ahi[i][1], alo[i][1]);
+          split_tf32(ap[4], ahi[i][2], alo[i][2]);
+          split_tf32(ap[8 * g.lda + 4], ahi[i][3], alo[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < kNf; ++j) {
+          const float* bp = ws + (wn0 + j * 8 + gid) * kLdw + k8 + tig;
+          uint32_t bhi[2], blo[2];
+          split_tf32(bp[0], bhi[0], blo[0]);
+          split_tf32(bp[4], bhi[1], blo[1]);
+#pragma unroll
+          for (int i = 0; i < kMf; ++i) mma_3xtf32(acc[i][j], ahi[i], alo[i], bhi, blo);
+        }
       }
     }
   }
@@ -503,8 +663,18 @@ xtap_project_kernel(Pyramid pyr, const float* __restrict__ cents, const float* _
         p -= g.hw;
         ++b;
       }
-      *reinterpret_cast<float4*>(out + (b * g.c_out + n0 + n) * g.hw + p) =
-          *reinterpret_cast<const float4*>(tile + n * kLdt + m);
+      const float4 v = *reinterpret_cast<const float4*>(tile + n * kLdt + m);
+      OutT* o = out + (b * g.c_out + n0 + n) * g.hw + p;
+      if constexpr (kBf16) {
+        __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y);
+        __nv_bfloat162 hi2 = __floats2bfloat162_rn(v.z, v.w);
+        uint2 packed;
+        packed.x = *reinterpret_cast<uint32_t*>(&lo2);
+        packed.y = *reinterpret_cast<uint32_t*>(&hi2);
+        *reinterpret_cast<uint2*>(o) = packed;
+      } else {
+        *reinterpret_cast<float4*>(o) = v;
+      }
     }
   } else {
     for (int idx = tid; idx < n_rows * kBM; idx += kProjThreads) {
@@ -517,28 +687,39 @@ xtap_project_kernel(Pyramid pyr, const float* __restrict__ cents, const float* _
         p -= g.hw;
         ++b;
       }
-      out[(b * g.c_out + n0 + n) * g.hw + p] = tile[n * kLdt + m];
+      store_val(out + (b * g.c_out + n0 + n) * g.hw + p, tile[n * kLdt + m]);
     }
   }
 }
 
 // ---- host side ----------------------------------------------------------
 
-// Fills the pyramid descriptor; false when the arguments are invalid.
-bool fill_pyramid(const void* const* levels, const int* heights, const int* widths, int num_levels,
-                  int radius, Pyramid* pyr) {
+// Fills the pyramid descriptor; false when the arguments are invalid: a
+// kind other than flat must match the storage (y-dot bf16 on bf16 levels,
+// y-dot int8 on int8 ones), and int8 levels need their scales.
+bool fill_pyramid(const void* const* levels, const int* heights, const int* widths, const int* kinds,
+                  int num_levels, int elem, const void* scales, int radius, Pyramid* pyr) {
   if (num_levels < 1 || num_levels > kMaxLevels || radius < 0) return false;
+  if (elem != kElemF32 && elem != kElemBf16 && elem != kElemInt8) return false;
+  if ((elem == kElemInt8) != (scales != nullptr)) return false;
   for (int l = 0; l < num_levels; ++l) {
     if (heights[l] < 1 || widths[l] < 1 || levels[l] == nullptr) return false;
-    pyr->level[l] = static_cast<const float*>(levels[l]);
+    const int k = kinds[l];
+    if (!(k == kFlat || (k == kYdotBf16 && elem == kElemBf16) || (k == kYdotInt8 && elem == kElemInt8)))
+      return false;
+    pyr->level[l] = levels[l];
     pyr->h[l] = heights[l];
     pyr->w[l] = widths[l];
+    pyr->kind[l] = k;
   }
   for (int l = num_levels; l < kMaxLevels; ++l) {
     pyr->level[l] = nullptr;
     pyr->h[l] = 0;
     pyr->w[l] = 0;
+    pyr->kind[l] = kFlat;
   }
+  pyr->scales = static_cast<const float*>(scales);
+  pyr->elem = elem;
   pyr->num_levels = num_levels;
   return true;
 }
@@ -558,17 +739,48 @@ size_t project_smem(ProjectArgs* g) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+template <typename T, bool kBf16>
+int project_launch(const Pyramid& pyr, const float* cents, const float* weight, const float* bias,
+                   void* out, const ProjectArgs& g, size_t smem, dim3 grid, cudaStream_t stream) {
+  auto kernel = xtap_project_kernel<T, kBf16>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             int(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<grid, kProjThreads, smem, stream>>>(pyr, cents, weight, bias, out, g);
+  return int(cudaGetLastError());
+}
+
+template <typename T, typename OutT>
+int lookup_launch(const Pyramid& pyr, const float* cents, void* out, int64_t q, int radius, int row,
+                  size_t smem, cudaStream_t stream) {
+  auto kernel = xtap_lookup_kernel<T, OutT>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  const unsigned grid = unsigned((q + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, smem, stream>>>(pyr, cents, static_cast<OutT*>(out), q, radius, row);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1: out (B, c_out, h, w) = relu(taps @ weight^T + bias); weight is
-// (c_out, L*S*S), cents (Q, 2) with Q = B*hw. Returns a cudaError_t.
+// (c_out, L*S*S) fp32, bias (c_out,) fp32, cents (Q, 2) fp32 with Q = B*hw;
+// levels stored as elem (0 fp32, 1 bf16, 2 int8 with scales (L,) fp32),
+// kinds[l] as the kFlat / kYdot* enum; out fp32, or bf16 when bf16_product.
+// Returns a cudaError_t.
 int xtap_project_launch(const void* const* levels, const int* heights, const int* widths,
-                        int num_levels, const void* cents, const void* weight, const void* bias,
-                        void* out, int64_t q, int64_t hw, int radius, int c_out, void* stream) {
+                        const int* kinds, int num_levels, int elem, const void* scales, const void* cents,
+                        const void* weight, const void* bias, void* out, int64_t q, int64_t hw, int radius,
+                        int c_out, int bf16_product, void* stream) {
   Pyramid pyr;
-  if (!fill_pyramid(levels, heights, widths, num_levels, radius, &pyr) || q < 0 || hw < 1 || c_out < 1)
+  if (!fill_pyramid(levels, heights, widths, kinds, num_levels, elem, scales, radius, &pyr) || q < 0 ||
+      hw < 1 || c_out < 1)
     return int(cudaErrorInvalidValue);
   ProjectArgs g;
   g.q = q;
@@ -584,40 +796,39 @@ int xtap_project_launch(const void* const* levels, const int* heights, const int
   const int64_t q_tiles = (q + kBM - 1) / kBM;
   if (n_tiles > 65535 || q_tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
   if (q == 0) return int(cudaSuccess);
-  cudaError_t err =
-      cudaFuncSetAttribute(xtap_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(xtap_project_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             int(cudaSharedmemCarveoutMaxShared));
-  if (err != cudaSuccess) return int(err);
   const dim3 grid(static_cast<unsigned>(q_tiles), static_cast<unsigned>(n_tiles));
-  xtap_project_kernel<<<grid, kProjThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pyr, static_cast<const float*>(cents), static_cast<const float*>(weight),
-      static_cast<const float*>(bias), static_cast<float*>(out), g);
-  return int(cudaGetLastError());
+  const float* c = static_cast<const float*>(cents);
+  const float* w = static_cast<const float*>(weight);
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (elem * 2 + (bf16_product ? 1 : 0)) {
+    case 0: return project_launch<float, false>(pyr, c, w, b, out, g, smem, grid, st);
+    case 1: return project_launch<float, true>(pyr, c, w, b, out, g, smem, grid, st);
+    case 2: return project_launch<__nv_bfloat16, false>(pyr, c, w, b, out, g, smem, grid, st);
+    case 3: return project_launch<__nv_bfloat16, true>(pyr, c, w, b, out, g, smem, grid, st);
+    case 4: return project_launch<int8_t, false>(pyr, c, w, b, out, g, smem, grid, st);
+    default: return project_launch<int8_t, true>(pyr, c, w, b, out, g, smem, grid, st);
+  }
 }
 
-// K2: out (Q, L*S*S) taps in the reference channel order.
-int xtap_lookup_launch(const void* const* levels, const int* heights, const int* widths,
-                       int num_levels, const void* cents, void* out, int64_t q, int radius,
-                       void* stream) {
+// K2: out (Q, L*S*S) taps in the reference channel order; fp32 for fp32
+// levels, bf16 for bf16 and int8 levels (arguments as K1's).
+int xtap_lookup_launch(const void* const* levels, const int* heights, const int* widths, const int* kinds,
+                       int num_levels, int elem, const void* scales, const void* cents, void* out, int64_t q,
+                       int radius, void* stream) {
   Pyramid pyr;
-  if (!fill_pyramid(levels, heights, widths, num_levels, radius, &pyr) || q < 0)
+  if (!fill_pyramid(levels, heights, widths, kinds, num_levels, elem, scales, radius, &pyr) || q < 0)
     return int(cudaErrorInvalidValue);
   const int s = 2 * radius + 1;
   const int row = (num_levels * s * s + 3) & ~3;  // tap rows padded to a multiple of 4 floats
   const size_t smem = size_t(kTile) * size_t(row) * sizeof(float);
   if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
   if (q == 0) return int(cudaSuccess);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(xtap_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  const unsigned grid = unsigned((q + kTile - 1) / kTile);
-  xtap_lookup_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pyr, static_cast<const float*>(cents), static_cast<float*>(out), q, radius, row);
-  return int(cudaGetLastError());
+  const float* c = static_cast<const float*>(cents);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elem == kElemF32) return lookup_launch<float, float>(pyr, c, out, q, radius, row, smem, st);
+  if (elem == kElemBf16) return lookup_launch<__nv_bfloat16, __nv_bfloat16>(pyr, c, out, q, radius, row, smem, st);
+  return lookup_launch<int8_t, __nv_bfloat16>(pyr, c, out, q, radius, row, smem, st);
 }
 
 }  // extern "C"

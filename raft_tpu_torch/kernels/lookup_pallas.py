@@ -22,7 +22,7 @@ from typing import Sequence
 import torch
 
 from raft_tpu_torch.kernels import build
-from raft_tpu_torch.kernels.lookup_xtap import _check_inputs, _check_no_grad, _pyramid_args
+from raft_tpu_torch.kernels.lookup_xtap import _check_inputs, _check_no_grad
 from raft_tpu_torch.models.corr import lookup_pyramid
 
 __all__ = ["lookup_pyramid_pallas", "lookup_pyramid_reference"]
@@ -41,6 +41,14 @@ def _smem_bytes(num_levels: int, radius: int) -> int:
     """A warp-private S x (S+2) y-pass tile per warp."""
     s = 2 * radius + 1
     return WARPS_PER_BLOCK * s * (s + 2) * 4
+
+
+def _pyramid_args(pyramid):
+    n = len(pyramid)
+    levels = (ctypes.c_void_p * n)(*[v.data_ptr() for v in pyramid])
+    heights = (ctypes.c_int * n)(*[v.shape[1] for v in pyramid])
+    widths = (ctypes.c_int * n)(*[v.shape[2] for v in pyramid])
+    return levels, heights, widths, n
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,8 +75,10 @@ def lookup_pyramid_pallas(
     """
     who = "lookup_pyramid_pallas"
     pyramid = list(pyramid)
-    _check_no_grad(who, centroids, *pyramid)
+    _check_no_grad(who, pyramid, centroids)
     b, h, w, q = _check_inputs(who, pyramid, centroids, radius, smem_bytes=_smem_bytes)
+    if pyramid[0].dtype != torch.float32:
+        raise TypeError(f"{who}: levels must be float32, got {pyramid[0].dtype}")
     if centroids.device.type == "cpu":
         return lookup_pyramid_reference(pyramid, centroids, radius)
     s = 2 * radius + 1

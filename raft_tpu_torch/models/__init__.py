@@ -9,6 +9,8 @@ from raft_tpu_torch.models.zoo import (
     RAFT_SMALL,
     RAFTConfig,
     build_raft,
+    load_checkpoint,
+    raft_for_serving,
     raft_large,
     raft_small,
 )
@@ -23,6 +25,8 @@ __all__ = [
     "RAFT_LARGE",
     "RAFT_SMALL",
     "build_raft",
+    "load_checkpoint",
+    "raft_for_serving",
     "raft_large",
     "raft_small",
 ]

@@ -11,7 +11,7 @@ from typing import Optional, Tuple, Type
 
 import torch.nn as nn
 
-from raft_tpu_torch.models.layers import ConvNormAct, ResidualBlock
+from raft_tpu_torch.models.layers import ConvNormAct, ResidualBlock, conv
 
 __all__ = ["FeatureEncoder"]
 
@@ -31,7 +31,7 @@ class FeatureEncoder(nn.Module):
         self.layer1 = nn.Sequential(block(stem, w1, norm, 1), block(w1, w1, norm, 1))
         self.layer2 = nn.Sequential(block(w1, w2, norm, 2), block(w2, w2, norm, 1))
         self.layer3 = nn.Sequential(block(w2, w3, norm, 2), block(w3, w3, norm, 1))
-        self.conv = nn.Conv2d(w3, out, 1)
+        self.conv = conv(w3, out, 1)
 
     def forward(self, x):
         x = self.convnormrelu(x)

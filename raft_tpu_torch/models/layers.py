@@ -6,6 +6,16 @@ index 1, so ``convnormrelu.0.weight`` and ``convnormrelu.1.running_mean``
 are the keys a torchvision ``.pth`` carries, and the JAX package's
 ``layers_0``/``layers_1`` names map onto them one to one
 (``checkpoint.convert.state_dict_from_flax``).
+
+Precision follows the JAX package's ``dtype`` (``raft_tpu/models/layers.py``):
+a :class:`Conv2d` with ``compute_dtype`` set casts its input, weight and
+bias to that dtype at the call, adds the bias to the product rounded to
+that dtype, and returns that dtype (in a :class:`ConvNormAct` with a norm
+the bias is added in fp32 and the sum goes to the norm unrounded, as XLA
+fuses the JAX module); parameters stay
+fp32 tensors, so a loaded checkpoint never changes. Norm statistics are
+fp32 (instance norm returns its input's dtype, batch norm fp32, as Flax's
+promotion of a bf16 input with fp32 parameters gives).
 """
 
 from __future__ import annotations
@@ -16,6 +26,8 @@ import torch
 import torch.nn as nn
 
 __all__ = [
+    "Conv2d",
+    "BatchNorm2d",
     "conv",
     "instance_norm",
     "InstanceNorm",
@@ -31,6 +43,35 @@ def _pair(k: KernelT) -> Tuple[int, int]:
     return (k, k) if isinstance(k, int) else tuple(k)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` when it is set
+    (``None``: the parameters' fp32, the input promoted to it). The
+    attribute is not state: ``state_dict`` keys and values are those of
+    ``nn.Conv2d``."""
+
+    compute_dtype = None
+
+    def product(self, x):
+        """The convolution without its bias, rounded to the compute dtype."""
+        dt = self.compute_dtype or torch.float32
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+
+    def forward(self, x):
+        # the bias joins the product once it is rounded to the compute dtype,
+        # as the JAX module adds it (and as PyTorch's cuDNN path does; oneDNN
+        # on the CPU would add it to the fp32 sum and round once)
+        y = self.product(x)
+        return y if self.bias is None else y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that normalizes in fp32 and returns fp32 for any
+    input dtype (the dtype Flax's BatchNorm gives a bf16 input)."""
+
+    def forward(self, x):
+        return super().forward(x.float())
+
+
 def conv(
     in_channels: int,
     out_channels: int,
@@ -38,12 +79,12 @@ def conv(
     stride: KernelT = 1,
     padding=None,
     bias: bool = True,
-) -> nn.Conv2d:
-    """``nn.Conv2d`` with ``(k-1)//2`` padding per spatial dim by default."""
+) -> Conv2d:
+    """:class:`Conv2d` with ``(k-1)//2`` padding per spatial dim by default."""
     kernel = _pair(kernel)
     if padding is None:
         padding = tuple((k - 1) // 2 for k in kernel)
-    return nn.Conv2d(
+    return Conv2d(
         in_channels, out_channels, kernel, stride=_pair(stride), padding=padding, bias=bias
     )
 
@@ -73,7 +114,7 @@ def _norm(spec: Optional[str], channels: int) -> Optional[nn.Module]:
     if spec is None:
         return None
     if spec == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
     if spec == "instance":
         return InstanceNorm()
     raise ValueError(f"unknown norm spec: {spec!r}")
@@ -103,6 +144,24 @@ class ConvNormAct(nn.Sequential):
         if act:
             layers.append(nn.ReLU())
         super().__init__(*layers)
+        self.has_norm = norm_layer is not None
+
+    def forward(self, x):
+        if not self.has_norm:
+            return super().forward(x)
+        # As XLA runs the JAX module (its fusion of the bias add into the
+        # norm): the product rounded to the compute dtype, the bias added in
+        # fp32, and the sum normalized without another rounding. Instance
+        # norm returns the compute dtype, batch norm fp32.
+        conv = self[0]
+        y = conv.product(x)
+        dt = y.dtype
+        if conv.bias is not None:
+            y = y.float() + conv.bias.to(dt).float().view(1, -1, 1, 1)
+        y = self[1](y)
+        if isinstance(self[1], InstanceNorm):
+            y = y.to(dt)
+        return torch.relu(y) if len(self) > 2 else y
 
 
 class ResidualBlock(nn.Module):

@@ -15,7 +15,9 @@ into ``begin_pair`` / ``begin_refinement`` / ``iterate_step`` /
 reproduce an N-step ``iterate``.
 
 Images are ``(B, 3, H, W)`` in [-1, 1] with H and W divisible by 8; flows
-are ``(B, 2, H, W)`` with channel 0 = x.
+are ``(B, 2, H, W)`` with channel 0 = x. Every entry point runs under
+:func:`~raft_tpu_torch.device.fp32_precision`: fp32 convolutions and
+matmuls are IEEE fp32 whatever the caller's global TF32 flags say.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from raft_tpu_torch.models.corr import LazyCorrFeatures
+from raft_tpu_torch.device import fp32_precision
+from raft_tpu_torch.models.corr import LazyCorrFeatures, map_levels
 from raft_tpu_torch.ops.sampling import coords_grid
 from raft_tpu_torch.ops.upsample import upsample_flow
 
@@ -75,6 +78,7 @@ class RAFT(nn.Module):
         self._check_grid(image1, context_out, "context encoder")
         return fmap1, fmap2, context_out
 
+    @fp32_precision()
     def forward(self, image1, image2, num_flow_updates: int = 12, emit_all: bool = True):
         """Flow from ``image1`` to ``image2``: ``(N, B, 2, H, W)`` with every
         iteration's flow when ``emit_all``, else the final ``(B, 2, H, W)``."""
@@ -83,6 +87,7 @@ class RAFT(nn.Module):
             fmap1, fmap2, context_out, num_flow_updates=num_flow_updates, emit_all=emit_all
         )
 
+    @fp32_precision()
     def encode_frame(self, image):
         """Encode ONE frame batch ``(B, 3, H, W)`` -> (feature map, raw context
         output), both at /8. Per-sample normalization makes this equal to the
@@ -120,6 +125,7 @@ class RAFT(nn.Module):
         up_mask = self.mask_predictor(hidden) if self.mask_predictor is not None else None
         return upsample_flow(flow, up_mask)
 
+    @fp32_precision()
     def iterate(self, fmap1, fmap2, context_out, num_flow_updates: int = 12, emit_all: bool = True):
         """Correlation pyramid + iterative refinement from encoded inputs;
         ``context_out`` is the raw context-encoder output."""
@@ -143,12 +149,14 @@ class RAFT(nn.Module):
 
     # -- iteration-level entry points --------------------------------------
 
+    @fp32_precision()
     def begin_pair(self, image1, image2, init_flow=None):
         """Encode both frames (batch-stacked, as ``forward`` does) and return
         the :meth:`begin_refinement` state."""
         fmap1, fmap2, context_out = self._encode_pair(image1, image2)
         return self.begin_refinement(fmap1, fmap2, context_out, init_flow=init_flow)
 
+    @fp32_precision()
     def begin_refinement(self, fmap1, fmap2, context_out, init_flow=None):
         """Refinement state from encoded inputs: the pyramid levels as
         ``(B, Q, hl, wl)``, ``coords1`` ``(B, 2, h, w)``, ``hidden`` and
@@ -160,7 +168,7 @@ class RAFT(nn.Module):
         if tuple(context_out.shape[2:4]) != (h8, w8):
             raise ValueError("context output must match the feature grid")
         pyramid = self.corr_block.build_pyramid(fmap1, fmap2)
-        pyramid = tuple(lvl.reshape((b, h8 * w8) + tuple(lvl.shape[1:])) for lvl in pyramid)
+        pyramid = map_levels(pyramid, lambda lvl: lvl.reshape((b, h8 * w8) + tuple(lvl.shape[1:])))
         hidden, context = self._split_context(context_out)
         coords1 = coords_grid(b, h8, w8, device=fmap1.device)
         if init_flow is not None:
@@ -172,11 +180,12 @@ class RAFT(nn.Module):
             coords1 = coords1 + init_flow
         return {"pyramid": pyramid, "coords1": coords1, "hidden": hidden, "context": context}
 
+    @fp32_precision()
     def iterate_step(self, state):
         """Advance refinement state by exactly one GRU iteration."""
         coords1 = state["coords1"]
         b, _, h8, w8 = coords1.shape
-        pyramid = [lvl.reshape((-1,) + tuple(lvl.shape[2:])) for lvl in state["pyramid"]]
+        pyramid = map_levels(state["pyramid"], lambda lvl: lvl.reshape((-1,) + tuple(lvl.shape[2:])))
         coords0 = coords_grid(b, h8, w8, device=coords1.device)
         coords1, hidden = self._step(coords0, coords1, state["hidden"], state["context"], pyramid)
         return {
@@ -186,6 +195,7 @@ class RAFT(nn.Module):
             "context": state["context"],
         }
 
+    @fp32_precision()
     def finalize_flow(self, coords1, hidden):
         """The final-upsample tail of :meth:`iterate`, standalone."""
         b, _, h8, w8 = coords1.shape

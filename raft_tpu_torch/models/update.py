@@ -32,9 +32,12 @@ class MotionEncoder(nn.Module):
     ``convcorr1`` only holds the 1x1 conv's parameters (at index 0, the
     torchvision key ``convcorr1.0.weight``): the correlation block applies
     them, fused into its lookup kernel when it has one (the ``project``
-    seam of :class:`~raft_tpu_torch.models.corr.LazyCorrFeatures`). Output
-    carries the raw flow in its last two channels.
+    seam of :class:`~raft_tpu_torch.models.corr.LazyCorrFeatures`), at
+    ``compute_dtype`` (``None``: fp32). Output carries the raw flow in its
+    last two channels.
     """
+
+    compute_dtype = None
 
     def __init__(
         self,
@@ -63,9 +66,10 @@ class MotionEncoder(nn.Module):
         ``relu(taps @ W^T + b)`` with the same parameters."""
         proj = self.convcorr1[0]
         if hasattr(corr_features, "project"):
-            c = corr_features.project(proj.weight, proj.bias)
+            c = corr_features.project(proj.weight, proj.bias, dtype=self.compute_dtype)
         else:
-            c = project_taps(corr_features, proj.weight, proj.bias).permute(0, 3, 1, 2)
+            c = project_taps(corr_features, proj.weight, proj.bias, dtype=self.compute_dtype)
+            c = c.permute(0, 3, 1, 2)
         if self.convcorr2 is not None:
             c = self.convcorr2(c)
         f = self.convflow2(self.convflow1(flow))
@@ -118,7 +122,8 @@ class RecurrentBlock(nn.Module):
 
 
 class FlowHead(nn.Module):
-    """3x3 -> relu -> 3x3 head predicting the 2-channel delta flow (fp32)."""
+    """3x3 -> relu -> 3x3 head predicting the 2-channel delta flow; ``conv2``
+    stays fp32 at every compute dtype, so coordinates stay fp32."""
 
     def __init__(self, in_channels: int, hidden: int):
         super().__init__()
@@ -150,13 +155,15 @@ class UpdateBlock(nn.Module):
 
 
 class MaskPredictor(nn.Module):
-    """Predicts the 8*8*9-channel convex-upsampling mask (fp32), scaled by
-    ``multiplier`` (torchvision keeps 0.25). Absent in raft_small."""
+    """Predicts the 8*8*9-channel convex-upsampling mask, scaled by
+    ``multiplier`` (torchvision keeps 0.25); ``conv`` stays fp32 at every
+    compute dtype, so the upsample's softmax is fp32. Absent in
+    raft_small."""
 
     def __init__(self, in_channels: int, hidden: int, multiplier: float = 0.25):
         super().__init__()
         self.convrelu = ConvNormAct(in_channels, hidden, 3, norm=None)
-        self.conv = nn.Conv2d(hidden, 8 * 8 * 9, 1)
+        self.conv = conv(hidden, 8 * 8 * 9, 1)
         self.multiplier = multiplier
 
     def forward(self, x):

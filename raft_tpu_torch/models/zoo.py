@@ -2,8 +2,14 @@
 
 Hyperparameters reproduce torchvision's raft_large / raft_small, field for
 field as the JAX package's ``RAFTConfig``. Weights are seeded random
-(torchvision's initializer) unless a local checkpoint is given: nothing is
-ever fetched.
+(torchvision's initializer) unless a local checkpoint is given, a torch
+``.pth`` state_dict or the JAX package's Flax ``.msgpack``: nothing is ever
+fetched.
+
+Precision knobs (``compute_dtype``, ``corr_dtype``) change activation and
+storage casts only, as in the JAX package (``raft_tpu/models/zoo.py``):
+parameters, norm statistics, coordinates, flow and the upsample's softmax
+stay fp32, so the parameter tree and a loaded checkpoint never change.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch.nn as nn
 from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.models.corr import CorrBlock
 from raft_tpu_torch.models.encoders import FeatureEncoder
-from raft_tpu_torch.models.layers import BottleneckBlock, ResidualBlock
+from raft_tpu_torch.models.layers import BottleneckBlock, Conv2d, ResidualBlock
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.models.update import (
     FlowHead,
@@ -27,9 +33,20 @@ from raft_tpu_torch.models.update import (
     UpdateBlock,
 )
 
-__all__ = ["RAFTConfig", "RAFT_LARGE", "RAFT_SMALL", "CONFIGS", "build_raft", "raft_large", "raft_small"]
+__all__ = [
+    "RAFTConfig",
+    "RAFT_LARGE",
+    "RAFT_SMALL",
+    "CONFIGS",
+    "build_raft",
+    "load_checkpoint",
+    "raft_for_serving",
+    "raft_large",
+    "raft_small",
+]
 
 _BLOCKS = {"residual": ResidualBlock, "bottleneck": BottleneckBlock}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +76,10 @@ class RAFTConfig:
     # volume + pyramid in the CUDA kernel (kernels/corr_pallas.py), plain
     # lookup. Parameter-free either way.
     corr_impl: str = "dense"
+    # conv stacks' compute dtype: 'float32' | 'bfloat16'
     compute_dtype: str = "float32"
+    # pyramid storage: None (follows compute_dtype) | 'float32' |
+    # 'bfloat16' | 'int8' (corr_impl='fused' only, inference only)
     corr_dtype: Optional[str] = None
 
     def replace(self, **kw) -> "RAFTConfig":
@@ -109,18 +129,43 @@ RAFT_SMALL = RAFTConfig(
 CONFIGS = {"raft_large": RAFT_LARGE, "raft_small": RAFT_SMALL}
 
 
-def _check_supported(config: RAFTConfig) -> None:
+def _resolve_dtypes(config: RAFTConfig):
+    """(compute dtype, pyramid dtype), ``None`` for fp32, as the JAX
+    ``build_raft`` resolves them: ``corr_dtype=None`` follows
+    ``compute_dtype``; int8 needs ``corr_impl='fused'``."""
     if config.corr_impl == "onthefly":
         raise NotImplementedError(
             "corr_impl='onthefly' is not ported yet: ROADMAP queue 1 item 11"
         )
     if config.corr_impl not in ("dense", "fused", "pallas"):
         raise ValueError(f"unknown corr_impl {config.corr_impl!r}")
-    if config.compute_dtype != "float32" or config.corr_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            "only float32 compute and correlation storage are ported; bf16/int8 "
-            "precision is ROADMAP queue 1 item 7"
-        )
+    if config.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {config.compute_dtype!r}")
+    compute = _DTYPES[config.compute_dtype]
+    compute = None if compute == torch.float32 else compute
+    if config.corr_dtype == "int8":
+        # symmetric per-level quantized pyramid: fused-impl inference only
+        if config.corr_impl != "fused":
+            raise ValueError("corr_dtype='int8' requires corr_impl='fused'")
+        return compute, torch.int8
+    if config.corr_dtype is not None and config.corr_dtype not in _DTYPES:
+        raise ValueError(f"corr_dtype must be None, 'int8' or one of {sorted(_DTYPES)}, "
+                         f"got {config.corr_dtype!r}")
+    corr = _DTYPES[config.corr_dtype] if config.corr_dtype is not None else compute
+    return compute, None if corr == torch.float32 else corr
+
+
+def _set_compute_dtype(model: RAFT, dtype) -> None:
+    """Every conv computes at ``dtype`` except the flow head's ``conv2`` and
+    the mask head's last conv, which stay fp32 (``raft_tpu/models/
+    update.py:161,200``); the ``convcorr1`` projection follows ``dtype``."""
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+    model.update_block.flow_head.conv2.compute_dtype = None
+    if model.mask_predictor is not None:
+        model.mask_predictor.conv.compute_dtype = None
+    model.update_block.motion_encoder.compute_dtype = dtype
 
 
 def _init_weights(model: nn.Module) -> None:
@@ -139,19 +184,19 @@ def _init_weights(model: nn.Module) -> None:
 def build_raft(config: RAFTConfig, *, device=None, seed: int = 0) -> RAFT:
     """Assemble a RAFT module from a config with seeded random weights, in
     eval mode on ``device`` (the CUDA card unless ``'cpu'`` is named)."""
-    _check_supported(config)
+    compute_dtype, corr_dtype = _resolve_dtypes(config)
     dev = resolve_device(device)
     # the kernel modules are imported here: they build on models.corr
     if config.corr_impl == "fused":
         from raft_tpu_torch.kernels.lookup_xtap import FusedLookupCorrBlock
 
-        corr_block = FusedLookupCorrBlock(config.corr_levels, config.corr_radius)
+        corr_block = FusedLookupCorrBlock(config.corr_levels, config.corr_radius, corr_dtype)
     elif config.corr_impl == "pallas":
         from raft_tpu_torch.kernels.corr_pallas import PallasCorrBlock
 
-        corr_block = PallasCorrBlock(config.corr_levels, config.corr_radius)
+        corr_block = PallasCorrBlock(config.corr_levels, config.corr_radius, corr_dtype)
     else:
-        corr_block = CorrBlock(config.corr_levels, config.corr_radius)
+        corr_block = CorrBlock(config.corr_levels, config.corr_radius, corr_dtype)
     hidden = config.gru_hidden
     context_channels = config.context_encoder_widths[-1] - hidden
     with torch.random.fork_rng(devices=[]):
@@ -190,23 +235,47 @@ def build_raft(config: RAFTConfig, *, device=None, seed: int = 0) -> RAFT:
             ),
         )
         _init_weights(model)
+    _set_compute_dtype(model, compute_dtype)
     return model.to(dev).eval()
 
 
+def load_checkpoint(path: str):
+    """The state_dict in a weight file, by its content: a torch file (a zip
+    archive, ``PK``, or a legacy pickle, byte ``0x80``) goes to
+    ``torch.load(weights_only=True)``; a Flax ``.msgpack`` variable tree (a
+    non-empty msgpack map: a first byte ``0x81``-``0x8f``, ``0xde`` or
+    ``0xdf``) to ``state_dict_from_flax(load_msgpack(path))``. Anything
+    else raises a ``ValueError``."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head.startswith(b"PK") or (len(head) == 2 and head[0] == 0x80):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        from raft_tpu_torch.checkpoint.convert import load_msgpack, state_dict_from_flax
+
+        return state_dict_from_flax(load_msgpack(path))
+    raise ValueError(
+        f"{path}: not a weight file this port reads; expected a torch .pth "
+        "state_dict (torch.save) or a Flax .msgpack variable tree (the JAX "
+        "package's weights)"
+    )
+
+
 def _make(arch: str, pretrained: bool, checkpoint: Optional[str], device, seed: int, **overrides) -> RAFT:
+    if arch not in CONFIGS:
+        raise ValueError(f"unknown arch {arch!r}; choose from {sorted(CONFIGS)}")
     if pretrained and checkpoint is None:
         raise FileNotFoundError(
             f"pretrained {arch} weights are not bundled and are never "
-            "downloaded; pass checkpoint=<path to a torchvision-layout .pth "
-            "state_dict>"
+            "downloaded; pass checkpoint=<path to a .pth state_dict or a "
+            "Flax .msgpack>"
         )
     config = CONFIGS[arch]
     if overrides:
         config = config.replace(**overrides)
     model = build_raft(config, device=device, seed=seed)
     if checkpoint is not None:
-        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(load_checkpoint(checkpoint), strict=True)
     return model
 
 
@@ -223,3 +292,27 @@ def raft_small(
 ) -> RAFT:
     """RAFT small (torchvision widths) on ``device``."""
     return _make("raft_small", pretrained, checkpoint, device, seed, **overrides)
+
+
+def raft_for_serving(
+    serve_config,
+    *,
+    arch: str = "raft_large",
+    pretrained: bool = False,
+    checkpoint: Optional[str] = None,
+    device=None,
+    seed: int = 0,
+    **overrides,
+) -> RAFT:
+    """A model at a serving config's precision (``raft_tpu/models/
+    zoo.py:402-430``): the config's ``model_overrides()`` (compute dtype,
+    pyramid dtype, corr_impl) become :class:`RAFTConfig` overrides, and
+    explicit ``**overrides`` win over them. Precision never changes the
+    parameters, so fp32 checkpoints load unchanged::
+
+        cfg = ServeConfig.preset("throughput")
+        model = raft_for_serving(cfg, checkpoint="raft_large.msgpack")
+    """
+    kw = dict(serve_config.model_overrides())
+    kw.update(overrides)
+    return _make(arch, pretrained, checkpoint, device, seed, **kw)

@@ -11,8 +11,19 @@ Tolerances: 1e-5 for the taps of K2 and K4 (a 4-term fp32 bilinear sum per
 tap, summed in another order than the plain version's matmuls), 1e-4 for
 the K1 projection (a 100-324-term fp32 dot per output) and the K3 volume
 (a 32-256-term fp32 dot per cell), 1e-5 for K5 in fp32 and one bf16
-rounding step for its bf16 I/O. TF32 is off.
+rounding step for its bf16 I/O. The reduced-precision forms: K3's bf16
+levels within the fp32 tolerance plus one bf16 ulp of each element (the
+fp32 cell, summed in another order, may round the other way); bf16 outputs of K1 and K2 within
+two bf16 ulps of their largest magnitude (a tap's fp32 x-combine, fused
+into one rounding or not, may round a bf16 value the other way); K1's fp32
+output from int8 levels within 1e-4 relative (its integer rows are exact).
+No test sets a global TF32 flag: fp32 comparisons rest on the plain
+versions' matmuls (IEEE fp32 by default) and on the model's own pin
+(``device.fp32_precision``), which ``test_flow_ignores_global_tf32_flags``
+checks.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -50,8 +61,6 @@ CASES = {
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -283,3 +292,140 @@ def test_golden_epe_pallas_on_the_card(cuda_device, dstype):
     model.load_state_dict(state_dict_from_flax(load_msgpack(str(fixture / "weights.msgpack"))), strict=True)
     m = validate(model, Sintel(str(fixture), dstype=dstype), num_flow_updates=32, fps_pairs=0)
     assert abs(m["epe"] - expected["reference"][dstype]) < 1e-3, m
+
+
+# -- reduced-precision forms of K1, K2 and K3 --------------------------------------
+
+LOWP_CASES = ["small", "ragged_kitti", "batch2", "odd_dims", "raft_small_fused", "batch2_ragged_hw"]
+LOWP_VOLUME_CASES = ["raft_small_sintel", "fixture", "kitti_ragged_q", "odd_dims", "five_levels", "six_levels"]
+
+
+def _bf16_ulps_of_max(want, n=2):
+    """``n`` bf16 ulps of the largest magnitude of ``want``."""
+    top = want.float().abs().max().item()
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _lowp_pyramid(pyr, dtype):
+    from raft_tpu_torch.kernels.lookup_xtap import quantize_pyramid
+
+    if dtype == "int8":
+        return quantize_pyramid(pyr)
+    return [lvl.to(torch.bfloat16) for lvl in pyr]
+
+
+@pytest.mark.parametrize("case", LOWP_VOLUME_CASES)
+def test_k3_bf16_matches_plain(cuda_device, case):
+    from raft_tpu_torch.kernels.corr_pallas import fused_volume_pyramid, volume_pyramid_reference
+
+    b, c, h, w, levels = VOLUME_CASES[case]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    f1 = torch.randn(b, c, h, w, generator=gen).to(cuda_device)
+    f2 = torch.randn(b, c, h, w, generator=gen).to(cuda_device)
+    before = fused_volume_pyramid.launches
+    got = fused_volume_pyramid(f1, f2, levels, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_volume_pyramid.launches == before + 1
+    want = volume_pyramid_reference(f1, f2, levels, torch.bfloat16)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype == torch.bfloat16 and g.shape == w_.shape
+        g, w_ = g.float(), w_.float()
+        # the fp32 cells agree within VOLUME_TOL; rounding each to bf16 adds
+        # at most one bf16 ulp of the larger of the two (2^-7 relative)
+        assert ((g - w_).abs() <= VOLUME_TOL + 2.0**-7 * torch.maximum(g.abs(), w_.abs())).all()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("case", LOWP_CASES)
+def test_k2_lowp_matches_plain(cuda_device, case, dtype):
+    pyr, cents, radius = _inputs(case, cuda_device)
+    pyr = _lowp_pyramid(pyr, dtype)
+    before = lookup_pyramid_fused.launches
+    got = lookup_pyramid_fused(pyr, cents, radius)
+    torch.cuda.synchronize()
+    assert lookup_pyramid_fused.launches == before + 1
+    want = lookup_pyramid_reference(pyr, cents, radius)
+    assert got.dtype == want.dtype == torch.bfloat16
+    tol = _bf16_ulps_of_max(want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("proj", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("case", LOWP_CASES)
+def test_k1_lowp_matches_plain(cuda_device, case, dtype, proj):
+    pyr, cents, radius = _inputs(case, cuda_device)
+    pyr = _lowp_pyramid(pyr, dtype)
+    proj_dtype = torch.bfloat16 if proj == "bf16" else None
+    c_in = len(pyr) * (2 * radius + 1) ** 2
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    weight = (torch.randn(96, c_in, generator=gen) * 0.1).to(cuda_device)
+    bias = torch.randn(96, generator=gen).to(cuda_device)
+    before = lookup_project_fused.launches
+    got = lookup_project_fused(pyr, cents, weight, bias, radius, proj_dtype)
+    torch.cuda.synchronize()
+    assert lookup_project_fused.launches == before + 1
+    want = lookup_project_reference(pyr, cents, weight, bias, radius, proj_dtype)
+    assert got.dtype == want.dtype == (proj_dtype or torch.float32)
+    if proj == "bf16":
+        tol = _bf16_ulps_of_max(want)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    elif dtype == "int8":
+        top = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * top)
+    else:
+        torch.testing.assert_close(got, want, rtol=PROJECT_TOL, atol=PROJECT_TOL)
+
+
+def test_int8_lookup_refuses_grad(cuda_device):
+    from raft_tpu_torch.kernels.lookup_xtap import quantize_pyramid
+
+    pyr, cents, radius = _inputs("small", cuda_device)
+    pyr = quantize_pyramid(pyr)
+    weight = torch.zeros(8, len(pyr) * (2 * radius + 1) ** 2, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="int8"):
+        lookup_project_fused(pyr, cents, weight, torch.zeros(8, device=cuda_device), radius)
+
+
+def _tf32_flags():
+    return torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision
+
+
+def test_flow_ignores_global_tf32_flags(cuda_device):
+    """F2: with the TF32 flags at whatever torch's defaults are (cuDNN may
+    use TF32 for fp32 convs), FlowEstimator's flow on the trained fixture
+    equals a run with TF32 switched off globally, to 1e-6 px (cuDNN may
+    pick another algorithm), the golden EPE holds, and the caller's flags
+    are unchanged after each call."""
+    import json
+    import pathlib
+
+    from raft_tpu_torch.checkpoint import load_msgpack, state_dict_from_flax
+    from raft_tpu_torch.data import Sintel
+    from raft_tpu_torch.eval import validate
+
+    fixture = pathlib.Path(__file__).resolve().parent / "fixtures" / "epe_golden"
+    expected = json.loads((fixture / "expected.json").read_text())
+    arch = dict(
+        feature_encoder_widths=(16, 16, 24, 32, 48), context_encoder_widths=(16, 16, 24, 32, 80),
+        motion_corr_widths=(48,), motion_flow_widths=(32, 16), motion_out_channels=40, gru_hidden=48,
+        flow_head_hidden=64, corr_levels=3, corr_radius=3,
+    )
+    model = rt.build_raft(rt.RAFT_SMALL.replace(corr_impl="fused", **arch), device=cuda_device)
+    model.load_state_dict(state_dict_from_flax(load_msgpack(str(fixture / "weights.msgpack"))), strict=True)
+    ds = Sintel(str(fixture), dstype="clean")
+    est = rt.FlowEstimator(model, num_flow_updates=32, device=cuda_device)
+    flags = _tf32_flags()
+    default = [est(ds[i]["image1"], ds[i]["image2"]) for i in range(len(ds))]
+    assert _tf32_flags() == flags
+    m = validate(model, ds, num_flow_updates=32, fps_pairs=0)
+    assert _tf32_flags() == flags
+    assert abs(m["epe"] - expected["reference"]["clean"]) < 1e-3, m
+
+    torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision = "ieee", "ieee"
+    try:
+        off = [est(ds[i]["image1"], ds[i]["image2"]) for i in range(len(ds))]
+    finally:
+        torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision = flags
+    for a, b in zip(default, off):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)

@@ -35,6 +35,10 @@ def test_no_jax_imports(path):
 
 
 SLICE_MODULES = (
+    "raft_tpu_torch/bench.py",
+    "raft_tpu_torch/device.py",
+    "raft_tpu_torch/serve/__init__.py",
+    "raft_tpu_torch/serve/config.py",
     "raft_tpu_torch/checkpoint/convert.py",
     "raft_tpu_torch/data/datasets.py",
     "raft_tpu_torch/data/io.py",
@@ -48,8 +52,8 @@ SLICE_MODULES = (
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_slice_modules_are_checked(module):
-    """The evaluation slice's modules exist and are among those the two
-    no-JAX checks cover."""
+    """The evaluation and precision slices' modules exist and are among
+    those the two no-JAX checks cover."""
     assert ROOT / module in PORT_FILES
 
 

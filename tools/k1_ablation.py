@@ -65,10 +65,10 @@ _MMA3 = "  mma_tf32(d, alo, bhi);\n  mma_tf32(d, ahi, blo);\n  mma_tf32(d, ahi, 
 _KEEP = "  d[0] += __uint_as_float(ahi[0] ^ alo[1] ^ bhi[0] ^ blo[1]) * 0.f;"  # fragments stay live
 _SPLIT = "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));"
 _SKIP = "      if (m >= nq) continue;\n"  # both store loops of the epilogue
-_GATHER = "  gather_windows(pyr, cents, q0, nq, g, a, region, at);\n"
+_GATHER = "  gather_windows<T>(pyr, cents, q0, nq, g, a, region, at);\n"
 _CONST = "  for (int idx = tid; idx < kBM * g.lda; idx += kProjThreads) a[idx] = 0.5f;\n"
-_WINDOW = "          cp_async4(dst + yy * s1 + xx, ok ? vol + y * wl + x : pyr.level[l], ok);\n"
-_TAP = ("        dst[ij] = (1.f - fy) * ((1.f - fx) * c[0] + fx * c[1]) + "
+_WINDOW = "  cp_async4(dst, ok ? vol + off : vol, ok);\n"
+_TAP = ("          dst[ij] = (1.f - fy) * ((1.f - fx) * c[0] + fx * c[1]) + "
         "fy * ((1.f - fx) * c[s1] + fx * c[s1 + 1]);\n")
 _W = "      cp_async16(ws + n * kLdw + kk, ok ? weight + int64_t(n0 + n) * g.c_in + k0 + kk : weight, ok);\n"
 _BM64 = ("constexpr int kBM = 32;", "constexpr int kBM = 64;", 1)
@@ -83,8 +83,8 @@ ABLATIONS = {
     "const_taps": [(_GATHER, _CONST, 1)],
     "product_only": [(_GATHER, _CONST, 1), (_SKIP, _SKIP.replace("m >= nq", "m >= 0"), 2)],
     "gather_only": [(_MMA3, _KEEP, 1), (_SKIP, _SKIP.replace("m >= nq", "m >= 0"), 2)],
-    "no_window_copy": [(_WINDOW, "          (void)ok;\n", 1)],
-    "no_taps": [(_TAP, "        dst[ij] = fx + c[0] * 0.f;\n", 1)],
+    "no_window_copy": [(_WINDOW, "  (void)dst;\n  (void)off;\n  (void)ok;\n", 1)],
+    "no_taps": [(_TAP, "          dst[ij] = fx + c[0] * 0.f;\n", 1)],
     "no_w_copy": [(_W, "      (void)ok;\n", 1)],
     "floor": [(_GATHER, _CONST, 1), (_W, "      (void)ok;\n", 1), (_MMA3, _KEEP, 1)],
     "bm64": [_BM64],
@@ -121,22 +121,30 @@ def build_ablations(out_dir: Path):
             raise RuntimeError(f"nvcc failed for ablation {name}:\n{log}")
         print(f"{name}: {chip_smoke.ptxas_usage(log, 'xtap_project_kernel')}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.xtap_project_launch.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        ints = ctypes.POINTER(ctypes.c_int)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        if name == "fp32_fma":  # the old fp32-only interface
+            lib.xtap_project_launch.argtypes = [
+                ctypes.POINTER(ptr), ints, ints, i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+        else:
+            lib.xtap_project_launch.argtypes = [
+                ctypes.POINTER(ptr), ints, ints, ints, i32, i32, ptr,
+                ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
         lib.xtap_project_launch.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def launch(lib, pyr, cents, weight, bias, radius, out):
+def launch(lib, name, pyr, cents, weight, bias, radius, out):
+    """One fp32 launch: fp32 levels, 3xTF32 product."""
     b, c_out, h, w = out.shape
-    rc = lib.xtap_project_launch(
-        *lx._pyramid_args(pyr), cents.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b * h * w, h * w, radius, c_out, torch.cuda.current_stream().cuda_stream,
-    )
+    pyr_args = lx._pyramid_args(pyr, radius)
+    if name == "fp32_fma":
+        pyr_args = pyr_args[:3] + (pyr_args[4],)
+    rest = (cents.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b * h * w, h * w, radius, c_out)
+    if name != "fp32_fma":
+        rest += (0,)  # fp32 product
+    rc = lib.xtap_project_launch(*pyr_args, *rest, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed with cudaError_t {rc}")
 
@@ -158,7 +166,7 @@ def main() -> int:
         out = torch.empty(want.shape, device=dev)  # NCHW; the plain version's result is a permuted view
         errs = {}
         for name, lib in libs.items():
-            launch(lib, pyr, cents, weight, bias, r, out)
+            launch(lib, name, pyr, cents, weight, bias, r, out)
             torch.cuda.synchronize()
             errs[name] = (out - want).abs().max().item()
         times = {name: [] for name in ["plain", "library_chain", *libs]}
@@ -168,7 +176,7 @@ def main() -> int:
             times["library_chain"].append(chip_smoke.cuda_ms(
                 lambda: chip_smoke.k1_library_chain(pyr, cents, weight, bias, r)))
             for name, lib in libs.items():
-                times[name].append(chip_smoke.cuda_ms(lambda: launch(lib, pyr, cents, weight, bias, r, out)))
+                times[name].append(chip_smoke.cuda_ms(lambda: launch(lib, name, pyr, cents, weight, bias, r, out)))
         print(f"{shape_name} {kw}:", flush=True)
         for name, ts in times.items():
             err = f"  max_abs_err vs plain {errs[name]:.3e}" if name in errs else ""

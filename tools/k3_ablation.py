@@ -51,8 +51,8 @@ _CVT = '{ uint32_t r; asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x)); return
 _SPLIT = "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));"
 _MMA3 = "  mma_tf32(d, alo, bhi);\n  mma_tf32(d, ahi, blo);\n  mma_tf32(d, ahi, bhi);"
 _KEEP = "  d[0] += __uint_as_float(ahi[0] ^ alo[1] ^ bhi[0] ^ blo[1]) * 0.f;"  # fragments stay live
-_STORE0 = "        if (t < nq && y < g.h && x < g.w)\n          *reinterpret_cast<float4*>"
-_STORE_L = "if (t < nq && yl < hl && xl < wl) out["
+_STORE0 = "        if (t < nq && y < g.h && x < g.w)\n          store4("
+_STORE_L = "if (t < nq && yl < hl && xl < wl) store_val(out"
 _NO_STORES = [(_STORE0, _STORE0.replace("t < nq", "t < 0")), (_STORE_L, _STORE_L.replace("t < nq", "t < 0"))]
 
 ABLATIONS = {
@@ -91,7 +91,7 @@ def build_ablations(out_dir: Path):
         lib.corr_pyramid_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.corr_pyramid_launch.restype = ctypes.c_int
         libs[name] = lib
@@ -102,7 +102,7 @@ def launch(lib, f1, f2, levels, outs):
     b, c, h, w = f1.shape
     ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in outs])
     rc = lib.corr_pyramid_launch(f1.data_ptr(), f2.data_ptr(), ptrs, b, c, h, w, levels,
-                                 1.0 / math.sqrt(c), torch.cuda.current_stream().cuda_stream)
+                                 1.0 / math.sqrt(c), 0, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed with cudaError_t {rc}")
 
