@@ -25,18 +25,22 @@ Phases, each of which raises on failure (exit code 1):
      its plain version, timed, bounded (2x and 4x fewer level bytes) and
      beside its library chain;
   4. main path: raft_large (full widths, seeded random weights) with
-     ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests through
-     ``FlowEstimator`` at 32 updates; the launch counts show K1 ran once
-     per update, and the same weights through ``corr_impl='dense'`` give
-     the same flow; one more request runs under torch.profiler;
+     ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests at 32
+     updates, first with ``FlowEstimator``'s model called eagerly on its
+     prepared inputs (the launch counts show K1 ran once per update; the
+     same weights through ``corr_impl='dense'`` give the same flow; one
+     more request runs under torch.profiler), then through
+     ``FlowEstimator`` itself, by CUDA-graph replay: bit for bit the eager
+     flow, K1 once per update inside the graph, latency and a profile;
   5. materialize path: the block's raw correlation features
      (``LazyCorrFeatures.materialize``) through K2, on fp32 levels here and
      on bf16 and int8 levels below;
   6. throughput path: raft_large through
      ``FlowEstimator.from_preset("throughput", pretrained=False)`` (bf16
-     convs and pyramid, K1's bf16 product), 3 requests after a warm-up,
-     K1 once per update on bf16 levels, latency, peak memory, a profile;
-     the TF32 flags are checked unchanged after the model calls;
+     convs and pyramid, K1's bf16 product), 3 requests eagerly after a
+     warm-up, K1 once per update on bf16 levels, latency, peak memory, a
+     profile, and the same graphed; the TF32 flags are checked unchanged
+     after the model calls;
   7. golden EPE: the trained fixture weights read by
      ``raft_small(checkpoint=<the fixture's .msgpack>)``, Sintel through
      ``validate`` at 32 updates at 'pallas', 'fused' and 'quality' (clean
@@ -49,7 +53,18 @@ Phases, each of which raises on failure (exit code 1):
      ``'dense'`` giving the same flow, one request under torch.profiler;
   9. bench: ``python -m raft_tpu_torch.bench`` at 2 pairs a configuration,
      its lines checked against the protocol's schema;
- 10. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+ 10. serving: ``ServeEngine`` over raft_large (the main path's weights) at
+     'quality' (fused) and 'throughput', bucket 440x1024, pool capacity 8,
+     warmed (every program captured as a CUDA graph), 24 requests of
+     436x1024 from 8 threads at targets 32/20/12: each at its own target,
+     the flow against the graphed ``FlowEstimator`` at the same target
+     (quality 1e-3 / 5e-2 px mean / max; throughput 0.1 / 2), no capture
+     after warm-up, boot, requests/s, p50/p99, K1 launches a tick and in
+     the run, the idle share of a profiled burst (the device-time ledger
+     off for both), then the device time per program family from the
+     ledger in a burst of its own, peak memory; then the golden fixture
+     through the engine at 'quality' (1e-3 px);
+ 11. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -203,7 +218,7 @@ def ptxas_usage(log_text: str, kernel: str) -> str:
 
 
 def counters():
-    """The launch counter of every kernel wrapper, by kernel."""
+    """The launch-counting wrapper of every kernel, by kernel (K1-K5)."""
     from raft_tpu_torch.kernels import corr_pallas, inorm_pallas, lookup_pallas, lookup_xtap
 
     return {
@@ -222,6 +237,12 @@ def reset_counts() -> None:
 
 def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def by_kernel(graph_launches):
+    """Graph launches keyed by wrapper name (``GraphProgram.launches``,
+    ``graph_launches()``), keyed by kernel instead."""
+    return {k: graph_launches.get(fn.__name__, 0) for k, fn in counters().items()}
 
 
 def kernel_inputs(device, b, h, w, cent_lo=None, cent_hi=None, seed=0, radius=RADIUS, c_out=C_OUT):
@@ -256,6 +277,8 @@ LOOKUP_CASES = {
     "raft_small_fused": dict(b=1, h=55, w=128, radius=3, c_out=96),
     # h*w = 7285 is odd: K1's 32-query tiles cross the batch boundary mid-tile
     "batch2_ragged_hw": dict(b=2, h=47, w=155),
+    # the serving pool's tick at capacity 8: Q = 56320, levels of ~1.6 GB
+    "serving_batch8": dict(b=8, h=55, w=128),
 }
 
 
@@ -640,6 +663,32 @@ def request_pair(seed: int):
     return im1, im2, (-float(dx), -float(dy))
 
 
+def eager_flow(est, im1, im2, iters=UPDATES):
+    """``est``'s request with its model called eagerly, launch by launch:
+    the same normalization, padding and input layout as the graph ``est``
+    replays."""
+    from raft_tpu_torch.eval.padder import InputPadder
+
+    p1, p2 = est._normalize(im1), est._normalize(im2)
+    padder = InputPadder(p1.shape, mode=est.pad_mode)
+    p1, p2 = padder.pad(p1, p2)
+    with torch.inference_mode():
+        flow = est.model(est._to_device(p1), est._to_device(p2), num_flow_updates=iters, emit_all=False)
+    return padder.unpad(est._to_host(flow))[0]
+
+
+def timed_requests(run, pairs):
+    """Each pair through ``run``, synchronized: (flows, latencies in ms)."""
+    flows, latencies = [], []
+    for pair in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flows.append(run(*pair))
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    return flows, latencies
+
+
 def main_path(device, card):
     import raft_tpu_torch as rt
 
@@ -647,84 +696,77 @@ def main_path(device, card):
     with torch.no_grad():
         model.update_block.flow_head.conv2.weight.mul_(FLOW_HEAD_SCALE)
     est = rt.FlowEstimator(model, num_flow_updates=UPDATES, device=device)
+    eager = lambda a, b: eager_flow(est, a, b)  # noqa: E731
     pairs = [request_pair(seed)[:2] for seed in range(REQUESTS)]
-    est(*pairs[0])  # warm-up: cuDNN algorithm choice, allocator growth
+    eager(*pairs[0])  # warm-up: cuDNN algorithm choice, allocator growth
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
 
     reset_counts()
-    flows, latencies = [], []
-    for pair in pairs:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        flows.append(est(*pair))
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
+    flows, latencies = timed_requests(eager, pairs)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(device)
 
-    log(f"main path: launches {launches} over {REQUESTS} requests x {UPDATES} updates")
+    log(f"main path eager: launches {launches} over {REQUESTS} requests x {UPDATES} updates")
     if launches["k1"] != REQUESTS * UPDATES:
         raise AssertionError(f"K1 launched {launches['k1']} times, expected {REQUESTS * UPDATES}")
     for f in flows:
         if f.shape != IMAGE + (2,) or not np.isfinite(f).all():
             raise AssertionError(f"bad flow: shape {f.shape}, finite {np.isfinite(f).all()}")
-    log(f"main path: per-request latency ms {[round(t, 3) for t in latencies]} "
+    log(f"main path eager: per-request latency ms {[round(t, 3) for t in latencies]} "
         f"(mean {np.mean(latencies):.3f}), peak device memory {peak} B "
         f"({peak / 2**30:.3f} GiB), card {card}")
 
-    log_shares("main path", profile_request(est, pairs[0]))
+    log_shares("main path eager", profile_request(eager, pairs[0]))
+    graphed = graphed_path("main path", card, est, pairs, flows)
 
     dense = rt.raft_large(corr_impl="dense", device=device)
     dense.load_state_dict(model.state_dict())
-    compare_flows("main path: fused", flows, rt.FlowEstimator(dense, num_flow_updates=UPDATES, device=device), pairs)
-    return model, pairs, flows, launches
+    dense_est = rt.FlowEstimator(dense, num_flow_updates=UPDATES, device=device)
+    compare_flows("main path: fused", flows, lambda a, b: eager_flow(dense_est, a, b), pairs)
+    return model, pairs, flows, graphed
 
 
 def throughput_path(device, card, pairs, quality_flows):
     """raft_large at the 'throughput' preset (bf16 convs, bf16 pyramid, K1
     with a bf16 product) through ``FlowEstimator.from_preset`` on seeded
     weights, the flow head scaled as on the fp32 main path: 3 requests
-    after a warm-up, K1 once per update on bf16 levels, latency, peak
-    memory, one request under torch.profiler (device time and its conv
-    share), and the flow's distance from the fp32 path's (reported, not
-    gated: random weights)."""
+    eagerly after a warm-up, K1 once per update on bf16 levels, latency,
+    peak memory, one request under torch.profiler (device time and its
+    conv share), and the flow's distance from the fp32 path's (reported,
+    not gated: random weights); then the same requests graphed."""
     import raft_tpu_torch as rt
 
     est = rt.FlowEstimator.from_preset("throughput", pretrained=False, device=device, num_flow_updates=UPDATES)
+    eager = lambda a, b: eager_flow(est, a, b)  # noqa: E731
     model = est.model
     with torch.no_grad():
         model.update_block.flow_head.conv2.weight.mul_(FLOW_HEAD_SCALE)
-    est(*pairs[0])  # warm-up
+    eager(*pairs[0])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
-    flows, latencies = [], []
-    for pair in pairs:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        flows.append(est(*pair))
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
+    flows, latencies = timed_requests(eager, pairs)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(device)
     with torch.inference_mode():
         x = torch.zeros((1, 3) + tuple(-(-d // 8) * 8 for d in IMAGE), device=device)
         level_dtype = model.begin_pair(x, x)["pyramid"][0].dtype
-    log(f"throughput path: launches {launches} over {len(pairs)} requests x {UPDATES} updates; pyramid levels "
-        f"{level_dtype}; corr block {type(model.corr_block).__name__} dtype {model.corr_block.dtype}")
+    log(f"throughput path eager: launches {launches} over {len(pairs)} requests x {UPDATES} updates; pyramid "
+        f"levels {level_dtype}; corr block {type(model.corr_block).__name__} dtype {model.corr_block.dtype}")
     if launches["k1"] != len(pairs) * UPDATES or level_dtype != torch.bfloat16:
         raise AssertionError(f"throughput path: K1 launched {launches['k1']} times on {level_dtype} levels")
     for f in flows:
         if f.shape != IMAGE + (2,) or not np.isfinite(f).all():
             raise AssertionError(f"bad flow: shape {f.shape}, finite {np.isfinite(f).all()}")
     d = [np.abs(a - b) for a, b in zip(flows, quality_flows)]
-    log(f"throughput path: per-request latency ms {[round(t, 3) for t in latencies]} (mean "
+    log(f"throughput path eager: per-request latency ms {[round(t, 3) for t in latencies]} (mean "
         f"{np.mean(latencies):.3f}), peak device memory {peak} B ({peak / 2**30:.3f} GiB), card {card}; "
         f"|dflow| vs the fp32 main path mean {np.mean([x.mean() for x in d]):.3e} px, max "
         f"{max(x.max() for x in d):.3e} px (same seed, bf16: not gated)")
-    log_shares("throughput path", profile_request(est, pairs[0]))
-    return model, launches["k1"]
+    log_shares("throughput path eager", profile_request(eager, pairs[0]))
+    graphed = graphed_path("throughput path", card, est, pairs, flows)
+    return model, graphed["k1"]
 
 
 def log_shares(what, prof):
@@ -739,8 +781,8 @@ def log_shares(what, prof):
         f"({busy_us / 1e3:.3f} ms), K1 {k1_us / 1e3:.3f} ms = {k1_us / busy_us:.4f}")
 
 
-def compare_flows(what, flows, est_dense, pairs):
-    diffs = [np.abs(f - est_dense(*pair[:2])) for f, pair in zip(flows, pairs)]
+def compare_flows(what, flows, run_dense, pairs):
+    diffs = [np.abs(f - run_dense(*pair[:2])) for f, pair in zip(flows, pairs)]
     mean_d = float(np.mean([d.mean() for d in diffs]))
     max_d = float(max(d.max() for d in diffs))
     log(f"{what} vs dense |dflow| mean {mean_d:.3e} px (tol {FLOW_MEAN_TOL:g}), "
@@ -749,20 +791,13 @@ def compare_flows(what, flows, est_dense, pairs):
         raise AssertionError(f"{what} and dense flows disagree")
 
 
-def profile_request(est, pair, top: int = 12):
-    """Where one request's time goes: device time by kernel from
-    torch.profiler, against the request's wall time. Returns
-    ({kernel name: device us}, device busy us), or None when the profiler
-    recorded no device activity."""
+def device_busy(prof):
+    """({kernel name: (launches, device us)}, device busy us, device ops)
+    of a torch.profiler run: busy time is the union of the device
+    activities' intervals. None when the profiler recorded no device
+    activity."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        est(*pair)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, spans = {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -771,18 +806,73 @@ def profile_request(est, pair, top: int = 12):
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     if not spans:
-        log("profile: the profiler recorded no device activity; device busy share not measured")
         return None
     busy_us, end = 0.0, -math.inf
     for s, e in sorted(spans):  # union of kernel intervals
         if e > end:
             busy_us += e - max(s, end)
             end = e
+    return by_name, busy_us, len(spans)
+
+
+def profile_request(run, pair, top: int = 12):
+    """Where one request's time goes (``run(*pair)``): device time by
+    kernel from torch.profiler, against the request's wall time. Returns
+    ({kernel name: device us}, device busy us), or None when the profiler
+    recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*pair)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy(prof)
+    if busy is None:
+        log("profile: the profiler recorded no device activity; device busy share not measured")
+        return None
+    by_name, busy_us, ops = busy
     log(f"profile: one request, wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-        f"(idle share {1 - busy_us / 1e3 / wall_ms:.3f}), {len(spans)} device ops")
+        f"(idle share {1 - busy_us / 1e3 / wall_ms:.3f}), {ops} device ops")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"profile:   {us / 1e3:9.3f} ms  {n:5d}x  {name[:110]}")
     return {name: us for name, (_, us) in by_name.items()}, busy_us
+
+
+def graphed_path(what, card, est, pairs, eager_flows):
+    """The same requests through ``est`` itself, by CUDA-graph replay (one
+    capture, then a replay a request): the flow equals the eager flow bit
+    for bit, K1 is in the graph once per update and the wrappers count no
+    eager launch; latency and one profiled request beside the eager
+    numbers above. Returns the launches the timed replays made, by
+    kernel."""
+    from raft_tpu_torch.graphs import capture_events
+
+    ev0 = capture_events()
+    t0 = time.perf_counter()
+    est(*pairs[0])  # captures
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    before = by_kernel(est.graph_launches())
+    reset_counts()
+    flows, latencies = timed_requests(est, pairs)
+    eager = read_counts()
+    replayed = {k: n - before[k] for k, n in by_kernel(est.graph_launches()).items()}
+    (prog,) = est.programs().values()
+    per_replay = by_kernel(prog.launches)
+    same = all(np.array_equal(a, b) for a, b in zip(flows, eager_flows))
+    log(f"{what} graphed: first call (warm-up + capture) {capture_s:.3f} s, {capture_events() - ev0} capture; "
+        f"per-request latency ms {[round(t, 3) for t in latencies]} (mean {np.mean(latencies):.3f}); launches "
+        f"per replay {per_replay}, by the {len(pairs)} replays {replayed}, eager launches in the run {eager}; "
+        f"flows equal to the eager flows bit for bit: {same}; card {card}")
+    if not same:
+        d = max(float(np.abs(a - b).max()) for a, b in zip(flows, eager_flows))
+        raise AssertionError(f"{what}: graphed flow differs from eager flow by up to {d:.3e} px")
+    if per_replay["k1"] != UPDATES or replayed["k1"] != UPDATES * len(pairs) or any(eager.values()):
+        raise AssertionError(f"{what}: K1 not in the graph once per update ({per_replay}, eager {eager})")
+    log_shares(f"{what} graphed", profile_request(est, pairs[0]))
+    return replayed
 
 
 def materialize_path(device, model, pair):
@@ -941,25 +1031,22 @@ def sintel_path(device, card):
     fps = chained_pairs_per_s(model, [p["image1"] for p in prepared], [p["image2"] for p in prepared],
                               num_flow_updates=UPDATES)
     est = rt.FlowEstimator(model, num_flow_updates=UPDATES, device=device)
-    flows, latencies = [], []
-    for s in data.samples:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        flows.append(est(s["image1"], s["image2"]))
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-    log(f"sintel path: chained_pairs_per_s {fps:.3f} pairs/s over {len(data)} pairs; FlowEstimator "
-        f"per-request latency ms {[round(t, 3) for t in latencies]} (mean {np.mean(latencies):.3f}), card {card}")
+    eager = lambda a, b: eager_flow(est, a, b)  # noqa: E731
+    flows, latencies = timed_requests(eager, [(s["image1"], s["image2"]) for s in data.samples])
+    log(f"sintel path: chained_pairs_per_s {fps:.3f} pairs/s over {len(data)} pairs; FlowEstimator's model "
+        f"eagerly, per-request latency ms {[round(t, 3) for t in latencies]} (mean {np.mean(latencies):.3f}), "
+        f"card {card}")
     for f in flows:
         if f.shape != IMAGE + (2,) or not np.isfinite(f).all():
             raise AssertionError(f"bad flow: shape {f.shape}")
 
     dense = rt.raft_small(corr_impl="dense", device=device)
     dense.load_state_dict(model.state_dict())
-    compare_flows("sintel path: pallas", flows, rt.FlowEstimator(dense, num_flow_updates=UPDATES, device=device),
+    dense_est = rt.FlowEstimator(dense, num_flow_updates=UPDATES, device=device)
+    compare_flows("sintel path: pallas", flows, lambda a, b: eager_flow(dense_est, a, b),
                   [(s["image1"], s["image2"]) for s in data.samples])
 
-    prof = profile_request(est, (data.samples[0]["image1"], data.samples[0]["image2"]))
+    prof = profile_request(eager, (data.samples[0]["image1"], data.samples[0]["image2"]))
     if prof is not None:
         by_name, busy_us = prof
         k3_us = sum(us for name, us in by_name.items() if "corr_pyramid_kernel" in name)
@@ -968,6 +1055,158 @@ def sintel_path(device, card):
         log(f"sintel path profile: K3 {k3_us / 1e3:.3f} ms = {k3_us / busy_us:.4f} of device busy time, "
             f"fp32 convolutions {conv_us / 1e3:.3f} ms = {conv_us / busy_us:.4f}")
     return launches["k3"]
+
+
+# The serving phase: raft_large at 440x1024, pool capacity 8, 24 requests
+# of 436x1024 from 8 threads, targets cycling through the ladder. Flow
+# gates against the graphed FlowEstimator at the same preset and target
+# (batch 8 in the pool against batch 1), mean / max px: quality as the
+# kernel-vs-dense gate; throughput's bf16 convs and pyramid may round the
+# other way at another batch's algorithms, its bound stated in PERF.md
+# before the first run.
+SERVE_BUCKET, SERVE_CAPACITY, SERVE_LADDER = (440, 1024), 8, (32, 20, 12)
+SERVE_REQUESTS, SERVE_THREADS = 24, 8
+SERVE_TOL = {"quality": (1e-3, 5e-2), "throughput": (0.1, 2.0)}
+
+
+def serve_requests(engine, pairs, targets, threads):
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as ex:
+        return list(ex.map(lambda i: engine.submit(*pairs[i], num_flow_updates=targets[i]), range(len(pairs))))
+
+
+def serving_phase(device, card, preset, weights):
+    """``ServeEngine`` over raft_large at ``preset`` (fused, K1 in every
+    pool tick) with the main path's weights: boot, 24 requests, the flow
+    gates, the capture counter, speed, K1 launches, the idle share of a
+    profiled burst of 8 requests at 20 updates (the ledger off for both:
+    its timed dispatches drain the pipeline), then the ledger's device
+    time per program family over one more such burst with every dispatch
+    timed, peak memory. Returns the K1 launches of the 24-request run and
+    the phase's numbers."""
+    import raft_tpu_torch as rt
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = rt.raft_for_serving(ServeConfig.preset(preset), corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    # a generous deadline: every request runs to its own target here
+    cfg = ServeConfig(buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER, warmup=True,
+                      default_deadline_ms=120_000.0, ledger_sample_every=0)
+    pairs = [request_pair(100 + i)[:2] for i in range(SERVE_REQUESTS)]
+    targets = [SERVE_LADDER[i % len(SERVE_LADDER)] for i in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    engine = ServeEngine(model, cfg, device=device)
+    t0 = time.perf_counter()
+    engine.start()
+    boot_s = time.perf_counter() - t0
+    state = engine._pools[SERVE_BUCKET].state
+    leaves = [*state["pyramid"], *(state[k] for k in ("coords1", "hidden", "context", "resid_hist", "converged"))]
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    counts = engine.program_counts()
+    boot = engine.stats()["boot"]
+    log(f"serving {preset}: boot to ready {boot_s:.3f} s ({json.dumps(boot)}), graphs per program family "
+        f"{counts}; pool state {state_bytes} B ({state_bytes / 2**30:.3f} GiB, {state_bytes // SERVE_CAPACITY} B a "
+        f"slot), card {card}")
+    ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    results = serve_requests(engine, pairs, targets, SERVE_THREADS)
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    captures, eager = capture_events() - ev0, read_counts()
+    k1_run = by_kernel(engine.graph_launches())["k1"] - k1_0
+    step = engine._pool_progs.graphs()[("pool_step", SERVE_CAPACITY) + tuple(d // 8 for d in SERVE_BUCKET)]
+    k1_tick = by_kernel(step.launches)["k1"]
+    lat = [r.latency_ms for r in results]
+    log(f"serving {preset}: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads in {wall:.3f} s = "
+        f"{SERVE_REQUESTS / wall:.3f} requests/s; latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+        f"{np.percentile(lat, 99):.3f} ms; ticks {stats['pool_ticks']}, occupancy "
+        f"{stats['pool']['occupancy']:.4f}; K1 {k1_tick} a tick, {k1_run} in the run (graph "
+        f"replays x launches per graph), eager launches {eager}; captures during the run {captures}, program "
+        f"counts {engine.program_counts()}; card {card}")
+
+    burst = [pairs[i] for i in range(SERVE_THREADS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_requests(engine, burst, [20] * len(burst), SERVE_THREADS)
+        torch.cuda.synchronize()
+        burst_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy(prof)
+    if busy is None:
+        idle = None
+        log(f"serving {preset}: profiled burst recorded no device activity; idle share not measured")
+    else:
+        by_name, busy_us, ops = busy
+        idle = 1 - busy_us / 1e3 / burst_ms
+        log(f"serving {preset}: profiled burst of {len(burst)} requests at 20 updates (one admission, 20 ticks, one "
+            f"retirement): wall {burst_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle share {idle:.3f}, "
+            f"{ops} device ops; card {card}")
+        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+            log(f"serving {preset} profile:   {us / 1e3:9.3f} ms  {n:6d}x  {name[:110]}")
+    engine.ledger.sample_every = 1
+    serve_requests(engine, burst, [20] * len(burst), SERVE_THREADS)
+    log(f"serving {preset}: device time by program family (ledger, every dispatch of a burst of {len(burst)} "
+        f"requests at 20 updates timed; card {card}): {json.dumps(engine.device_time_breakdown()['by_family'])}")
+    engine.stop()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    est = rt.FlowEstimator(model, num_flow_updates=SERVE_LADDER[0], pad_mode="downstream", device=device)
+    want = [est(*pairs[i], num_flow_updates=targets[i]) for i in range(SERVE_REQUESTS)]
+    d = [np.abs(r.flow - w) for r, w in zip(results, want)]
+    mean_d, max_d = float(np.mean([x.mean() for x in d])), float(max(x.max() for x in d))
+    tol_mean, tol_max = SERVE_TOL[preset]
+    log(f"serving {preset}: |dflow| vs the graphed FlowEstimator (batch 1) mean {mean_d:.3e} px (tol {tol_mean:g}), "
+        f"max {max_d:.3e} px (tol {tol_max:g}); peak device memory {peak} B ({peak / 2**30:.3f} GiB), card {card}")
+    bad = [(r.rid, r.num_flow_updates, r.exit_reason) for r, n in zip(results, targets)
+           if r.num_flow_updates != n or r.exit_reason != "target" or r.flow.shape != IMAGE + (2,)]
+    if bad:
+        raise AssertionError(f"serving {preset}: requests off their own target: {bad}")
+    if captures or eager["k1"] or k1_tick != 1:
+        raise AssertionError(f"serving {preset}: {captures} captures after warm-up, K1 {k1_tick} a tick, "
+                             f"eager {eager}")
+    if not (mean_d <= tol_mean and max_d <= tol_max):
+        raise AssertionError(f"serving {preset}: pool flows disagree with FlowEstimator")
+    return k1_run, {"requests_per_s": SERVE_REQUESTS / wall, "idle_share": idle, "peak": peak}
+
+
+def golden_serving_phase(device):
+    """The golden fixture through ``ServeEngine`` at 'quality': each
+    frame pair padded as the Sintel protocol pads it (split, to the
+    96x136 bucket), submitted from its own thread, its flow unpadded; the
+    pixel-weighted EPE against the reference."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.data import Sintel
+    from raft_tpu_torch.eval.padder import InputPadder
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    expected = json.loads((FIXTURE / "expected.json").read_text())
+    model = rt.raft_for_serving(ServeConfig.preset("quality"), arch="raft_small",
+                                checkpoint=str(FIXTURE / "weights.msgpack"), device=device, **FIXTURE_ARCH)
+    ds = Sintel(str(FIXTURE), split="training", dstype="clean")
+    samples = [ds[i] for i in range(len(ds))]
+    padders = [InputPadder(s["image1"].shape, mode="sintel") for s in samples]
+    cfg = ServeConfig(buckets=((96, 136),), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER, warmup=True,
+                      default_deadline_ms=120_000.0)
+    with ServeEngine(model, cfg, device=device) as engine, ThreadPoolExecutor(len(samples)) as ex:
+        results = list(ex.map(lambda i: engine.submit(*padders[i].pad(samples[i]["image1"], samples[i]["image2"])),
+                              range(len(samples))))
+    epe = np.concatenate([
+        np.linalg.norm(p.unpad(r.flow[None])[0] - s["flow"], axis=-1).reshape(-1)
+        for p, r, s in zip(padders, results, samples)
+    ]).mean()
+    ref = expected["reference"]["clean"]
+    log(f"golden EPE through ServeEngine (quality, {len(samples)} pairs, 32 updates): epe {epe:.7f} (reference "
+        f"{ref:.7f}, |d| {abs(epe - ref):.3e}, tol {EPE_TOL:g})")
+    if not abs(epe - ref) < EPE_TOL or any(r.num_flow_updates != 32 for r in results):
+        raise AssertionError("golden EPE through ServeEngine misses the reference")
 
 
 def bench_phase():
@@ -1046,7 +1285,8 @@ def main() -> int:
     k5_err, k5_times, k5_launches = inorm_phase(device)
     log(f"kernels K5 phase (Triton compiles included) {time.perf_counter() - t0:.2f} s")
 
-    model, pairs, quality_flows, launches = main_path(device, card)
+    model, pairs, quality_flows, launches = main_path(device, card)  # the graphed requests' launches
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
     k2_launches, _ = materialize_path(device, model, pairs[0])
     throughput_model, k1_throughput = throughput_path(device, card, pairs, quality_flows)
     k2b_launches, _ = materialize_path(device, throughput_model, pairs[0])
@@ -1063,6 +1303,9 @@ def main() -> int:
     _, golden_launches = golden_phase(device)
     k3_launches = sintel_path(device, card)
     bench_phase()
+    k1_serve_q, _ = serving_phase(device, card, "quality", weights)
+    k1_serve_t, _ = serving_phase(device, card, "throughput", weights)
+    golden_serving_phase(device)
 
     k3 = k3_times["raft_small_sintel"]
     k3b = k3b_times["raft_small_sintel"]
@@ -1080,14 +1323,19 @@ def main() -> int:
     k3_lib = "raft_tpu_torch/kernels/csrc/corr_pyramid.cu"
     kernels = [
         entry("xtap_project (K1: lookup + convcorr1), fp32 levels, 3xTF32 product", lookup_src, k1_src,
-              launches["k1"], "FlowEstimator, raft_large fused fp32 (main path)", lookup_err["k1"], k1,
-              lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1),
+              launches["k1"], "FlowEstimator, raft_large fused fp32 (main path, graph replays)", lookup_err["k1"], k1,
+              lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1,
+              serving_path=f"ServeEngine 'quality' at fused, raft_large, {SERVE_REQUESTS} requests (graph replays)",
+              serving_launches=k1_serve_q),
         entry("xtap_project (K1), bf16 levels, 3xTF32 product", lookup_src, k1_src,
               golden_launches["fused + bf16 corr"], "validate, golden fixture at fused + bf16 corr (clean)",
               lowp_err["k1_bf16"], lowp_times["k1_bf16"], lowp_bounds["k1_bf16"]),
         entry("xtap_project (K1), bf16 levels, bf16 product", lookup_src, k1_src, k1_throughput,
-              "FlowEstimator.from_preset('throughput'), raft_large (main path)", lowp_err["k1_bf16_bf16"],
-              lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"]),
+              "FlowEstimator.from_preset('throughput'), raft_large (main path, graph replays)",
+              lowp_err["k1_bf16_bf16"],
+              lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"],
+              serving_path=f"ServeEngine 'throughput', raft_large, {SERVE_REQUESTS} requests (graph replays)",
+              serving_launches=k1_serve_t),
         entry("xtap_project (K1), int8 levels, 3xTF32 product", lookup_src, k1_src, golden_launches["edge"],
               "validate, golden fixture at 'edge' (clean)", lowp_err["k1_int8"], lowp_times["k1_int8"],
               lowp_bounds["k1_int8"]),

@@ -4,20 +4,25 @@
 ``(H, W, 3)`` or batched ``(B, H, W, 3)``), normalizes them to [-1, 1],
 replicate-pads to a multiple of 8, runs the model under
 ``torch.inference_mode()`` on its device, and returns flow at the input
-resolution as numpy ``(H, W, 2)`` / ``(B, H, W, 2)``. :class:`FlowStream`
-encodes each frame of a video once and reuses it for the next pair.
+resolution as numpy ``(H, W, 2)`` / ``(B, H, W, 2)``. On the card each
+(padded shape, ``num_flow_updates``) is captured once as a CUDA graph and
+replayed (:mod:`raft_tpu_torch.graphs`), as the JAX estimator compiles one
+program per shape and iteration count. :class:`FlowStream` encodes each
+frame of a video once and reuses it for the next pair (eagerly).
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.eval.padder import InputPadder
+from raft_tpu_torch.graphs import GraphProgram
 
 __all__ = ["FlowEstimator", "FlowStream"]
 
@@ -35,6 +40,11 @@ class FlowEstimator:
         device: the CUDA card unless ``'cpu'`` is named; raises when no
             card is present.
 
+    On the card each (padded shape, ``num_flow_updates``) is one captured
+    CUDA graph, replayed; a failed capture raises. The graphs' input
+    buffers are shared by every caller thread, so a call's fill, replay
+    and readout hold one lock. The CPU runs the model eagerly.
+
     Example::
 
         estimate = FlowEstimator(raft_large(corr_impl="fused"))
@@ -46,6 +56,30 @@ class FlowEstimator:
         self.model = model.to(self.device).eval()
         self.num_flow_updates = num_flow_updates
         self.pad_mode = pad_mode
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._lock = threading.Lock()
+        self._cache_info: Dict[Tuple[int, ...], int] = {}
+        # (padded NHWC shape, iterations) -> (program, input buffers)
+        self._programs: Dict[Tuple, Tuple[GraphProgram, torch.Tensor, torch.Tensor]] = {}
+
+    def cache_info(self) -> Dict[Tuple[int, ...], int]:
+        """Per-padded-shape call counts (a snapshot; thread-safe)."""
+        with self._lock:
+            return dict(self._cache_info)
+
+    def programs(self) -> Dict[Tuple, GraphProgram]:
+        """The captured graphs, by (padded NHWC shape, iterations)."""
+        with self._lock:
+            return {k: prog for k, (prog, _, _) in self._programs.items() if prog.captured}
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Kernel launches made by replaying this estimator's graphs, by
+        kernel wrapper's name (the wrappers count only eager launches)."""
+        total: Dict[str, int] = {}
+        for prog in self.programs().values():
+            for k, n in prog.replayed_launches().items():
+                total[k] = total.get(k, 0) + n
+        return total
 
     @classmethod
     def from_preset(
@@ -140,12 +174,42 @@ class FlowEstimator:
             raise ValueError(f"image shapes differ: {im1.shape} vs {im2.shape}")
         padder = InputPadder(im1.shape, mode=self.pad_mode)
         p1, p2 = padder.pad(im1, im2)
-        with torch.inference_mode():
-            flow = self.model(
-                self._to_device(p1), self._to_device(p2), num_flow_updates=iters, emit_all=False
-            )
-            flow = padder.unpad(self._to_host(flow))
+        flow = padder.unpad(self._forward(p1, p2, iters))
         return flow[0] if single else flow
+
+    def _forward(self, p1: np.ndarray, p2: np.ndarray, iters: int) -> np.ndarray:
+        """Flow ``(B, H, W, 2)`` of a padded normalized NHWC pair."""
+        with self._lock:
+            self._cache_info[p1.shape] = self._cache_info.get(p1.shape, 0) + 1
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                flow = self.model(
+                    self._to_device(p1), self._to_device(p2), num_flow_updates=iters, emit_all=False
+                )
+                return self._to_host(flow)
+            with self._lock:
+                prog, x1, x2 = self._program(p1.shape, iters)
+                x1.copy_(self._to_device(p1))
+                x2.copy_(self._to_device(p2))
+                return self._to_host(prog())
+
+    def _program(self, shape: Tuple[int, ...], iters: int):
+        """The graph of a padded NHWC ``shape`` at ``iters`` and its input
+        buffers, made on first use (captured at its first call)."""
+        key = (shape, iters)
+        entry = self._programs.get(key)
+        if entry is None:
+            # the buffers keep the layout _to_device gives the model
+            # (NHWC memory viewed as NCHW): cuDNN picks its kernels by
+            # layout, so a replay and an eager call agree bit for bit
+            x1 = torch.empty(shape, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
+            x2 = torch.empty(shape, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
+            prog = GraphProgram(
+                lambda: self.model(x1, x2, num_flow_updates=iters, emit_all=False),
+                self.device, pool=self._pool, name=f"FlowEstimator {key}",
+            )
+            entry = self._programs[key] = (prog, x1, x2)
+        return entry
 
     def open_stream(self) -> "FlowStream":
         """Start a video-stream session with encode-once feature caching."""

@@ -33,6 +33,7 @@ from typing import List
 
 import torch
 
+from raft_tpu_torch.graphs import count_launch
 from raft_tpu_torch.kernels import build
 from raft_tpu_torch.models.corr import CorrBlock, correlation_volume, pool_pyramid
 
@@ -129,7 +130,7 @@ def fused_volume_pyramid(
         )
     if rc != 0:
         raise RuntimeError(f"{who}: kernel launch failed with cudaError_t {rc}")
-    fused_volume_pyramid.launches += 1
+    count_launch(fused_volume_pyramid)
     return outs
 
 

@@ -47,6 +47,7 @@ import os
 
 import torch
 
+from raft_tpu_torch.graphs import count_launch
 from raft_tpu_torch.kernels import build
 from raft_tpu_torch.models.layers import instance_norm
 
@@ -161,7 +162,7 @@ def instance_norm_pallas(x: torch.Tensor, eps: float = 1e-5, relu: bool = False)
             x, y, partials, hw, chunk, 1.0 / hw, float(eps),
             SPLIT=split, BLOCK=STEP, RELU=bool(relu), num_warps=NUM_WARPS,
         )
-    instance_norm_pallas.launches += 1
+    count_launch(instance_norm_pallas)
     return y
 
 

@@ -21,6 +21,7 @@ from typing import Sequence
 
 import torch
 
+from raft_tpu_torch.graphs import count_launch
 from raft_tpu_torch.kernels import build
 from raft_tpu_torch.kernels.lookup_xtap import _check_inputs, _check_no_grad
 from raft_tpu_torch.models.corr import lookup_pyramid
@@ -91,7 +92,7 @@ def lookup_pyramid_pallas(
         )
     if rc != 0:
         raise RuntimeError(f"{who}: kernel launch failed with cudaError_t {rc}")
-    lookup_pyramid_pallas.launches += 1
+    count_launch(lookup_pyramid_pallas)
     return out
 
 

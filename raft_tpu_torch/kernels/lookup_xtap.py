@@ -42,6 +42,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from raft_tpu_torch.graphs import count_launch
 from raft_tpu_torch.kernels import build
 from raft_tpu_torch.models.corr import (
     CorrBlock,
@@ -334,7 +335,7 @@ def lookup_pyramid_fused(pyramid: Sequence[torch.Tensor], centroids: torch.Tenso
             *_pyramid_args(pyramid, radius), centroids.data_ptr(), out.data_ptr(), q, radius, stream
         )
     _raise_on(who, rc)
-    lookup_pyramid_fused.launches += 1
+    count_launch(lookup_pyramid_fused)
     return out
 
 
@@ -388,7 +389,7 @@ def lookup_project_fused(
             bias.data_ptr(), out.data_ptr(), q, h * w, radius, c_out, int(bf16), stream,
         )
     _raise_on(who, rc)
-    lookup_project_fused.launches += 1
+    count_launch(lookup_project_fused)
     return out
 
 

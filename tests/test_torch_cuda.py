@@ -429,3 +429,213 @@ def test_flow_ignores_global_tf32_flags(cuda_device):
         torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision = flags
     for a, b in zip(default, off):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+# -- CUDA graphs: FlowEstimator and the serving pool's programs ---------------
+
+TINY_SERVE = dict(
+    feature_encoder_widths=(8, 8, 12, 16, 24), context_encoder_widths=(8, 8, 12, 16, 40),
+    motion_corr_widths=(16,), motion_flow_widths=(16, 8), motion_out_channels=20, gru_hidden=24,
+    flow_head_hidden=16, corr_levels=2, corr_radius=3, corr_impl="fused",
+)
+
+
+def _tiny_serving_model(device):
+    model = rt.build_raft(rt.RAFT_SMALL.replace(**TINY_SERVE), device=device, seed=3)
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.05)
+    return model
+
+
+def _leaves(state):
+    return [*state["pyramid"], *(state[k] for k in ("coords1", "hidden", "context", "resid_hist", "converged"))]
+
+
+def _assert_bitwise(a, b):
+    for x, y in zip(_leaves(a), _leaves(b)):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.equal(x, y)
+
+
+def _eager_flow(est, im1, im2, iters):
+    """``est``'s request with its model called eagerly, launch by launch:
+    the same normalization, padding and input layout as its graph."""
+    from raft_tpu_torch.eval.padder import InputPadder
+
+    p1, p2 = est._normalize(im1), est._normalize(im2)
+    padder = InputPadder(p1.shape, mode=est.pad_mode)
+    p1, p2 = padder.pad(p1, p2)
+    with torch.inference_mode():
+        flow = est.model(est._to_device(p1), est._to_device(p2), num_flow_updates=iters, emit_all=False)
+    return padder.unpad(est._to_host(flow))[0]
+
+
+def test_flow_estimator_graph_matches_eager_bitwise(cuda_device):
+    """FlowEstimator's replayed graph gives the eager flow bit for bit, on
+    the first call (capture) and on replays; one graph per (shape, iters);
+    K1 ran inside the graph (its per-replay launch count)."""
+    from raft_tpu_torch.graphs import capture_events
+
+    model = _tiny_serving_model(cuda_device)
+    graphed = rt.FlowEstimator(model, num_flow_updates=3, device=cuda_device)
+    rng = np.random.default_rng(11)
+    pairs = [tuple(rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2)) for _ in range(3)]
+    for a, b in pairs:
+        np.testing.assert_array_equal(graphed(a, b), _eager_flow(graphed, a, b, 3))
+    before = capture_events()
+    np.testing.assert_array_equal(graphed(*pairs[0]), _eager_flow(graphed, *pairs[0], 3))
+    assert capture_events() == before
+    (prog,) = graphed.programs().values()
+    assert prog.launches == {"lookup_project_fused": 3} and prog.replays == 4
+    assert graphed.graph_launches() == {"lookup_project_fused": 12}
+
+
+def _pool_state(progs, cap, bucket, rng, frozen=()):
+    """A pool state holding ``cap`` admitted pairs, slots in ``frozen``
+    marked converged."""
+    from raft_tpu_torch.serve.pool import zero_state
+
+    bh, bw = bucket
+    state = zero_state(progs, cap, bucket)
+    x1 = torch.from_numpy(rng.uniform(-1, 1, (cap, 3, bh, bw)).astype(np.float32)).to(progs.device)
+    x2 = torch.from_numpy(rng.uniform(-1, 1, (cap, 3, bh, bw)).astype(np.float32)).to(progs.device)
+    progs.insert(state, progs.begin_pair(x1, x2), np.arange(cap), np.ones(cap, bool))
+    for s in frozen:
+        state["converged"][s] = True
+    return state, (x1, x2)
+
+
+def _clone(state):
+    from raft_tpu_torch.serve.pool import _map_state
+
+    return _map_state(state, torch.clone)
+
+
+def test_pool_programs_graph_match_eager_bitwise(cuda_device):
+    """begin_pair, step (5 ticks, one slot frozen) and final replayed from
+    their graphs equal the eager bodies bit for bit at capacity 3; the
+    frozen slot passes through unchanged; K1 launches once per tick."""
+    from raft_tpu_torch.serve.pool import PoolPrograms, zero_state
+
+    model = _tiny_serving_model(cuda_device)
+    bucket, cap = (48, 64), 3
+    with torch.inference_mode():
+        progs = PoolPrograms(model, cuda_device, resid_len=8)
+        progs.set_knobs(0.0, 2, 1)
+        eager_state, (x1, x2) = _pool_state(progs, cap, bucket, np.random.default_rng(5), frozen=(1,))
+        _assert_bitwise(progs.run_begin_pair(x1, x2), progs.begin_pair(x1, x2))
+        graphed_state = zero_state(progs, cap, bucket)
+        progs.capture_step(graphed_state)  # its eager warm-up steps the zero state
+        for g, e in zip(_leaves(graphed_state), _leaves(eager_state)):
+            g.copy_(e)
+        start = _clone(eager_state)
+        for _ in range(5):
+            want = progs.step(eager_state, progs.thresh, progs.streak, progs.min_iters)
+            got = progs.run_step(graphed_state)
+            assert torch.equal(got, want)
+            _assert_bitwise(graphed_state, eager_state)
+        for k in ("coords1", "hidden", "resid_hist"):
+            assert torch.equal(graphed_state[k][1], start[k][1])
+        c1, hid, _ = progs.gather(graphed_state["coords1"], graphed_state["hidden"], graphed_state["resid_hist"], [2, 0])
+        assert torch.equal(progs.run_final(c1, hid), progs.final(c1, hid))
+        torch.cuda.synchronize()
+    step = progs.graphs()[("pool_step", cap, 6, 8)]
+    assert step.launches == {"lookup_project_fused": 1} and step.replays == 5
+    assert progs.counts()["pool_step"] == 1
+
+
+def test_two_thresholds_through_one_step_graph(cuda_device):
+    """Refilling ``thresh`` between replays changes which slots freeze,
+    with no new capture."""
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve.pool import PoolPrograms, unpack_converged, zero_state
+
+    model = _tiny_serving_model(cuda_device)
+    bucket, cap = (48, 64), 3
+    with torch.inference_mode():
+        progs = PoolPrograms(model, cuda_device, resid_len=8)
+        state = zero_state(progs, cap, bucket)
+        progs.capture_step(state)
+        filled, _ = _pool_state(progs, cap, bucket, np.random.default_rng(7))
+        for g, e in zip(_leaves(state), _leaves(filled)):
+            g.copy_(e)
+        before = capture_events()
+        progs.set_knobs(0.0, 1, 1)  # off: nobody freezes
+        assert not unpack_converged(progs.run_step(state).cpu(), cap).any()
+        progs.set_knobs(1e9, 1, 1)  # every slot's residual is below it
+        assert unpack_converged(progs.run_step(state).cpu(), cap).all()
+        assert capture_events() == before
+
+
+def test_failing_capture_raises_and_serves_nothing(cuda_device):
+    """A host sync inside a captured program (a hook reading a value on
+    the host) makes its capture fail: FlowEstimator raises, an engine
+    warming up raises from start() and serves nothing, and an engine
+    capturing on its worker fails the request with a ServeError."""
+    from raft_tpu_torch.serve import EngineStopped, ServeConfig, ServeEngine, ServeError
+
+    model = _tiny_serving_model(cuda_device)
+
+    def host_sync(mod, inp, out):
+        out[1].sum().item()
+
+    handle = model.update_block.register_forward_hook(host_sync)
+    try:
+        rng = np.random.default_rng(2)
+        a, b = (rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2))
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            rt.FlowEstimator(model, num_flow_updates=2, device=cuda_device)(a, b)
+        cfg = dict(buckets=((48, 64),), ladder=(2, 1), pool_capacity=2, max_batch=2, default_deadline_ms=60000.0)
+        engine = ServeEngine(model, ServeConfig(warmup=True, **cfg), device=cuda_device)
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            engine.start()
+        with pytest.raises(EngineStopped):
+            engine.submit(a, b)
+        with ServeEngine(model, ServeConfig(**cfg), device=cuda_device) as lazy:
+            with pytest.raises(ServeError, match="CUDA graph"):
+                lazy.submit(a, b)
+            assert lazy.stats()["completed"] == 0
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+
+
+def test_slow_path_on_the_worker_beside_the_pool(cuda_device):
+    """An off-bucket request under unknown_shape='slow_path' is captured
+    and served on the worker while pool requests tick (the pool's graphs
+    captured at warm-up): every flow matches the model's eager forward at
+    its own shape and target, and the slow path's graph is the one capture
+    after warm-up. 1e-4 px: the pool runs batch 3 against the reference's
+    batch 1, and cuDNN's algorithm choices are the worker thread's, not
+    this thread's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+    from raft_tpu_torch.serve.bucketing import BucketRouter
+
+    model = _tiny_serving_model(cuda_device)
+    rng = np.random.default_rng(13)
+    pairs = [tuple(rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2)) for _ in range(6)]
+    pairs.append(tuple(rng.integers(0, 255, (60, 80, 3), dtype=np.uint8) for _ in range(2)))
+    targets = (3, 3, 3, 2, 2, 2, 2)
+    cfg = ServeConfig(buckets=((48, 64),), ladder=(3, 2, 1), pool_capacity=3, max_batch=3, warmup=True,
+                      unknown_shape="slow_path", default_deadline_ms=120_000.0)
+    with ServeEngine(model, cfg, device=cuda_device) as engine, ThreadPoolExecutor(len(pairs)) as ex:
+        before = capture_events()
+        results = list(ex.map(lambda i: engine.submit(*pairs[i], num_flow_updates=targets[i]), range(len(pairs))))
+        stats = engine.stats()
+    assert [r.slow_path for r in results] == [False] * 6 + [True]
+    assert stats["slow_path"] == 1 and stats["completed"] == 7 and stats["pool_ticks"] >= 3
+    assert capture_events() - before == 1 and stats["programs"]["pairwise"] == 1
+    router = BucketRouter(((48, 64),))
+    for (a, b), n, r in zip(pairs, targets, results):
+        assert r.num_flow_updates == n and r.exit_reason == "target"
+        shape = router.natural_shape(*a.shape[:2]) if r.slow_path else (48, 64)
+        p1, p2 = (router.pad_to(rt.FlowEstimator._normalize(x), shape) for x in (a, b))
+        x1, x2 = (torch.from_numpy(p).to(cuda_device).permute(0, 3, 1, 2) for p in (p1, p2))
+        if not r.slow_path:
+            x1, x2 = x1.contiguous(), x2.contiguous()
+        with torch.inference_mode():
+            want = model(x1, x2, num_flow_updates=n, emit_all=False)[0].permute(1, 2, 0).cpu().numpy()
+        np.testing.assert_allclose(r.flow, want[: a.shape[0], : a.shape[1]], rtol=0, atol=1e-4)
