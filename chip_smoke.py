@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code 1):
      one nvcc per source, all started together (the Triton kernel compiles
      on its first launch, into the same git-ignored ``_build/``), the
      count of tensor-core (HMMA) instructions in K1's and K3's SASS
-     (``cuobjdump``), and K1's registers and spills from ptxas;
+     (``cuobjdump``; each bf16-product instantiation of K1 must hold bf16
+     HMMA and no TF32 one), and K1's registers and spills from ptxas;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
      card, at the main paths' shapes and edge cases, with times per launch,
      the card's bound for the same work and, where one PyTorch call or a
@@ -23,7 +24,9 @@ Phases, each of which raises on failure (exit code 1):
      reduced-precision forms: K1 and K2 on bf16 and int8 levels (K1 with
      an fp32 and a bf16 product) and K3 storing bf16 levels, each against
      its plain version, timed, bounded (2x and 4x fewer level bytes) and
-     beside its library chain;
+     beside its library chain; and K1's fp32 and bf16/bf16 forms timed at
+     batch 8 (Q = 56320), the launch of the serving pool's tick and the
+     bench's ``_b8`` lines;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests at 32
      updates, first with ``FlowEstimator``'s model called eagerly on its
@@ -188,21 +191,48 @@ def bound(nbytes: float, ops: float, tf32_ops: float = 0.0, bf16_ops: float = 0.
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hmma_count(lib_path, kernel: str) -> int:
-    """Tensor-core (HMMA) instructions in the SASS of every function of a
-    built library whose name contains ``kernel``, from ``cuobjdump``."""
+def hmma_counts(lib_path, kernel: str):
+    """Tensor-core (HMMA) instructions by kind (``.1688.F32.TF32``,
+    ``.16816.F32.BF16``, ...) in the SASS of each function of a built
+    library whose (mangled) name contains ``kernel``, from ``cuobjdump``."""
     from raft_tpu_torch.kernels import build
 
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    count, inside = 0, False
+    counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside and "HMMA" in line:
-            count += 1
-    return count
+            fn = line.split("Function :")[-1].strip()
+            fn = fn if kernel in fn else None
+            if fn:
+                counts[fn] = {}
+        elif fn and "HMMA" in line:
+            kind = line.split("HMMA", 1)[1].split()[0]
+            counts[fn][kind] = counts[fn].get(kind, 0) + 1
+    return counts
+
+
+def hmma_count(lib_path, kernel: str) -> int:
+    """All tensor-core (HMMA) instructions of :func:`hmma_counts`."""
+    return sum(sum(kinds.values()) for kinds in hmma_counts(lib_path, kernel).values())
+
+
+def check_k1_products(lib_path) -> str:
+    """K1's instantiations by product (template argument kBf16, ``Lb1E`` in
+    the mangled name): the bf16 ones must hold bf16 HMMA and no TF32 one,
+    the 3xTF32 ones TF32 HMMA. Returns a summary; raises otherwise."""
+    parts = []
+    for fn, kinds in hmma_counts(lib_path, "xtap_project_kernel").items():
+        bf16 = "Lb1E" in fn
+        n_bf16 = sum(n for k, n in kinds.items() if "BF16" in k)
+        n_tf32 = sum(n for k, n in kinds.items() if "TF32" in k)
+        if (bf16 and (n_bf16 == 0 or n_tf32)) or (not bf16 and n_tf32 == 0):
+            raise AssertionError(f"K1 {fn}: HMMA {kinds} does not match its {'bf16' if bf16 else '3xTF32'} product")
+        parts.append(f"{'bf16' if bf16 else '3xTF32'} {kinds}")
+    if len(parts) != 6:
+        raise AssertionError(f"K1 has {len(parts)} instantiations in its SASS, expected 6")
+    return "; ".join(parts)
 
 
 def ptxas_usage(log_text: str, kernel: str) -> str:
@@ -480,6 +510,21 @@ def lowp_pyramid(pyr, storage: str):
     return quantize_pyramid(pyr) if storage == "int8" else [lvl.to(torch.bfloat16) for lvl in pyr]
 
 
+def k1_bound(pyr, cents, weight, bias, radius, proj):
+    """K1's bound for these inputs: the windows its taps touch, centroids,
+    scales, weight and bias read once, the output written once, against
+    the interpolation and bias + relu at the fp32 rate and the product at
+    the bf16 rate (bf16 product) or as K1 runs it, 3xTF32."""
+    q = cents.shape[0] * cents.shape[1] * cents.shape[2]
+    c_out, c_in = weight.shape[0], weight[0].numel()
+    scales = getattr(pyr, "scales", None)
+    nbytes = (window_bytes(pyr, cents, radius) + cents.numel() * 4 + (scales.numel() * 4 if scales is not None else 0)
+              + (weight.numel() + bias.numel()) * 4 + q * c_out * (2 if proj is not None else 4))
+    gemm = 2.0 * q * c_in * c_out
+    other = 2.0 * q * c_out + 11.0 * q * c_in
+    return bound(nbytes, other, bf16_ops=gemm) if proj is not None else bound(nbytes, other, tf32_ops=3.0 * gemm)
+
+
 def k1_tolerance(want, storage, proj) -> float:
     if proj is not None:
         return bf16_ulps(want)
@@ -523,7 +568,7 @@ def lowp_lookup_phase(device):
     q = cents.shape[0] * cents.shape[1] * cents.shape[2]
     c_in = weight.shape[1]
     interp_ops = 11.0 * q * c_in
-    gemm = 2.0 * q * c_in * C_OUT
+    weight_bf16 = lx.project_weight_bf16(weight)  # as FusedLookupCorrBlock keeps it
     times, bounds = {}, {}
     for storage in ("bf16", "int8"):
         pyr = lowp_pyramid(pyr32, storage)
@@ -540,21 +585,37 @@ def lowp_lookup_phase(device):
         for key1, (st, proj) in K1_FORMS.items():
             if st != storage:
                 continue
-            out_bytes = q * C_OUT * (2 if proj is not None else 4)
-            nbytes = in_bytes + (weight.numel() + bias.numel()) * 4 + out_bytes
-            # the bf16 product at the bf16 rate; the fp32 one as K1 runs it, 3xTF32
-            bounds[key1] = (bound(nbytes, 2.0 * q * C_OUT + interp_ops, bf16_ops=gemm) if proj is not None
-                            else bound(nbytes, 2.0 * q * C_OUT + interp_ops, tf32_ops=3.0 * gemm))
+            bounds[key1] = k1_bound(pyr, cents, weight, bias, RADIUS, proj)
             dt = proj or torch.float32
+            wb = weight_bf16 if proj is not None else None
             times[key1] = {
-                "ms": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj)),
+                "ms": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj, wb)),
                 "plain_ms": cuda_ms(lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj)),
                 "library_ms": cuda_ms(lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS, scales, dt)),
             }
         log(f"kernels low-precision sintel timing, {storage} levels (window bytes {windows}): " + "; ".join(
             f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library chain {t['library_ms']:.4f}, "
             f"bound {bounds[k][0]:.4f} by {bounds[k][1]})" for k, t in times.items() if storage in k))
-    return err, times, bounds
+
+    # the launch of the serving pool's tick and the bench's _b8 lines: batch 8, Q = 56320
+    pyr32, cents, weight, bias = kernel_inputs(device, **LOOKUP_CASES["serving_batch8"])
+    weight_bf16 = lx.project_weight_bf16(weight)
+    batch8 = {}
+    for key, storage, proj in (("k1", "fp32", None), ("k1_bf16_bf16", "bf16", torch.bfloat16)):
+        pyr = pyr32 if storage == "fp32" else lowp_pyramid(pyr32, storage)
+        wb = weight_bf16 if proj is not None else None
+        b8 = k1_bound(pyr, cents, weight, bias, RADIUS, proj)
+        batch8[key] = {
+            "batch8_ms": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj, wb)),
+            "batch8_plain_ms": cuda_ms(lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj),
+                                       reps=5),
+            "batch8_library_ms": cuda_ms(
+                lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS, None, proj or torch.float32), reps=5),
+            "batch8_bound_ms": b8[0], "batch8_bound_by": b8[1],
+        }
+        log(f"kernels K1 {key} at batch 8 (Q={cents.shape[0] * cents.shape[1] * cents.shape[2]}): "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in batch8[key].items()))
+    return err, times, bounds, batch8
 
 
 def volume_bf16_phase(device):
@@ -1276,9 +1337,10 @@ def main() -> int:
         f"(its six forms); ptxas: {ptxas_usage(build.build_logs.get('lookup_xtap', ''), 'xtap_project_kernel')}")
     if hmma1 == 0:
         raise AssertionError("K1 has no tensor-core instructions")
+    log(f"build lookup_xtap: K1's products by instantiation: {check_k1_products(libs['lookup_xtap'])}")
 
     lookup_err, lookup_times, lookup_bounds, k4_launches = lookup_phase(device)
-    lowp_err, lowp_times, lowp_bounds = lowp_lookup_phase(device)
+    lowp_err, lowp_times, lowp_bounds, k1_batch8 = lowp_lookup_phase(device)
     k3_err, k3_times = volume_phase(device)
     k3b_err, k3b_times = volume_bf16_phase(device)
     t0 = time.perf_counter()
@@ -1324,7 +1386,7 @@ def main() -> int:
     kernels = [
         entry("xtap_project (K1: lookup + convcorr1), fp32 levels, 3xTF32 product", lookup_src, k1_src,
               launches["k1"], "FlowEstimator, raft_large fused fp32 (main path, graph replays)", lookup_err["k1"], k1,
-              lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1,
+              lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1, **k1_batch8["k1"],
               serving_path=f"ServeEngine 'quality' at fused, raft_large, {SERVE_REQUESTS} requests (graph replays)",
               serving_launches=k1_serve_q),
         entry("xtap_project (K1), bf16 levels, 3xTF32 product", lookup_src, k1_src,
@@ -1333,7 +1395,7 @@ def main() -> int:
         entry("xtap_project (K1), bf16 levels, bf16 product", lookup_src, k1_src, k1_throughput,
               "FlowEstimator.from_preset('throughput'), raft_large (main path, graph replays)",
               lowp_err["k1_bf16_bf16"],
-              lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"],
+              lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"], **k1_batch8["k1_bf16_bf16"],
               serving_path=f"ServeEngine 'throughput', raft_large, {SERVE_REQUESTS} requests (graph replays)",
               serving_launches=k1_serve_t),
         entry("xtap_project (K1), int8 levels, 3xTF32 product", lookup_src, k1_src, golden_launches["edge"],

@@ -27,7 +27,9 @@ integer rows from int8 y-weights (int8 levels); the small levels
 (:func:`flat_levels`, the JAX ``_split_levels`` rule) take the 4-corner
 bilinear sum with fp32 weights. K2 then returns bf16 taps; K1's product
 runs at ``proj_dtype`` (fp32: 3xTF32; bf16: taps and weight rounded to
-bf16, fp32 sums, fp32 bias) and returns that dtype.
+bf16, fp32 sums, fp32 bias) and returns that dtype. The bf16 product reads
+a zero-padded bf16 copy of the weight (:func:`project_weight_bf16`), which
+:class:`FusedLookupCorrBlock` makes once per weight version and keeps.
 
 The kernels are inference-only for now: a call with grad enabled on inputs
 that require grad raises (training comes with an ``autograd.Function`` in a
@@ -61,6 +63,7 @@ __all__ = [
     "lookup_project_reference",
     "lookup_pyramid_fused",
     "lookup_pyramid_reference",
+    "project_weight_bf16",
     "quantize_pyramid",
 ]
 
@@ -68,8 +71,12 @@ MAX_LEVELS = 8  # the kernel's pyramid descriptor holds at most this many levels
 QUERY_TILE = 32  # K2: queries per thread block
 MAX_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
 # K1's block tile (csrc/lookup_xtap.cu): queries x channels, weight slices
-# of PROJECT_KC columns in a ring of PROJECT_STAGES
+# of PROJECT_KC columns in a ring of PROJECT_STAGES (3xTF32, rows of KC + 4
+# floats), or of PROJECT_KC_BF16 in PROJECT_STAGES_BF16 (bf16 product, rows
+# of KC_BF16 / 2 + 4 words)
 PROJECT_BM, PROJECT_BN, PROJECT_KC, PROJECT_STAGES = 32, 256, 16, 3
+PROJECT_KC_BF16, PROJECT_STAGES_BF16 = 32, 4
+TWO_BLOCK_SMEM_BYTES = 115712  # two K1 blocks an SM: (228 KB - 2 x 1 KB reserved) / 2
 
 
 MAX_LANES = 128  # the JAX kernel's lane row: its level split counts rows of it
@@ -193,23 +200,75 @@ def _tile_smem_bytes(num_levels: int, radius: int) -> int:
     return QUERY_TILE * (-(-num_levels * s * s // 4) * 4) * 4
 
 
-def _project_k_pad(c_in: int) -> int:
+def _project_k_pad(c_in: int, bf16_product: bool = False) -> int:
     """K1: the product's depth, C_in rounded up to the m16n8k8 step of 8
-    (zero columns in shared memory only)."""
-    return -(-c_in // 8) * 8
+    (3xTF32) or the m16n8k16 step of 16 (bf16 product); zero columns in
+    shared memory, and in the bf16 weight copy."""
+    step = 16 if bf16_product else 8
+    return -(-c_in // step) * step
 
 
-def _project_smem_bytes(num_levels: int, radius: int) -> int:
-    """K1: the A tile (rows of K padded + 4 floats, 4 mod 8), a region that
-    holds the weight ring, the epilogue tile and at least one level's
-    (S+1)^2 windows, and a 16-byte table entry per (query, level) window;
-    ``project_smem`` in the source."""
-    s1 = 2 * radius + 2
-    lda = _project_k_pad(num_levels * (s1 - 1) ** 2) + 4
-    ring = PROJECT_STAGES * PROJECT_BN * (PROJECT_KC + 4)
-    tile = PROJECT_BN * (PROJECT_BM + 4)  # the epilogue's channel-major tile
-    region = max(ring, tile, PROJECT_BM * s1 * s1)
-    return 4 * (PROJECT_BM * lda + region + 4 * PROJECT_BM * MAX_LEVELS)
+def _project_layout(num_levels: int, radius: int, elem_size: int = 4, bf16_product: bool = False):
+    """K1's shared memory, ``project_smem`` in the source: ``(bytes,
+    levels_per_pass, prefetch)``. A block holds the A tile (rows 4 mod 8
+    words: K + 4 floats, or K + 8 bf16), a region for the weight ring (3
+    stages of 256 x 20 floats, or 4 of 256 x 20 words at bf16) and the
+    epilogue's 256 x 36-float tile, and a 16-byte table entry per (query,
+    level) window. fp32 levels at 3xTF32 (the fp32 form) overlay the
+    region with as many levels' fp32 windows as it holds. Every other form
+    takes all levels' windows in one pass where shared memory allows (the
+    most it allows otherwise); bf16 / int8 windows, at storage width in
+    rows of ``(S * elem + 7) // 4`` words, lie past the ``prefetch`` ring
+    stages that are in flight during the gather, as many as fit; two
+    blocks an SM if any such layout fits, else one. More than
+    ``MAX_SMEM_BYTES``: refused, as are bf16 / int8 windows of more than
+    32 columns (r > 15), which the kernel's column walk cannot take."""
+    s = 2 * radius + 1
+    s1 = s + 1
+    c_in = num_levels * s * s
+    table = 16 * PROJECT_BM * MAX_LEVELS
+    tile = 4 * PROJECT_BN * (PROJECT_BM + 4)
+    k_pad = _project_k_pad(c_in, bf16_product)
+    if bf16_product:
+        a_bytes, stages = 2 * PROJECT_BM * (k_pad + 8), PROJECT_STAGES_BF16
+        stage = 4 * PROJECT_BN * (PROJECT_KC_BF16 // 2 + 4)
+    else:
+        a_bytes, stages = 4 * PROJECT_BM * (k_pad + 4), PROJECT_STAGES
+        stage = 4 * PROJECT_BN * (PROJECT_KC + 4)
+    ring = stages * stage
+    win_level = 4 * PROJECT_BM * s1 * s1  # one level's fp32 windows
+    if elem_size == 4 and not bf16_product:
+        region = max(ring, tile, win_level)
+        return a_bytes + region + table, region // win_level, 0
+    max_prefetch = 0
+    if elem_size != 4:
+        if s1 > 32:  # the column walk takes a window's S+1 columns in one warp
+            return MAX_SMEM_BYTES + 1, 0, 0
+        win_level = 4 * PROJECT_BM * s1 * ((s * elem_size + 7) // 4)
+        max_prefetch = stages - 1
+    for budget in (TWO_BLOCK_SMEM_BYTES, MAX_SMEM_BYTES):
+        for nl in range(num_levels, 0, -1):
+            for p in range(max_prefetch, -1, -1):
+                region = max(ring, tile, p * stage + nl * win_level)
+                if a_bytes + region + table <= budget:
+                    return a_bytes + region + table, nl, p
+    return MAX_SMEM_BYTES + 1, 0, 0
+
+
+def _project_smem_bytes(num_levels: int, radius: int, elem_size: int = 4, bf16_product: bool = False) -> int:
+    """K1's dynamic shared memory per block (:func:`_project_layout`)."""
+    return _project_layout(num_levels, radius, elem_size, bf16_product)[0]
+
+
+def project_weight_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """``convcorr1``'s weight as K1's bf16 product reads it: ``(C_out,
+    k_pad)`` bf16, each row the ``C_in`` weights rounded to bf16 (RNE), then
+    zeros up to ``k_pad``, a multiple of 16 (16-byte rows for the kernel's
+    copies)."""
+    w = weight.reshape(weight.shape[0], -1)
+    out = torch.zeros(w.shape[0], _project_k_pad(w.shape[1], True), dtype=torch.bfloat16, device=w.device)
+    out[:, : w.shape[1]] = w
+    return out
 
 
 def _check_no_grad(who: str, pyramid, *tensors: torch.Tensor) -> None:
@@ -286,7 +345,7 @@ def _lib() -> ctypes.CDLL:
     levels_t = ctypes.POINTER(ctypes.c_void_p)
     ints_t = ctypes.POINTER(ctypes.c_int)
     pyramid_t = [levels_t, ints_t, ints_t, ints_t, i32, i32, ptr]
-    lib.xtap_project_launch.argtypes = pyramid_t + [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
+    lib.xtap_project_launch.argtypes = pyramid_t + [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr, ptr]
     lib.xtap_project_launch.restype = i32
     lib.xtap_lookup_launch.argtypes = pyramid_t + [ptr, ptr, i64, i32, ptr]
     lib.xtap_lookup_launch.restype = i32
@@ -349,6 +408,7 @@ def lookup_project_fused(
     bias: torch.Tensor,
     radius: int,
     proj_dtype=None,
+    weight_bf16: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1: lookup + ``convcorr1`` in one kernel, ``(B, C_out, h, w)`` at
     ``proj_dtype``.
@@ -360,6 +420,9 @@ def lookup_project_fused(
         bias: ``(C_out,)`` fp32.
         proj_dtype: ``None``/fp32 (3xTF32 product, fp32 out) or bf16 (taps
             and weight rounded to bf16, fp32 sums and bias, bf16 out).
+        weight_bf16: for the bf16 product on the card, ``weight``'s
+            :func:`project_weight_bf16` copy, made once by a caller that
+            launches repeatedly; ``None`` makes it for this call.
     """
     who = "lookup_project_fused"
     _check_no_grad(who, pyramid, centroids, weight, bias)
@@ -372,13 +435,27 @@ def lookup_project_fused(
     c_out = weight.shape[0]
     if tuple(bias.shape) != (c_out,):
         raise ValueError(f"{who}: bias must be ({c_out},), got {tuple(bias.shape)}")
+    bf16 = proj_dtype == torch.bfloat16
+    elem_size = pyramid[0].element_size() if pyramid and pyramid[0].dtype in _ELEM else 4
     b, h, w, q = _check_inputs(
         who, pyramid, centroids, radius, extra=[("weight", weight), ("bias", bias)],
-        smem_bytes=_project_smem_bytes,
+        smem_bytes=lambda n, r: _project_smem_bytes(n, r, elem_size, bf16),
     )
     if centroids.device.type == "cpu":
         return lookup_project_reference(pyramid, centroids, weight, bias, radius, proj_dtype)
-    bf16 = proj_dtype == torch.bfloat16
+    for i, v in enumerate(pyramid):
+        if elem_size != 4 and v.data_ptr() % 4:
+            raise ValueError(f"{who}: level {i} must start 4-byte aligned (the kernel copies bf16 and int8 "
+                             "windows in aligned 4-byte words)")
+    if bf16:
+        if weight_bf16 is None:
+            weight_bf16 = project_weight_bf16(weight)
+        want = (c_out, _project_k_pad(c_in, True))
+        if (weight_bf16.dtype != torch.bfloat16 or tuple(weight_bf16.shape) != want
+                or weight_bf16.device != centroids.device or not weight_bf16.is_contiguous()
+                or weight_bf16.data_ptr() % 16):
+            raise ValueError(f"{who}: weight_bf16 must be a contiguous, 16-byte aligned bf16 {want} tensor "
+                             f"on {centroids.device} (project_weight_bf16(weight))")
     out = torch.empty((b, c_out, h, w), device=centroids.device,
                       dtype=torch.bfloat16 if bf16 else torch.float32)
     lib = _lib()
@@ -386,7 +463,8 @@ def lookup_project_fused(
         stream = torch.cuda.current_stream(centroids.device).cuda_stream
         rc = lib.xtap_project_launch(
             *_pyramid_args(pyramid, radius), centroids.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), q, h * w, radius, c_out, int(bf16), stream,
+            bias.data_ptr(), out.data_ptr(), q, h * w, radius, c_out, int(bf16),
+            weight_bf16.data_ptr() if bf16 else None, stream,
         )
     _raise_on(who, rc)
     count_launch(lookup_project_fused)
@@ -414,6 +492,30 @@ class FusedLookupCorrBlock(CorrBlock):
     def __init__(self, num_levels: int = 4, radius: int = 4, dtype=None):
         self.quantize = dtype == torch.int8
         super().__init__(num_levels, radius, None if self.quantize else dtype)
+        self._weight_bf16 = None  # (weight, (data_ptr, version), its project_weight_bf16 copy)
+
+    def weight_bf16(self, weight: torch.Tensor) -> torch.Tensor:
+        """:func:`project_weight_bf16` of ``weight``, made once and kept
+        while the weight's storage and version are the same (a reload
+        refreshes it). A CUDA-graph capture finds it made by the capture's
+        eager warm-up; making it during a capture raises, as the copy would
+        otherwise run in every replay."""
+        try:
+            version = weight._version
+        except RuntimeError:  # an inference tensor keeps no version counter
+            version = None
+        key = (weight.data_ptr(), version)
+        kept = self._weight_bf16
+        if kept is not None and kept[0] is weight and kept[1] == key:
+            return kept[2]
+        if weight.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "FusedLookupCorrBlock: the bf16 copy of convcorr1's weight is made while a CUDA graph is "
+                "captured; run the block eagerly once first (GraphProgram's warm-up does)"
+            )
+        copy = project_weight_bf16(weight)
+        self._weight_bf16 = (weight, key, copy)
+        return copy
 
     def build_pyramid(self, fmap1: torch.Tensor, fmap2: torch.Tensor):
         levels = super().build_pyramid(fmap1, fmap2)
@@ -424,4 +526,5 @@ class FusedLookupCorrBlock(CorrBlock):
 
     def index_project(self, pyramid, centroids: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                       dtype=None) -> torch.Tensor:
-        return lookup_project_fused(pyramid, centroids.contiguous(), weight, bias, self.radius, dtype)
+        weight_bf16 = self.weight_bf16(weight) if dtype == torch.bfloat16 and weight.is_cuda else None
+        return lookup_project_fused(pyramid, centroids.contiguous(), weight, bias, self.radius, dtype, weight_bf16)

@@ -64,14 +64,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the reduced-precision K1 / K2 forms' edges: bf16 / int8 levels whose rows
+# start unaligned (wl * elem % 4 != 0 at some level), centroids just outside
+# every level and NaN (EDGE_CENTROIDS), raft_large widths at batch 8
+LOWP_EDGE_CASES = {
+    "unaligned_w13": (1, 11, 13, 4, 4, (-6.0, 19.0)),  # bf16 26-byte rows, int8 13
+    "unaligned_w39": (1, 9, 39, 4, 4, (-6.0, 45.0)),  # levels 39, 19, 9, 4 wide
+    "unaligned_w78": (2, 9, 78, 3, 4, (-5.0, 83.0)),  # int8 78-byte rows; r 3, C_in 196
+    "edge_centroids": (2, 13, 39, 4, 4, (-6.0, 45.0)),
+    "batch8_raft_large": (8, 55, 128, 4, 4, (-6.0, 134.0)),  # Q = 56320
+}
+
+
 def _inputs(case, device):
-    b, h, w, radius, levels, (lo, hi) = CASES[case]
+    b, h, w, radius, levels, (lo, hi) = {**CASES, **LOWP_EDGE_CASES}[case]
     gen = torch.Generator(device="cpu").manual_seed(0)
     f1 = torch.randn(b, 32, h, w, generator=gen).to(device)
     f2 = torch.randn(b, 32, h, w, generator=gen).to(device)
     pyr = corr.pool_pyramid(corr.correlation_volume(f1, f2), levels)
-    cents = (torch.rand(b, h, w, 2, generator=gen) * (hi - lo) + lo).to(device)
-    return pyr, cents, radius
+    cents = torch.rand(b, h, w, 2, generator=gen) * (hi - lo) + lo
+    if case == "edge_centroids":
+        # x and y at -r-2 and at the level-0 size + r + 1 (every window cell
+        # outside), one cell inside either edge, and NaN
+        cents[0, 0, :8, 0] = torch.tensor([-radius - 2.0, w + radius + 1.0, -radius - 1.0, w + radius,
+                                           float("nan"), 3.0, -1.5, w + 0.5])
+        cents[0, 0, :8, 1] = torch.tensor([4.0, 5.0, -radius - 2.0, h + radius + 1.0, 2.0, float("nan"),
+                                           h + 0.5, -1.5])
+        cents[1, -1, -4:] = torch.tensor([[-radius - 2.0, -radius - 2.0], [w + radius + 1.0, h + radius + 1.0],
+                                          [float("nan"), float("nan")], [w - 1.0, h - 1.0]])
+    return pyr, cents.to(device), radius
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -296,13 +317,14 @@ def test_golden_epe_pallas_on_the_card(cuda_device, dstype):
 
 # -- reduced-precision forms of K1, K2 and K3 --------------------------------------
 
-LOWP_CASES = ["small", "ragged_kitti", "batch2", "odd_dims", "raft_small_fused", "batch2_ragged_hw"]
+LOWP_CASES = ["small", "ragged_kitti", "batch2", "odd_dims", "raft_small_fused", "batch2_ragged_hw",
+              *LOWP_EDGE_CASES]
 LOWP_VOLUME_CASES = ["raft_small_sintel", "fixture", "kitti_ragged_q", "odd_dims", "five_levels", "six_levels"]
 
 
 def _bf16_ulps_of_max(want, n=2):
-    """``n`` bf16 ulps of the largest magnitude of ``want``."""
-    top = want.float().abs().max().item()
+    """``n`` bf16 ulps of the largest magnitude of ``want`` (NaNs aside)."""
+    top = want.float().nan_to_num(0.0, 0.0, 0.0).abs().max().item()
     return n * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
 
 
@@ -347,7 +369,7 @@ def test_k2_lowp_matches_plain(cuda_device, case, dtype):
     want = lookup_pyramid_reference(pyr, cents, radius)
     assert got.dtype == want.dtype == torch.bfloat16
     tol = _bf16_ulps_of_max(want)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol, equal_nan=True)
 
 
 @pytest.mark.parametrize("proj", ["fp32", "bf16"])
@@ -367,14 +389,15 @@ def test_k1_lowp_matches_plain(cuda_device, case, dtype, proj):
     assert lookup_project_fused.launches == before + 1
     want = lookup_project_reference(pyr, cents, weight, bias, radius, proj_dtype)
     assert got.dtype == want.dtype == (proj_dtype or torch.float32)
+    # a NaN centroid gives NaN taps, and the plain version a NaN output: so must the kernel
     if proj == "bf16":
         tol = _bf16_ulps_of_max(want)
-        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol, equal_nan=True)
     elif dtype == "int8":
-        top = want.abs().max().item()
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * top)
+        top = want.nan_to_num(0.0, 0.0, 0.0).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * top, equal_nan=True)
     else:
-        torch.testing.assert_close(got, want, rtol=PROJECT_TOL, atol=PROJECT_TOL)
+        torch.testing.assert_close(got, want, rtol=PROJECT_TOL, atol=PROJECT_TOL, equal_nan=True)
 
 
 def test_int8_lookup_refuses_grad(cuda_device):

@@ -235,33 +235,68 @@ class TestK1Arithmetic:
 
 class TestK1Tile:
     """The wrapper's view of K1's block tile (``project_smem`` in
-    ``csrc/lookup_xtap.cu``): K padding and shared-memory bytes."""
+    ``csrc/lookup_xtap.cu``): K padding, shared-memory bytes, levels a pass
+    and weight slices in flight during the gather, per level storage and
+    product."""
 
     @pytest.mark.parametrize("c_in,k_pad", [(324, 328), (196, 200), (147, 152), (54, 56), (8, 8), (1, 8)])
     def test_k_pads_to_the_mma_step(self, c_in, k_pad):
         assert lookup_xtap._project_k_pad(c_in) == k_pad
 
+    @pytest.mark.parametrize("c_in,k_pad", [(324, 336), (196, 208), (147, 160), (54, 64), (8, 16), (1, 16)])
+    def test_bf16_product_pads_to_the_k16_step(self, c_in, k_pad):
+        assert lookup_xtap._project_k_pad(c_in, bf16_product=True) == k_pad
+
+    # (levels, radius) -> storage -> product -> (bytes, levels a pass, slices in flight during the gather)
+    LAYOUTS = {
+        "raft_large": ((4, 4), {"fp32": ((108032, 4, 0), (108032, 4, 0)), "bf16": ((108032, 4, 1), (108032, 4, 2)),
+                                "int8": ((108032, 4, 2), (108032, 4, 3))}),
+        "raft_small_fused": ((4, 3), {"fp32": ((91648, 7, 0), (99840, 4, 0)), "bf16": ((91648, 4, 2), (99840, 4, 3)),
+                                      "int8": ((91648, 4, 2), (99840, 4, 3))}),
+        "fixture": ((3, 3), {"fp32": ((85504, 7, 0), (96768, 3, 0)), "bf16": ((85504, 3, 2), (96768, 3, 3)),
+                             "int8": ((85504, 3, 2), (96768, 3, 3))}),
+        "r1_l6": ((6, 1), {"fp32": ((73216, 30, 0), (90624, 6, 0)), "bf16": ((73216, 6, 2), (90624, 6, 3)),
+                           "int8": ((73216, 6, 2), (90624, 6, 3))}),
+    }
+
+    # one case per (shape, storage, product); the fp32 form keeps the shape's own id
+    CASES = [(shape, storage, bf16) for shape in LAYOUTS for storage in ("fp32", "bf16", "int8") for bf16 in (0, 1)]
+
     @pytest.mark.parametrize(
-        "levels,radius,nbytes",
-        [(4, 4, 108032), (4, 3, 91648), (3, 3, 85504), (6, 1, 73216)],
-        ids=["raft_large", "raft_small_fused", "fixture", "r1_l6"],
+        "shape,storage,bf16_product", CASES,
+        ids=[c[0] if c[1:] == ("fp32", 0) else f"{c[0]}-{c[1]}-{'bf16' if c[2] else '3xtf32'}" for c in CASES],
     )
-    def test_two_blocks_fit_an_sm_at_the_model_shapes(self, levels, radius, nbytes):
-        smem = lookup_xtap._project_smem_bytes(levels, radius)
-        assert smem == nbytes
-        assert 2 * (smem + 1024) <= 228 * 1024  # the SM's shared memory, 1 KB reserved a block
+    def test_two_blocks_fit_an_sm_at_the_model_shapes(self, shape, storage, bf16_product):
+        """Every form at every model shape keeps two blocks an SM; the fp32
+        form's layout is the one it had (windows over the ring, no slice in
+        flight), the bf16 / int8 forms keep 1-3 weight slices in flight
+        while their taps are formed."""
+        (levels, radius), forms = self.LAYOUTS[shape]
+        elem = {"fp32": 4, "bf16": 2, "int8": 1}[storage]
+        want = forms[storage][int(bf16_product)]
+        got = lookup_xtap._project_layout(levels, radius, elem, bf16_product)
+        assert got == want
+        assert lookup_xtap._project_smem_bytes(levels, radius, elem, bf16_product) == want[0]
+        assert 2 * (got[0] + 1024) <= 228 * 1024  # two blocks an SM, 1 KB reserved a block
+        assert (got[2] > 0) == (storage != "fp32")
 
     def test_rows_are_4_mod_8_floats(self):
         for c_in in (324, 196, 147, 54):
             lda = lookup_xtap._project_k_pad(c_in) + 4
             assert lda % 8 == 4  # conflict-free m16n8k8 A fragments
-        assert (lookup_xtap.PROJECT_KC + 4) % 8 == 4  # the weight ring's rows
+            lda_words = (lookup_xtap._project_k_pad(c_in, True) + 8) // 2
+            assert lda_words % 8 == 4  # conflict-free m16n8k16 A fragments (bf16 pairs)
+        assert (lookup_xtap.PROJECT_KC + 4) % 8 == 4  # the 3xTF32 weight ring's rows
+        assert (lookup_xtap.PROJECT_KC_BF16 // 2 + 4) % 8 == 4  # the bf16 ring's rows, in words
         assert (lookup_xtap.PROJECT_BM + 4) % 16 == 4  # the epilogue tile's rows
 
     def test_wrapper_refuses_what_the_tile_cannot_hold(self):
         """8 levels at radius 6 (C_in 1352) need more than a block's shared
-        memory for K1's tile, while K2's tap tile still takes them; radius 5
-        (C_in 968) fits both."""
+        memory for K1's 3xTF32 tile, while K2's tap tile and K1's bf16
+        product on fp32 levels (a bf16 A tile) still take them; radius 5
+        (C_in 968) fits both. bf16 / int8 windows wider than 32 columns (r >
+        15) are refused at any level count: the earlier layout refused them
+        for shared memory too."""
         cents = torch.zeros(1, 2, 3, 2)
         pyr = [torch.zeros(6, 4, 4) for _ in range(8)]
         assert lookup_xtap._project_smem_bytes(8, 6) > lookup_xtap.MAX_SMEM_BYTES
@@ -270,6 +305,119 @@ class TestK1Tile:
         assert tuple(lookup_xtap.lookup_pyramid_fused(pyr, cents, 6).shape) == (1, 2, 3, 1352)
         out = lookup_xtap.lookup_project_fused(pyr, cents, torch.zeros(4, 968), torch.zeros(4), 5)
         assert tuple(out.shape) == (1, 4, 2, 3)
+        out = lookup_xtap.lookup_project_fused(pyr, cents, torch.zeros(4, 1352), torch.zeros(4), 6, torch.bfloat16)
+        assert out.dtype == torch.bfloat16 and tuple(out.shape) == (1, 4, 2, 3)
+        for elem in (2, 1):
+            assert lookup_xtap._project_smem_bytes(1, 15, elem, True) <= lookup_xtap.MAX_SMEM_BYTES
+            assert lookup_xtap._project_smem_bytes(1, 16, elem, True) > lookup_xtap.MAX_SMEM_BYTES
+            assert lookup_xtap._project_smem_bytes(1, 16, 4) > lookup_xtap.MAX_SMEM_BYTES
+        bf16 = [torch.zeros(6, 40, 40, dtype=torch.bfloat16)]
+        with pytest.raises(ValueError, match="shared memory"):
+            lookup_xtap.lookup_project_fused(bf16, cents, torch.zeros(4, 33 * 33), torch.zeros(4), 16)
+
+    @pytest.mark.parametrize("bf16_product", [False, True], ids=["3xtf32", "bf16"])
+    @pytest.mark.parametrize("elem", [4, 2, 1], ids=["fp32", "bf16", "int8"])
+    def test_takes_every_shape_the_fp32_layout_takes(self, elem, bf16_product):
+        """No shape that the fp32 layout (every form's before the bf16 / int8
+        windows had their own region) held is refused now."""
+        for levels in range(1, 9):
+            for radius in range(0, 16):
+                if lookup_xtap._project_smem_bytes(levels, radius) <= lookup_xtap.MAX_SMEM_BYTES:
+                    got = lookup_xtap._project_smem_bytes(levels, radius, elem, bf16_product)
+                    assert got <= lookup_xtap.MAX_SMEM_BYTES, (levels, radius)
+
+
+class TestK1Bf16Weight:
+    """The bf16 product's weight: the zero-padded bf16 copy and the block's
+    cache of it."""
+
+    def test_copy_is_rne_and_zero_padded(self):
+        w = torch.randn(5, 147, generator=torch.Generator().manual_seed(0))
+        got = lookup_xtap.project_weight_bf16(w.reshape(5, 147, 1, 1))
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (5, 160) and got.is_contiguous()
+        assert torch.equal(got[:, :147], w.to(torch.bfloat16))
+        assert not got[:, 147:].any()
+
+    def test_block_keeps_the_copy_until_the_weight_changes(self):
+        block = lookup_xtap.FusedLookupCorrBlock(num_levels=2, radius=1)
+        w = torch.nn.Parameter(torch.randn(4, 18))
+        first = block.weight_bf16(w)
+        assert block.weight_bf16(w) is first
+        with torch.no_grad():
+            w.mul_(2.0)  # a reload writes in place: the version moves
+        second = block.weight_bf16(w)
+        assert second is not first and torch.equal(second[:, :18], w.detach().to(torch.bfloat16))
+        other = torch.nn.Parameter(w.detach().clone())
+        assert block.weight_bf16(other) is not second
+
+
+class TestK1WindowCopy:
+    """The byte arithmetic of K1's bf16 / int8 window copies and tap reads
+    (``gather_windows_lowp``), emulated on a level's bytes: 4-byte chunks
+    aligned down from each row's first window cell, zero-filled wholly
+    outside the row's in-range cells or past its last one, the cells before
+    x = 0 of a straddling chunk masked, each row read at its own phase. The
+    windows read back must equal the level's (S+1)^2 cells around each
+    centroid, zero outside, at widths whose rows start unaligned."""
+
+    @staticmethod
+    def _read_windows(level, q, xs, ys, s, base):
+        """Window cells as the kernel reads them: level (Q, hl, wl) of 1- or
+        2-byte elements laid at byte address ``base`` (4-aligned)."""
+        e = level.element_size()
+        _, hl, wl = level.shape
+        mem = np.frombuffer(level.contiguous().view(torch.uint8).numpy().tobytes(), dtype=np.uint8)
+        rw = (s * e + 7) // 4
+        vol = base + q * hl * wl * e
+        vlo = vol & 3
+        xa, xb = max(xs, 0), min(xs + s, wl - 1)
+        smem = np.full((s + 1, 4 * rw), 0xAB, dtype=np.uint8)  # stale bytes
+        for rr in range(s + 1):
+            y = ys + rr
+            row = vlo + y * wl * e
+            for k in range(rw):
+                c = ((row + xs * e) & ~3) + 4 * k
+                b0, b1 = row + xa * e, row + (xb + 1) * e
+                ok = xa <= xb and 0 <= y < hl and c + 4 > b0 and c < b1
+                n = min(4, b1 - c) if ok else 0
+                src = vol - vlo + c - base  # byte offset in the tensor
+                if ok:
+                    assert src >= 0 and src + n <= mem.size  # never outside the tensor
+                smem[rr, 4 * k:4 * k + 4] = 0
+                smem[rr, 4 * k:4 * k + n] = mem[src:src + n] if ok else []
+        out = np.zeros((s + 1, s + 1))
+        for j in range(s + 1):
+            ph = (vol + (ys + j) * wl * e + xs * e) & 3
+            for x in range(s + 1):
+                if xs + x < 0:
+                    continue  # masked
+                b = smem[j, ph + x * e:ph + x * e + e]
+                out[j, x] = (np.frombuffer(b.tobytes(), np.int8)[0] if e == 1
+                             else float(torch.from_numpy(np.frombuffer(b.tobytes(), np.int16).copy())
+                                        .view(torch.bfloat16)[0]))
+        return out
+
+    @pytest.mark.parametrize("base", [0, 4, 8, 12])
+    @pytest.mark.parametrize("dtype,wl", [(torch.int8, 39), (torch.int8, 78), (torch.int8, 13),
+                                          (torch.bfloat16, 13), (torch.bfloat16, 39), (torch.bfloat16, 16)])
+    def test_windows_read_back_exactly(self, dtype, wl, base):
+        rng = np.random.default_rng(wl + base)
+        q_n, hl, radius = 3, 7, 2
+        s = 2 * radius + 1
+        vals = rng.integers(-127, 128, (q_n, hl, wl))
+        level = torch.from_numpy(vals).to(dtype)
+        starts = [(-radius - 3, 1), (wl + radius, 2), (-radius - 1, -radius - 1), (wl - 2, hl - 2), (0, 0),
+                  (wl // 2, -s), (wl // 2, hl), (1, 3)]
+        for q in range(q_n):
+            for xs, ys in starts:
+                got = self._read_windows(level, q, xs, ys, s, base)
+                want = np.zeros((s + 1, s + 1))
+                for j in range(s + 1):
+                    for x in range(s + 1):
+                        y, xx = ys + j, xs + x
+                        if 0 <= y < hl and 0 <= xx < wl:
+                            want[j, x] = float(level[q, y, xx].float())
+                np.testing.assert_array_equal(got, want, err_msg=f"q {q} window at ({xs}, {ys})")
 
 
 class TestLookupK4:
