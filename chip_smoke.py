@@ -12,9 +12,11 @@ Phases, each of which raises on failure (exit code 1):
   2. build: every CUDA kernel of the package from this checkout's sources,
      one nvcc per source, all started together (the Triton kernel compiles
      on its first launch, into the same git-ignored ``_build/``), the
-     count of tensor-core (HMMA) instructions in K1's and K3's SASS
+     count of tensor-core instructions in K1's and K3's SASS
      (``cuobjdump``; each bf16-product instantiation of K1 must hold bf16
-     HMMA and no TF32 one), and K1's registers and spills from ptxas;
+     HMMA and no TF32 one, each instantiation of K3's Hopper form TF32
+     HGMMA (wgmma) and no HMMA), and K1's and K3's registers and spills
+     from ptxas;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
      card, at the main paths' shapes and edge cases, with times per launch,
      the card's bound for the same work and, where one PyTorch call or a
@@ -26,7 +28,9 @@ Phases, each of which raises on failure (exit code 1):
      its plain version, timed, bounded (2x and 4x fewer level bytes) and
      beside its library chain; and K1's fp32 and bf16/bf16 forms timed at
      batch 8 (Q = 56320), the launch of the serving pool's tick and the
-     bench's ``_b8`` lines;
+     bench's ``_b8`` lines; NaN cases: K1's fp32 form on NaN centroids and
+     K3's two forms on NaN features (both NaN bit patterns) give NaN
+     exactly where their plain versions do;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests at 32
      updates, first with ``FlowEstimator``'s model called eagerly on its
@@ -54,6 +58,8 @@ Phases, each of which raises on failure (exit code 1):
      through ``validate`` (K3 once per pair), fps from
      ``chained_pairs_per_s``, latency and peak memory, the same weights at
      ``'dense'`` giving the same flow, one request under torch.profiler;
+     then the same weights with ``corr_dtype='bfloat16'`` through
+     ``validate`` over the same pairs (K3's bf16 form once per pair);
   9. bench: ``python -m raft_tpu_torch.bench`` at 2 pairs a configuration,
      its lines checked against the protocol's schema;
  10. serving: ``ServeEngine`` over raft_large (the main path's weights) at
@@ -192,9 +198,10 @@ def bound(nbytes: float, ops: float, tf32_ops: float = 0.0, bf16_ops: float = 0.
 
 
 def hmma_counts(lib_path, kernel: str):
-    """Tensor-core (HMMA) instructions by kind (``.1688.F32.TF32``,
-    ``.16816.F32.BF16``, ...) in the SASS of each function of a built
-    library whose (mangled) name contains ``kernel``, from ``cuobjdump``."""
+    """Tensor-core instructions by kind, mma.sync's (``HMMA.1688.F32.TF32``,
+    ``HMMA.16816.F32.BF16``, ...) and wgmma's (``HGMMA.64x128x8.F32.TF32``,
+    ...), in the SASS of each function of a built library whose (mangled)
+    name contains ``kernel``, from ``cuobjdump``."""
     from raft_tpu_torch.kernels import build
 
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -207,15 +214,31 @@ def hmma_counts(lib_path, kernel: str):
             fn = fn if kernel in fn else None
             if fn:
                 counts[fn] = {}
-        elif fn and "HMMA" in line:
-            kind = line.split("HMMA", 1)[1].split()[0]
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            kind = next(t for t in line.split() if t.startswith(("HMMA", "HGMMA")))
             counts[fn][kind] = counts[fn].get(kind, 0) + 1
     return counts
 
 
 def hmma_count(lib_path, kernel: str) -> int:
-    """All tensor-core (HMMA) instructions of :func:`hmma_counts`."""
+    """All tensor-core instructions of :func:`hmma_counts`."""
     return sum(sum(kinds.values()) for kinds in hmma_counts(lib_path, kernel).values())
+
+
+def check_k3_wgmma(lib_path) -> str:
+    """K3's Hopper form (corr_pyramid_wgmma_kernel, bf16 and fp32 levels):
+    each instantiation must run its products on wgmma, TF32 HGMMA and no
+    HMMA. Returns a summary; raises otherwise."""
+    counts = hmma_counts(lib_path, "corr_pyramid_wgmma_kernel")
+    parts = []
+    for fn, kinds in counts.items():
+        n_hgmma = sum(n for k, n in kinds.items() if k.startswith("HGMMA") and "TF32" in k)
+        if n_hgmma == 0 or any(k.startswith("HMMA") for k in kinds):
+            raise AssertionError(f"K3 {fn}: tensor-core instructions {kinds}, expected TF32 HGMMA only")
+        parts.append(f"{'bf16' if 'nv_bfloat16' in fn else 'fp32'} {kinds}")
+    if len(parts) != 2:
+        raise AssertionError(f"K3's Hopper form has {len(parts)} instantiations in its SASS, expected 2")
+    return "; ".join(parts)
 
 
 def check_k1_products(lib_path) -> str:
@@ -375,6 +398,21 @@ def lookup_phase(device):
             raise AssertionError(f"a lookup kernel disagrees with its plain version on {name}")
         err = {"k1": max(err["k1"], e1), "k2": max(err["k2"], e2), "k4": max(err["k4"], e4)}
 
+    # NaN centroids (F4): K1's fp32 form gives NaN exactly where its plain version does
+    pyr, cents, weight, bias = kernel_inputs(device, *SINTEL)
+    cents[0, 0, :8] = float("nan")
+    cents[0, -1, -1, 1] = float("nan")
+    got1 = lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS)
+    torch.cuda.synchronize()
+    want1 = lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS)
+    same = torch.equal(got1.isnan(), want1.isnan())
+    e1 = (got1.nan_to_num(0.0) - want1.nan_to_num(0.0)).abs().max().item()
+    log(f"kernels nan_centroids: K1 fp32 {int(got1.isnan().sum())} NaN outputs, plain {int(want1.isnan().sum())}, "
+        f"same cells {same}; max_abs_err elsewhere {e1:.3e} (tol {PROJECT_TOL:g})")
+    if not (same and e1 <= PROJECT_TOL):
+        raise AssertionError("K1 disagrees with its plain version on NaN centroids")
+    err["k1"] = max(err["k1"], e1)
+
     pyr, cents, weight, bias = kernel_inputs(device, *SINTEL)
     q = cents.shape[0] * cents.shape[1] * cents.shape[2]
     c_in = weight.shape[1]
@@ -440,7 +478,28 @@ VOLUME_CASES = {
     "one_level": (1, 32, 9, 13, 1),
     "five_levels": (1, 32, 40, 48, 5),
     "six_levels": (1, 32, 64, 96, 6),
+    "nan_features": (2, 128, 23, 37, 4),  # NaN bit patterns in both maps (volume_inputs)
 }
+# (map, batch, channel, y, x, bits) of each NaN of the nan_features case (F5): the
+# card's own NaN (0x7fffffff), a host NaN (0x7fc00000), a negative one (0xffffffff)
+NAN_FEATURES = [(0, 0, 5, 2, 3, 0x7FFFFFFF), (1, 0, 17, 10, 20, 0x7FC00000), (1, 1, 64, 22, 36, -1),
+                (0, 1, 127, 22, 36, 0x7FC00000), (1, 1, 3, 0, 0, 0x7FFFFFFF)]
+
+
+def volume_inputs(device, name):
+    """Seeded features of a volume case, NaNs put in for nan_features."""
+    b, c, h, w, levels = VOLUME_CASES[name]
+    gen = torch.Generator(device=device).manual_seed(3)
+    f1 = torch.randn(b, c, h, w, device=device, generator=gen)
+    f2 = torch.randn(b, c, h, w, device=device, generator=gen)
+    if name == "nan_features":
+        for m, bb, ch, y, x, bits in NAN_FEATURES:
+            (f1, f2)[m].view(torch.int32)[bb, ch, y, x] = bits
+    return f1, f2, levels
+
+
+def same_nans(got, want) -> bool:
+    return all(torch.equal(g.isnan(), w_.isnan()) for g, w_ in zip(got, want))
 
 
 def volume_phase(device):
@@ -454,18 +513,18 @@ def volume_phase(device):
     from raft_tpu_torch.kernels import corr_pallas as cp
 
     err, times = 0.0, {}
-    for name, (b, c, h, w, levels) in VOLUME_CASES.items():
-        gen = torch.Generator(device=device).manual_seed(3)
-        f1 = torch.randn(b, c, h, w, device=device, generator=gen)
-        f2 = torch.randn(b, c, h, w, device=device, generator=gen)
+    for name in VOLUME_CASES:
+        f1, f2, levels = volume_inputs(device, name)
+        b, c, h, w = f1.shape
         got = cp.fused_volume_pyramid(f1, f2, levels)
         torch.cuda.synchronize()
         want = cp.volume_pyramid_reference(f1, f2, levels)
-        e = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        nans = same_nans(got, want)  # NaN exactly where the plain version has NaN
+        e = max((g.nan_to_num(0.0) - w_.nan_to_num(0.0)).abs().max().item() for g, w_ in zip(got, want))
         shapes_ok = all(g.shape == w_.shape for g, w_ in zip(got, want))
         log(f"kernels K3 {name}: levels {[tuple(g.shape[1:]) for g in got]} max_abs_err={e:.3e} "
-            f"(tol {VOLUME_TOL:g})")
-        if not (shapes_ok and e <= VOLUME_TOL):
+            f"(tol {VOLUME_TOL:g}); NaN cells {sum(int(g.isnan().sum()) for g in got)}, as the plain version: {nans}")
+        if not (shapes_ok and nans and e <= VOLUME_TOL):
             raise AssertionError(f"K3 disagrees with its plain version on {name}")
         err = max(err, e)
         if name in ("raft_small_sintel", "raft_large_sintel"):
@@ -626,22 +685,23 @@ def volume_bf16_phase(device):
     from raft_tpu_torch.kernels import corr_pallas as cp
 
     worst, times = 0.0, {}
-    for name, (b, c, h, w, levels) in VOLUME_CASES.items():
-        gen = torch.Generator(device=device).manual_seed(3)
-        f1 = torch.randn(b, c, h, w, device=device, generator=gen)
-        f2 = torch.randn(b, c, h, w, device=device, generator=gen)
+    for name in VOLUME_CASES:
+        f1, f2, levels = volume_inputs(device, name)
+        b, c, h, w = f1.shape
         got = cp.fused_volume_pyramid(f1, f2, levels, torch.bfloat16)
         torch.cuda.synchronize()
         want = cp.volume_pyramid_reference(f1, f2, levels, torch.bfloat16)
+        nans = same_nans(got, want)  # NaN exactly where the plain version has NaN
+        pairs = [(g.float().nan_to_num(0.0), w_.float().nan_to_num(0.0)) for g, w_ in zip(got, want)]
         # the fp32 cells agree within VOLUME_TOL; rounding each to bf16 adds at
         # most one bf16 ulp of the larger of the two (2^-7 relative)
-        ulps = max(((g.float() - w_.float()).abs() - VOLUME_TOL).clamp(min=0).div(
-            (torch.maximum(g.float().abs(), w_.float().abs()) * 2.0**-7).clamp(min=1e-30)).max().item()
-            for g, w_ in zip(got, want))
-        e = max((g.float() - w_.float()).abs().max().item() for g, w_ in zip(got, want))
+        ulps = max(((g - w_).abs() - VOLUME_TOL).clamp(min=0).div(
+            (torch.maximum(g.abs(), w_.abs()) * 2.0**-7).clamp(min=1e-30)).max().item() for g, w_ in pairs)
+        e = max((g - w_).abs().max().item() for g, w_ in pairs)
         log(f"kernels K3 bf16 {name}: max_abs_err={e:.3e}, worst cell {ulps:.3f} bf16 ulp beyond the fp32 "
-            f"tolerance {VOLUME_TOL:g} (tol 1)")
-        if not (all(g.dtype == torch.bfloat16 and g.shape == w_.shape for g, w_ in zip(got, want)) and ulps <= 1.0):
+            f"tolerance {VOLUME_TOL:g} (tol 1); NaN cells as the plain version: {nans}")
+        if not (all(g.dtype == torch.bfloat16 and g.shape == w_.shape for g, w_ in zip(got, want))
+                and nans and ulps <= 1.0):
             raise AssertionError(f"K3 bf16 disagrees with its plain version on {name}")
         worst = max(worst, e)
         if name in ("raft_small_sintel", "raft_large_sintel"):
@@ -657,6 +717,10 @@ def volume_bf16_phase(device):
             times[name] = t
             log(f"kernels K3 bf16 {name} timing: {t['ms']:.4f} ms (plain = library chain {t['plain_ms']:.4f}); "
                 f"bound {t['bound'][0]:.4f} by {t['bound'][1]} ({nbytes} bytes)")
+    small, large = times["raft_small_sintel"], times["raft_large_sintel"]
+    log(f"kernels K3 bf16 timing, raft_small / raft_large Sintel: {small['ms']:.4f} / {large['ms']:.4f} ms, "
+        f"bound {small['bound'][0]:.4f} / {large['bound'][0]:.4f} ms, share of bound "
+        f"{small['bound'][0] / small['ms']:.3f} / {large['bound'][0] / large['ms']:.3f}")
     return worst, times
 
 
@@ -1058,7 +1122,9 @@ def shift_pairs(seeds):
 
 
 def sintel_path(device, card):
-    """raft_small at full width, corr_impl='pallas', through validate."""
+    """raft_small at full width, corr_impl='pallas', through validate; then
+    the same weights with a bf16 pyramid (K3's bf16 form) over the same
+    pairs. Returns K3's launches in the two runs."""
     import raft_tpu_torch as rt
     from raft_tpu_torch.eval import chained_pairs_per_s, validate
     from raft_tpu_torch.eval.validate import _prepare
@@ -1110,12 +1176,30 @@ def sintel_path(device, card):
     prof = profile_request(eager, (data.samples[0]["image1"], data.samples[0]["image2"]))
     if prof is not None:
         by_name, busy_us = prof
-        k3_us = sum(us for name, us in by_name.items() if "corr_pyramid_kernel" in name)
+        # K3 is its split pre-pass and its main kernel
+        k3_us = sum(us for name, us in by_name.items() if "corr_pyramid" in name or "split_kmajor" in name)
         conv_us = sum(us for name, us in by_name.items()
                       if any(t in name.lower() for t in ("conv", "fprop", "implicit_gemm")))
         log(f"sintel path profile: K3 {k3_us / 1e3:.3f} ms = {k3_us / busy_us:.4f} of device busy time, "
             f"fp32 convolutions {conv_us / 1e3:.3f} ms = {conv_us / busy_us:.4f}")
-    return launches["k3"]
+
+    # K3's bf16 form on the model path: the same weights, a bf16 pyramid
+    model_bf16 = rt.raft_small(corr_impl="pallas", corr_dtype="bfloat16", device=device)
+    model_bf16.load_state_dict(model.state_dict())
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics_bf16 = validate(model_bf16, data, num_flow_updates=UPDATES, fps_pairs=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_bf16 = read_counts()
+    log(f"sintel path, bf16 pyramid: validate raft_small pallas + corr_dtype bfloat16, {len(data)} pairs: "
+        f"{json.dumps(metrics_bf16)} (fp32 pyramid: epe {metrics['epe']:.6f}); launches {launches_bf16}; "
+        f"wall {wall * 1e3:.3f} ms, card {card}")
+    if launches_bf16["k3"] != len(data):
+        raise AssertionError(f"K3 (bf16) launched {launches_bf16['k3']} times for {len(data)} pairs")
+    if not math.isfinite(metrics_bf16["epe"]):
+        raise AssertionError("validate at a bf16 pyramid returned a non-finite EPE")
+    return launches["k3"], launches_bf16["k3"]
 
 
 # The serving phase: raft_large at 440x1024, pool capacity 8, 24 requests
@@ -1329,9 +1413,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
                 log(f"build {name}: {line.strip()}")
     hmma = hmma_count(libs["corr_pyramid"], "corr_pyramid_kernel")
-    log(f"build corr_pyramid: {hmma} HMMA (tensor-core) instructions in corr_pyramid_kernel's SASS")
+    log(f"build corr_pyramid: {hmma} HMMA (tensor-core) instructions in corr_pyramid_kernel's SASS (5-6 levels)")
     if hmma == 0:
-        raise AssertionError("K3 has no tensor-core instructions")
+        raise AssertionError("K3's mma.sync form has no tensor-core instructions")
+    log(f"build corr_pyramid: the Hopper form's products by instantiation: {check_k3_wgmma(libs['corr_pyramid'])}; "
+        f"ptxas: {ptxas_usage(build.build_logs.get('corr_pyramid', ''), 'corr_pyramid_wgmma_kernel')}")
+    hgmma = hmma_count(libs["corr_pyramid"], "corr_pyramid_wgmma_kernel")
     hmma1 = hmma_count(libs["lookup_xtap"], "xtap_project_kernel")
     log(f"build lookup_xtap: {hmma1} HMMA (tensor-core) instructions in xtap_project_kernel's SASS "
         f"(its six forms); ptxas: {ptxas_usage(build.build_logs.get('lookup_xtap', ''), 'xtap_project_kernel')}")
@@ -1363,14 +1450,14 @@ def main() -> int:
         raise AssertionError(f"the model left the tf32 flags changed: {tf32_flags()} after {flags}")
     log(f"tf32 flags after the main paths: unchanged, {tf32_flags()}")
     _, golden_launches = golden_phase(device)
-    k3_launches = sintel_path(device, card)
+    k3_launches, k3b_launches = sintel_path(device, card)
     bench_phase()
     k1_serve_q, _ = serving_phase(device, card, "quality", weights)
     k1_serve_t, _ = serving_phase(device, card, "throughput", weights)
     golden_serving_phase(device)
 
-    k3 = k3_times["raft_small_sintel"]
-    k3b = k3b_times["raft_small_sintel"]
+    k3, k3_large = k3_times["raft_small_sintel"], k3_times["raft_large_sintel"]
+    k3b, k3b_large = k3b_times["raft_small_sintel"], k3b_times["raft_large_sintel"]
     lookup_src = "raft_tpu_torch/kernels/csrc/lookup_xtap.cu"
 
     def entry(name, source, replaces, launches_, path, err, t, b, route="cuda", **extra):
@@ -1416,10 +1503,16 @@ def main() -> int:
         entry("corr_pyramid (K3: volume + pooled pyramid), fp32 levels", k3_lib,
               "raft_tpu/kernels/corr_pallas.py:64", k3_launches,
               f"validate, raft_small pallas, {REQUESTS} pairs 436x1024", k3_err,
-              dict(k3, library_ms=k3["plain_ms"]), k3["bound"], fp32_fma_bound_ms=k3["fp32_bound"][0], hmma=hmma),
-        entry("corr_pyramid (K3), bf16 levels", k3_lib, "raft_tpu/kernels/corr_pallas.py:64",
-              golden_launches["pallas + bf16 corr"], "validate, golden fixture at pallas + bf16 corr (clean)",
-              k3b_err, dict(k3b, library_ms=k3b["plain_ms"]), k3b["bound"]),
+              dict(k3, library_ms=k3["plain_ms"]), k3["bound"], fp32_fma_bound_ms=k3["fp32_bound"][0], hgmma=hgmma,
+              hmma_5_6_levels=hmma, raft_large_ms=k3_large["ms"], raft_large_plain_ms=k3_large["plain_ms"],
+              raft_large_bound_ms=k3_large["bound"][0]),
+        entry("corr_pyramid (K3), bf16 levels", k3_lib, "raft_tpu/kernels/corr_pallas.py:64", k3b_launches,
+              f"validate, raft_small pallas + bf16 pyramid, {REQUESTS} pairs 436x1024", k3b_err,
+              dict(k3b, library_ms=k3b["plain_ms"]), k3b["bound"], hgmma=hgmma,
+              raft_large_ms=k3b_large["ms"], raft_large_plain_ms=k3b_large["plain_ms"],
+              raft_large_bound_ms=k3b_large["bound"][0],
+              golden_path="validate, golden fixture at pallas + bf16 corr (clean)",
+              golden_launches=golden_launches["pallas + bf16 corr"]),
         entry("lookup_dense (K4: separable lookup)", "raft_tpu_torch/kernels/csrc/lookup_dense.cu",
               "raft_tpu/kernels/lookup_pallas.py:50", k4_launches, "lookup_pyramid_pallas (own entry point)",
               lookup_err["k4"], k4, lookup_bounds["k4"]),

@@ -18,6 +18,12 @@ still accumulates and pools in fp32, and each level is rounded to bf16
 (round to nearest even) where it is stored, so level l is ``bf16(fp32 level
 l)``. The dense block's bf16 pyramid (``CorrBlock(dtype=bf16)``) casts the
 volume before pooling instead; both forms are kept, as in the JAX package.
+Up to :data:`HOPPER_MAX_LEVELS` levels (the model's pyramids), both forms
+run the source's Hopper form: a pre-pass splits both maps into K-major TF32
+halves in a workspace this wrapper allocates (``_workspace_bytes``), then the main
+kernel reads them by TMA into ``wgmma`` (``_hopper_tile`` mirrors its
+block). A call is then two kernels and counts one launch. 5-6
+levels run the mma.sync form, with no workspace.
 
 The kernel is inference-only, as the JAX package's is (``pallas_call`` has
 no autodiff rule): a call with grad enabled on inputs that require grad
@@ -29,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -38,6 +44,7 @@ from raft_tpu_torch.kernels import build
 from raft_tpu_torch.models.corr import CorrBlock, correlation_volume, pool_pyramid
 
 __all__ = [
+    "HOPPER_MAX_LEVELS",
     "MAX_LEVELS",
     "PallasCorrBlock",
     "fused_volume_pyramid",
@@ -46,6 +53,46 @@ __all__ = [
 ]
 
 MAX_LEVELS = 6  # the kernel's 2^(L-1)-row key band fits a block up to here
+HOPPER_MAX_LEVELS = 4  # pyramids up to here run the Hopper form (wgmma over TMA-fed operands)
+
+
+class _HopperTile(NamedTuple):
+    """The Hopper form's block, as ``csrc/corr_pyramid.cu`` lays it out (its
+    ``kH*`` constants and ``launch_hopper``'s tensor maps): change both
+    together."""
+
+    queries: int  # a block's queries: two warpgroups of 64
+    band_rows: int  # R = 2^(L-1) key rows
+    band_cols: int  # TW = 128 / R key columns
+    channels: int  # a ring stage's channels (64-byte rows, the swizzle's span)
+    stages: int
+    threads: int  # two consumer warpgroups and a producer warp
+    smem_bytes: int  # dynamic shared memory: the ring or the epilogue tile and pooled levels, + 1 KB to align
+    box_a: tuple  # TMA box over the split f1, dims (C, Q, B, hi/lo)
+    box_b: tuple  # TMA box over the split f2, dims (C, w, h, B, hi/lo)
+
+
+def _hopper_tile(num_levels: int) -> Optional[_HopperTile]:
+    """The Hopper form's block for a pyramid of ``num_levels``, or None
+    where the mma.sync form runs it (more than HOPPER_MAX_LEVELS)."""
+    if not 1 <= num_levels <= HOPPER_MAX_LEVELS:
+        return None
+    rows, queries, channels, stages = 2 ** (num_levels - 1), 128, 16, 3
+    cols = 128 // rows
+    ring = stages * 4 * queries * channels * 4  # A and B, hi and lo, fp32
+    pooled = sum((rows >> lvl) * (cols >> lvl) for lvl in range(1, num_levels))  # floats a query
+    epilogue = queries * (128 + 8 + pooled) * 4  # tile rows of 136 floats, then levels 1..L-1
+    return _HopperTile(queries, rows, cols, channels, stages, 288, max(ring, epilogue) + 1024,
+                      (channels, queries, 1, 1), (channels, cols, rows, 1, 1))
+
+
+def _workspace_bytes(b: int, c: int, h: int, w: int, num_levels: int) -> int:
+    """Bytes of the Hopper form's split operands, both maps' TF32 hi and lo
+    halves as ``[B][h*w][Cp]`` fp32 (Cp: C rounded up to 4, so every row is
+    a multiple of 16 bytes, as TMA needs); 0 for the mma.sync form."""
+    if _hopper_tile(num_levels) is None:
+        return 0
+    return 4 * b * h * w * (-(-c // 4) * 4) * 4
 
 
 def level_dims(h: int, w: int, num_levels: int) -> List[tuple]:
@@ -72,7 +119,7 @@ def _lib() -> ctypes.CDLL:
     lib.corr_pyramid_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.corr_pyramid_launch.restype = ctypes.c_int
     return lib
@@ -121,12 +168,15 @@ def fused_volume_pyramid(
     q = h * w
     outs = [torch.empty((b * q, hl, wl), device=fmap1.device, dtype=out_dtype) for hl, wl in dims]
     ptrs = (ctypes.c_void_p * num_levels)(*[o.data_ptr() for o in outs])
+    ws_bytes = _workspace_bytes(b, c, h, w, num_levels)
+    ws = torch.empty(ws_bytes // 4, device=fmap1.device, dtype=torch.float32) if ws_bytes else None
     lib = _lib()
     with torch.cuda.device(fmap1.device):
         stream = torch.cuda.current_stream(fmap1.device).cuda_stream
         rc = lib.corr_pyramid_launch(
             fmap1.data_ptr(), fmap2.data_ptr(), ptrs, b, c, h, w, num_levels,
-            1.0 / math.sqrt(c), int(out_dtype == torch.bfloat16), stream,
+            1.0 / math.sqrt(c), int(out_dtype == torch.bfloat16),
+            ws.data_ptr() if ws is not None else None, ws_bytes, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{who}: kernel launch failed with cudaError_t {rc}")

@@ -107,7 +107,7 @@ def test_k2_matches_plain(cuda_device, case):
 
 
 @pytest.mark.parametrize("c_out", [256, 96, 48, 20])  # raft_large, raft_small, fixture, ragged
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + ["edge_centroids"])
 def test_k1_matches_plain(cuda_device, case, c_out):
     pyr, cents, radius = _inputs(case, cuda_device)
     c_in = len(pyr) * (2 * radius + 1) ** 2
@@ -119,7 +119,8 @@ def test_k1_matches_plain(cuda_device, case, c_out):
     torch.cuda.synchronize()
     assert lookup_project_fused.launches == before + 1
     want = lookup_project_reference(pyr, cents, weight, bias, radius)
-    torch.testing.assert_close(got, want, rtol=PROJECT_TOL, atol=PROJECT_TOL)
+    # a NaN centroid gives NaN taps, and the plain version a NaN output: so must the kernel
+    torch.testing.assert_close(got, want, rtol=PROJECT_TOL, atol=PROJECT_TOL, equal_nan=True)
 
 
 def test_cuda_path_never_runs_plain_version(cuda_device, monkeypatch):
@@ -186,7 +187,31 @@ VOLUME_CASES = {
     "five_levels": (1, 32, 40, 48, 5),
     "channel_tail": (1, 36, 23, 37, 3),  # C not a multiple of 8: zero-filled channel tail
     "six_levels": (1, 32, 64, 96, 6),
+    "nan_features": (2, 128, 23, 37, 4),  # both NaN bit patterns in each map (_volume_inputs)
 }
+
+# (map, batch, channel, y, x, bits) of each NaN in the nan_features case: the
+# card's own NaN (0x7fffffff, what a NaN computed on the card is), a host
+# NaN (0x7fc00000) and a negative one (0xffffffff), the last query among them
+NAN_FEATURES = [(0, 0, 5, 2, 3, 0x7FFFFFFF), (1, 0, 17, 10, 20, 0x7FC00000), (1, 1, 64, 22, 36, -1),
+                (0, 1, 127, 22, 36, 0x7FC00000), (1, 1, 3, 0, 0, 0x7FFFFFFF)]
+
+
+def _volume_inputs(case, device):
+    b, c, h, w, levels = VOLUME_CASES[case]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    f1 = torch.randn(b, c, h, w, generator=gen)
+    f2 = torch.randn(b, c, h, w, generator=gen)
+    if case == "nan_features":
+        for m, bb, ch, y, x, bits in NAN_FEATURES:
+            (f1, f2)[m].view(torch.int32)[bb, ch, y, x] = bits
+    return f1.to(device), f2.to(device), levels
+
+
+def _assert_same_nans(got, want):
+    """NaN exactly where the plain version has NaN."""
+    assert torch.equal(got.isnan(), want.isnan()), f"{int((got.isnan() != want.isnan()).sum())} cells differ"
+
 
 INORM_CASES = [(1, 32, 220, 512), (1, 64, 220, 512), (2, 16, 24, 32)]
 
@@ -195,10 +220,7 @@ INORM_CASES = [(1, 32, 220, 512), (1, 64, 220, 512), (2, 16, 24, 32)]
 def test_k3_matches_plain(cuda_device, case):
     from raft_tpu_torch.kernels.corr_pallas import fused_volume_pyramid, volume_pyramid_reference
 
-    b, c, h, w, levels = VOLUME_CASES[case]
-    gen = torch.Generator(device="cpu").manual_seed(2)
-    f1 = torch.randn(b, c, h, w, generator=gen).to(cuda_device)
-    f2 = torch.randn(b, c, h, w, generator=gen).to(cuda_device)
+    f1, f2, levels = _volume_inputs(case, cuda_device)
     before = fused_volume_pyramid.launches
     got = fused_volume_pyramid(f1, f2, levels)
     torch.cuda.synchronize()
@@ -207,7 +229,8 @@ def test_k3_matches_plain(cuda_device, case):
     assert len(got) == len(want) == levels
     for g, w_ in zip(got, want):
         assert g.shape == w_.shape
-        torch.testing.assert_close(g, w_, rtol=VOLUME_TOL, atol=VOLUME_TOL)
+        _assert_same_nans(g, w_)
+        torch.testing.assert_close(g, w_, rtol=VOLUME_TOL, atol=VOLUME_TOL, equal_nan=True)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -319,7 +342,8 @@ def test_golden_epe_pallas_on_the_card(cuda_device, dstype):
 
 LOWP_CASES = ["small", "ragged_kitti", "batch2", "odd_dims", "raft_small_fused", "batch2_ragged_hw",
               *LOWP_EDGE_CASES]
-LOWP_VOLUME_CASES = ["raft_small_sintel", "fixture", "kitti_ragged_q", "odd_dims", "five_levels", "six_levels"]
+LOWP_VOLUME_CASES = ["raft_small_sintel", "fixture", "kitti_ragged_q", "odd_dims", "five_levels", "six_levels",
+                     "nan_features"]
 
 
 def _bf16_ulps_of_max(want, n=2):
@@ -340,10 +364,7 @@ def _lowp_pyramid(pyr, dtype):
 def test_k3_bf16_matches_plain(cuda_device, case):
     from raft_tpu_torch.kernels.corr_pallas import fused_volume_pyramid, volume_pyramid_reference
 
-    b, c, h, w, levels = VOLUME_CASES[case]
-    gen = torch.Generator(device="cpu").manual_seed(2)
-    f1 = torch.randn(b, c, h, w, generator=gen).to(cuda_device)
-    f2 = torch.randn(b, c, h, w, generator=gen).to(cuda_device)
+    f1, f2, levels = _volume_inputs(case, cuda_device)
     before = fused_volume_pyramid.launches
     got = fused_volume_pyramid(f1, f2, levels, torch.bfloat16)
     torch.cuda.synchronize()
@@ -352,9 +373,40 @@ def test_k3_bf16_matches_plain(cuda_device, case):
     for g, w_ in zip(got, want):
         assert g.dtype == w_.dtype == torch.bfloat16 and g.shape == w_.shape
         g, w_ = g.float(), w_.float()
+        _assert_same_nans(g, w_)
+        g, w_ = g.nan_to_num(0.0), w_.nan_to_num(0.0)
         # the fp32 cells agree within VOLUME_TOL; rounding each to bf16 adds
         # at most one bf16 ulp of the larger of the two (2^-7 relative)
         assert ((g - w_).abs() <= VOLUME_TOL + 2.0**-7 * torch.maximum(g.abs(), w_.abs())).all()
+
+
+def test_k3_bf16_runs_wgmma(cuda_device):
+    """K3's Hopper form (<= 4 levels) runs its products on wgmma: both
+    instantiations of its kernel (bf16 and fp32 levels) hold HGMMA in their
+    SASS, TF32, and no mma.sync (HMMA)."""
+    import subprocess
+    from pathlib import Path
+
+    from raft_tpu_torch.kernels import build
+
+    lib = build.build_all(["corr_pyramid"])["corr_pyramid"]
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            fn = fn if "corr_pyramid_wgmma_kernel" in fn else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "TF32": 0, "HMMA": 0}
+        elif fn:
+            counts[fn]["HGMMA"] += "HGMMA" in line
+            counts[fn]["TF32"] += "HGMMA" in line and "TF32" in line
+            counts[fn]["HMMA"] += "HMMA" in line
+    assert len(counts) == 2, f"expected a bf16 and an fp32 instantiation, found {list(counts)}"
+    for fn, n in counts.items():
+        assert n["HGMMA"] > 0 and n["TF32"] == n["HGMMA"] and n["HMMA"] == 0, (fn, n)
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])

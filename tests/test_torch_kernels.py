@@ -9,7 +9,8 @@ interpolations per tap) and K5 in fp32 (sums over H*W in another order);
 bf16 I/O of K5 may differ by one bf16 rounding step (2^-7 relative).
 ``TestK3Arithmetic`` and ``TestK1Arithmetic`` emulate the 3xTF32
 tensor-core arithmetic of K3 and K1 on the CPU against a tenth of the
-card's tolerance; ``TestK1Tile`` checks the wrapper's view of K1's tile.
+card's tolerance, and K3's NaN-safe TF32 split; ``TestK3Tile`` and
+``TestK1Tile`` check the wrappers' view of K3's and K1's tiles.
 """
 
 import math
@@ -146,6 +147,17 @@ def _features(c, gain):
     return (torch.from_numpy((rng.normal(size=(1, c, 16, 20)) * gain).astype(np.float32)) for _ in range(2))
 
 
+def _split_tf32(x):
+    """K3's split (``split_tf32``): hi = tf32(x), or 0x7fc00000 where x is
+    NaN, and lo = tf32(x - hi)."""
+    hi = torch.where(x.isnan(), torch.tensor(0x7FC00000, dtype=torch.int32).view(torch.float32), _tf32(x))
+    return hi, _tf32(x - hi)
+
+
+def _bits(*words):
+    return torch.tensor([w - (1 << 32) if w >= 1 << 31 else w for w in words], dtype=torch.int32).view(torch.float32)
+
+
 def _volume_3xtf32(f1, f2):
     """K3's tensor-core arithmetic: each operand split once into
     hi = tf32(x) and lo = tf32(x - hi); lo*hi + hi*lo, then hi*hi, summed
@@ -175,6 +187,40 @@ class TestK3Arithmetic:
         lo = _tf32(v - hi)
         assert ((hi + lo - v).abs() <= 2.0**-21 * v.abs()).all()
 
+    def test_integer_rounding_carries_a_nan_into_the_sign_bit(self):
+        """The fault the split repairs (F5): the card's NaN, 0x7fffffff, and
+        its negative, 0xffffffff, carry into the sign bit, so the rounding
+        makes them -0 and +0; so it does the lo of the split."""
+        got = _tf32(_bits(0x7FFFFFFF, 0xFFFFFFFF)).view(torch.int32).tolist()
+        assert got == [-(1 << 31), 0]  # 0x80000000 (-0) and 0x00000000 (+0)
+        hi = _tf32(_bits(0x7FFFFFFF))
+        assert not hi.isnan().any() and not _tf32(_bits(0x7FFFFFFF) - hi).isnan().any()
+
+    def test_split_keeps_nan_and_every_other_value(self):
+        """The repaired split: a NaN's hi is 0x7fc00000, a NaN for the tensor
+        cores (its 19 high bits), so every product with it is NaN; finite
+        values, subnormals, values that round up to +-inf and the infinities
+        split bit for bit as before."""
+        nans = _bits(0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0xFFC00000, 0x7F800001)
+        hi, _ = _split_tf32(nans)
+        assert (hi.view(torch.int32) == 0x7FC00000).all()
+        assert _tf32(hi).isnan().all()  # still NaN once the tensor cores drop its 13 low bits
+        rng = np.random.default_rng(5)
+        finite = np.concatenate([
+            rng.normal(size=2048).astype(np.float32) * 10.0 ** rng.integers(-30, 30, 2048),
+            rng.integers(1, 1 << 23, 512).astype(np.uint32).view(np.float32),  # positive subnormals
+            (rng.integers(1, 1 << 23, 512).astype(np.uint32) | (1 << 31)).view(np.float32),  # negative ones
+            np.array([0.0, -0.0, np.finfo(np.float32).max, -np.finfo(np.float32).max], np.float32),
+            np.array([0x7F7FF000, 0x7F7FFFFF, 0xFF7FF000], np.uint32).view(np.float32),  # round up to +-inf
+            np.array([np.inf, -np.inf], np.float32),
+        ])
+        x = torch.from_numpy(finite.astype(np.float32))
+        hi, lo = _split_tf32(x)
+        old_hi = _tf32(x)
+        assert torch.equal(hi.view(torch.int32), old_hi.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), _tf32(x - old_hi).view(torch.int32))
+        assert _tf32(_bits(0x7F7FF000)).isinf().all()  # the round-up case is in the set
+
     @pytest.mark.parametrize("gain", [1.0, 10.0], ids=["unit", "x10"])
     @pytest.mark.parametrize("c", [128, 256])
     def test_3xtf32_matches_fp32_plain_version(self, c, gain):
@@ -191,6 +237,67 @@ class TestK3Arithmetic:
         want = corr_pallas.volume_pyramid_reference(f1, f2, 1)[0]
         got = _volume(_tf32(f1), _tf32(f2)).reshape(want.shape)
         assert not torch.allclose(got, want, rtol=VOLUME_TOL, atol=VOLUME_TOL * gain**2)
+
+
+class TestK3Tile:
+    """The wrapper's view of K3's Hopper-form block (``_hopper_tile``,
+    ``_workspace_bytes``; the ``kH*`` constants and ``launch_hopper``'s
+    tensor maps in ``csrc/corr_pyramid.cu``): shared memory, TMA boxes, the
+    workspace, and which pyramids take the block."""
+
+    # tests/test_torch_cuda.py's VOLUME_CASES, (b, c, h, w, levels), and
+    # whether the Hopper form runs them (<= 4 levels) or the mma.sync form
+    VOLUME_CASES = {
+        "raft_small_sintel": ((1, 128, 55, 128, 4), True),
+        "raft_large_sintel": ((1, 256, 55, 128, 4), True),
+        "fixture": ((1, 48, 12, 17, 3), True),
+        "kitti_ragged_q": ((1, 128, 47, 156, 4), True),
+        "batch2": ((2, 128, 55, 128, 4), True),
+        "odd_dims": ((1, 128, 45, 99, 4), True),
+        "one_level": ((1, 32, 9, 13, 1), True),
+        "five_levels": ((1, 32, 40, 48, 5), False),
+        "channel_tail": ((1, 36, 23, 37, 3), True),
+        "six_levels": ((1, 32, 64, 96, 6), False),
+        "nan_features": ((2, 128, 23, 37, 4), True),
+    }
+
+    @pytest.mark.parametrize("levels", [1, 2, 3, 4])
+    def test_two_blocks_fit_an_sm(self, levels):
+        """The ring (or, after the products, the epilogue tile and the
+        pooled levels) fits a block, and two blocks an SM with their 48
+        bytes of barriers and 1 KB reserved each."""
+        t = corr_pallas._hopper_tile(levels)
+        assert t.queries == 128 and t.band_rows * t.band_cols == 128 and t.band_rows == 2 ** (levels - 1)
+        assert t.smem_bytes <= 232_448
+        assert 2 * (t.smem_bytes + 48 + 1024) <= 228 * 1024
+        assert t.smem_bytes >= t.stages * 4 * t.queries * t.channels * 4 + 1024
+
+    @pytest.mark.parametrize("levels", [1, 2, 3, 4])
+    def test_tma_boxes(self, levels):
+        """Every box dimension within TMA's 256, the inner one a multiple of
+        16 bytes within the 64-byte swizzle's span; an A or B box is 8 KB,
+        a band of R rows by TW columns."""
+        t = corr_pallas._hopper_tile(levels)
+        for box in (t.box_a, t.box_b):
+            assert all(1 <= d <= 256 for d in box)
+            assert box[0] * 4 % 16 == 0 and box[0] * 4 <= 64
+            assert math.prod(box) * 4 == 8192
+        assert t.box_a[:2] == (t.channels, t.queries)
+        assert t.box_b[:3] == (t.channels, t.band_cols, t.band_rows)
+
+    def test_workspace_size(self):
+        """Both maps' hi and lo halves, [B][Q][Cp] fp32, Cp = C rounded up to 4."""
+        assert corr_pallas._workspace_bytes(1, 128, 55, 128, 4) == 14_417_920  # raft_small Sintel: 14.4 MB
+        assert corr_pallas._workspace_bytes(1, 256, 55, 128, 4) == 28_835_840
+        assert corr_pallas._workspace_bytes(2, 36, 23, 37, 3) == 4 * 2 * 851 * 36 * 4
+        assert corr_pallas._workspace_bytes(1, 30, 23, 37, 3) == 4 * 851 * 32 * 4
+        assert corr_pallas._workspace_bytes(1, 32, 40, 48, 5) == 0  # the mma.sync form takes none
+
+    @pytest.mark.parametrize("case", sorted(VOLUME_CASES))
+    def test_which_pyramids_take_the_hopper_form(self, case):
+        (b, c, h, w, levels), hopper = self.VOLUME_CASES[case]
+        assert (corr_pallas._hopper_tile(levels) is not None) == hopper
+        assert (corr_pallas._workspace_bytes(b, c, h, w, levels) > 0) == hopper
 
 
 PROJECT_TOL = 1e-4  # K1 against its plain version on the card (tests/test_torch_cuda.py)

@@ -407,6 +407,38 @@ def test_k3_bf16_plain_matches_jax_kernel():
         assert (np.abs(g - w) <= 1e-5 + 2.0**-7 * np.maximum(np.abs(g), np.abs(w))).all()
 
 
+def test_k3_bf16_plain_matches_jax_kernel_nan_features():
+    """NaN features (a host NaN and the bit pattern a NaN computed on a card
+    has, 0x7fffffff, in either map). Level 0: the JAX kernel in interpret
+    mode and the port's plain version give NaN in the same cells. Pooled
+    levels: the port keeps NaN where the JAX package's own pooling
+    (``pool_pyramid``, the kernel's oracle) has it, in the cells whose
+    parents hold one; the JAX kernel pools by matmul with a 0 / 0.5 matrix,
+    so NaN * 0 spreads a NaN to every pooled cell of its query rows. Cells
+    finite in both agree as above."""
+    from raft_tpu.models.corr import correlation_volume as jax_correlation_volume
+    from raft_tpu.models.corr import pool_pyramid as jax_pool_pyramid
+
+    f1, f2, _ = _corr_inputs(6, 1, 12, 17, 16)
+    f1.view(np.uint32)[0, 3, 5, 2] = 0x7FFFFFFF
+    f2.view(np.uint32)[0, 7, 11, 9] = 0x7FC00000
+    f2.view(np.uint32)[0, 11, 16, 15] = 0x7FFFFFFF
+    want = jax.jit(lambda a, b: jax_fused_volume_pyramid(a, b, 3, out_dtype=jnp.bfloat16, interpret=True))(
+        jnp.asarray(f1), jnp.asarray(f2))
+    oracle = jax_pool_pyramid(jax_correlation_volume(jnp.asarray(f1), jnp.asarray(f2)), 3)
+    got = corr_pallas.fused_volume_pyramid(_nchw(f1), _nchw(f2), 3, torch.bfloat16)
+    for level, (g, w, o) in enumerate(zip(got, want, oracle)):
+        g, w, o = g.float().numpy(), np.asarray(w.astype(jnp.float32))[..., 0], np.asarray(o)[..., 0]
+        assert np.array_equal(np.isnan(g), np.isnan(o)) and np.isnan(g).any()
+        if level == 0:
+            assert np.array_equal(np.isnan(g), np.isnan(w))
+        else:
+            assert (np.isnan(w) >= np.isnan(g)).all() and np.isnan(w).sum() > np.isnan(g).sum()
+        both = ~np.isnan(g) & ~np.isnan(w)
+        g, w = g[both], w[both]
+        assert (np.abs(g - w) <= 1e-5 + 2.0**-7 * np.maximum(np.abs(g), np.abs(w))).all()
+
+
 # raft_small's radius (S = 7) and raft_large's (S = 9), whose flat levels
 # sum their corners in other orders; 3 levels keep the grid at 8 x 12
 @pytest.mark.parametrize("radius,levels", [(3, 3), (4, 3)], ids=["raft_small_S7", "raft_large_S9"])
