@@ -28,9 +28,10 @@ Phases, each of which raises on failure (exit code 1):
      its plain version, timed, bounded (2x and 4x fewer level bytes) and
      beside its library chain; and K1's fp32 and bf16/bf16 forms timed at
      batch 8 (Q = 56320), the launch of the serving pool's tick and the
-     bench's ``_b8`` lines; NaN cases: K1's fp32 form on NaN centroids and
-     K3's two forms on NaN features (both NaN bit patterns) give NaN
-     exactly where their plain versions do;
+     bench's ``_b8`` lines, and K2's bf16 and int8 forms at raft_small and
+     batch 8; NaN cases: K1's fp32 form, K2's fp32 form and K4 on NaN
+     centroids and K3's two forms on NaN features (both NaN bit patterns)
+     give NaN exactly where their plain versions do;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests at 32
      updates, first with ``FlowEstimator``'s model called eagerly on its
@@ -412,6 +413,18 @@ def lookup_phase(device):
     if not (same and e1 <= PROJECT_TOL):
         raise AssertionError("K1 disagrees with its plain version on NaN centroids")
     err["k1"] = max(err["k1"], e1)
+    # the same centroids through K2's fp32 form and K4: NaN taps exactly where the plain version has them
+    want2 = lx.lookup_pyramid_reference(pyr, cents, RADIUS)
+    for key, got in (("k2", lx.lookup_pyramid_fused(pyr, cents, RADIUS)), ("k4", lp.lookup_pyramid_pallas(pyr, cents,
+                                                                                                          RADIUS))):
+        torch.cuda.synchronize()
+        same = torch.equal(got.isnan(), want2.isnan())
+        e = (got.nan_to_num(0.0) - want2.nan_to_num(0.0)).abs().max().item()
+        log(f"kernels nan_centroids: {key.upper()} fp32 {int(got.isnan().sum())} NaN taps, plain "
+            f"{int(want2.isnan().sum())}, same cells {same}; max_abs_err elsewhere {e:.3e} (tol {LOOKUP_TOL:g})")
+        if not (same and e <= LOOKUP_TOL):
+            raise AssertionError(f"{key.upper()} disagrees with its plain version on NaN centroids")
+        err[key] = max(err[key], e)
 
     pyr, cents, weight, bias = kernel_inputs(device, *SINTEL)
     q = cents.shape[0] * cents.shape[1] * cents.shape[2]
@@ -656,6 +669,32 @@ def lowp_lookup_phase(device):
             f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library chain {t['library_ms']:.4f}, "
             f"bound {bounds[k][0]:.4f} by {bounds[k][1]})" for k, t in times.items() if storage in k))
 
+    # K2's reduced-precision forms at raft_small (r 3, C_in 196) and at batch 8 (Q = 56320)
+    k2_shapes = {key: {} for key in K2_FORMS}
+    for label, case in (("raft_small", "raft_small_fused"), ("batch8", "serving_batch8")):
+        kw = LOOKUP_CASES[case]
+        r = kw.get("radius", RADIUS)
+        pyr32, cents, _, _ = kernel_inputs(device, **kw)
+        q = cents.shape[0] * cents.shape[1] * cents.shape[2]
+        c_in = LEVELS * (2 * r + 1) ** 2
+        reps = 5 if label == "batch8" else 20
+        for key2, storage in K2_FORMS.items():
+            pyr = lowp_pyramid(pyr32, storage)
+            scales = getattr(pyr, "scales", None)
+            nbytes = (window_bytes(pyr, cents, r) + cents.numel() * 4 + (scales.numel() * 4 if scales is not None else 0)
+                      + q * c_in * 2)
+            b2 = bound(nbytes, 11.0 * q * c_in)
+            k2_shapes[key2].update({
+                f"{label}_ms": cuda_ms(lambda: lx.lookup_pyramid_fused(pyr, cents, r)),
+                f"{label}_plain_ms": cuda_ms(lambda: lx.lookup_pyramid_reference(pyr, cents, r), reps=reps),
+                f"{label}_library_ms": cuda_ms(lambda: k2_library_chain(pyr, cents, r, scales), reps=reps),
+                f"{label}_bound_ms": b2[0], f"{label}_bound_by": b2[1],
+            })
+        log(f"kernels K2 at {label} (Q={q}, r={r}): " + "; ".join(
+            f"{key2} " + ", ".join(f"{k[len(label) + 1:]} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                   for k, v in k2_shapes[key2].items() if k.startswith(label))
+            for key2 in K2_FORMS))
+
     # the launch of the serving pool's tick and the bench's _b8 lines: batch 8, Q = 56320
     pyr32, cents, weight, bias = kernel_inputs(device, **LOOKUP_CASES["serving_batch8"])
     weight_bf16 = lx.project_weight_bf16(weight)
@@ -674,7 +713,7 @@ def lowp_lookup_phase(device):
         }
         log(f"kernels K1 {key} at batch 8 (Q={cents.shape[0] * cents.shape[1] * cents.shape[2]}): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in batch8[key].items()))
-    return err, times, bounds, batch8
+    return err, times, bounds, batch8, k2_shapes
 
 
 def volume_bf16_phase(device):
@@ -1427,7 +1466,7 @@ def main() -> int:
     log(f"build lookup_xtap: K1's products by instantiation: {check_k1_products(libs['lookup_xtap'])}")
 
     lookup_err, lookup_times, lookup_bounds, k4_launches = lookup_phase(device)
-    lowp_err, lowp_times, lowp_bounds, k1_batch8 = lowp_lookup_phase(device)
+    lowp_err, lowp_times, lowp_bounds, k1_batch8, k2_shapes = lowp_lookup_phase(device)
     k3_err, k3_times = volume_phase(device)
     k3b_err, k3b_times = volume_bf16_phase(device)
     t0 = time.perf_counter()
@@ -1496,10 +1535,10 @@ def main() -> int:
               lookup_err["k2"], k2, lookup_bounds["k2"]),
         entry("xtap (K2), bf16 levels, bf16 taps", lookup_src, k2_src, k2b_launches,
               "LazyCorrFeatures.materialize, raft_large 'throughput'", lowp_err["k2_bf16"], lowp_times["k2_bf16"],
-              lowp_bounds["k2_bf16"]),
+              lowp_bounds["k2_bf16"], **k2_shapes["k2_bf16"]),
         entry("xtap (K2), int8 levels, bf16 taps", lookup_src, k2_src, k2q_launches,
               "LazyCorrFeatures.materialize, raft_large 'edge'", lowp_err["k2_int8"], lowp_times["k2_int8"],
-              lowp_bounds["k2_int8"]),
+              lowp_bounds["k2_int8"], **k2_shapes["k2_int8"]),
         entry("corr_pyramid (K3: volume + pooled pyramid), fp32 levels", k3_lib,
               "raft_tpu/kernels/corr_pallas.py:64", k3_launches,
               f"validate, raft_small pallas, {REQUESTS} pairs 436x1024", k3_err,
@@ -1513,7 +1552,7 @@ def main() -> int:
               raft_large_bound_ms=k3b_large["bound"][0],
               golden_path="validate, golden fixture at pallas + bf16 corr (clean)",
               golden_launches=golden_launches["pallas + bf16 corr"]),
-        entry("lookup_dense (K4: separable lookup)", "raft_tpu_torch/kernels/csrc/lookup_dense.cu",
+        entry("xtap_lookup (K4: the lookup, K2's fp32 form at K4's radii)", lookup_src,
               "raft_tpu/kernels/lookup_pallas.py:50", k4_launches, "lookup_pyramid_pallas (own entry point)",
               lookup_err["k4"], k4, lookup_bounds["k4"]),
         entry("instance_norm (K5: stats + normalize)", "raft_tpu_torch/kernels/inorm_pallas.py",

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "find_nvcc", "build_all", "load", "build_log
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("corr_pyramid", "lookup_dense", "lookup_xtap")
+SOURCES = ("corr_pyramid", "lookup_xtap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,7 +4,11 @@
 // Replaces the Pallas TPU kernels of raft_tpu/kernels/lookup_xtap.py:
 //   xtap_project_kernel <- _xtap_project_kernel (K1, line 412): lookup +
 //       relu(taps @ W^T + b), one launch per refinement step;
-//   xtap_lookup_kernel  <- _xtap_kernel (K2, line 385): the taps alone.
+//   xtap_lookup_kernel  <- _xtap_kernel (K2, line 385): the taps alone;
+// and, by the same xtap_lookup_kernel on fp32 levels behind a launcher of
+// its own (lookup_dense_launch), that of raft_tpu/kernels/lookup_pallas.py:
+//   _kernel (K4, line 50), the separable lookup of lookup_pyramid_pallas,
+//       the same taps as K2's fp32 form at K4's wider radii.
 //
 // What it computes, for query q (Q = B*h*w), level l, x-offset i and
 // y-offset j (S = 2r+1):
@@ -23,8 +27,10 @@
 //       centroids (0.4 MB) and the 7.2 MB output: 19 MB, 5.6 us at
 //       3.35 TB/s. So operations bound it, at ~7.5 us; on the fp32 FMA
 //       units the product alone would take 17.9 us.
-//   K2: the same 11 MB of windows plus a 9 MB tap output, 6 us: bytes bound
-//       it; the interpolation arithmetic is negligible.
+//   K2 (and K4): the same 11 MB of windows plus a 9 MB tap output, 6 us:
+//       bytes bound it; the interpolation arithmetic is negligible. Its
+//       windows' rows are 40-byte runs (fp32) scattered over the levels,
+//       two or three 32-byte sectors each.
 //
 // K1's design (xtap_project_kernel), against the faults of the fp32-FMA
 // form it replaces (a thread per output channel paced by shared-memory
@@ -75,17 +81,46 @@
 //     the JAX kernel keep it; far-off centroids are clamped just outside
 //     the level, as K2 clamps them.
 //
-// K2's design (xtap_lookup_kernel; off the model path, unchanged):
-//   * one block of 256 threads per tile of 32 queries;
-//   * each warp takes (query, level) pairs and its lanes the S*S taps, x
-//     offset fastest so neighbouring lanes read neighbouring addresses;
-//     every tap is a 4-corner gather straight from the level, no TPU-style
-//     packing, padding or row permutation, so any level size works;
-//   * the tile's taps live in shared memory (32 x 324 fp32 = 41 KB, rows
-//     padded to a multiple of 4 floats) and are copied out coalesced as
-//     (Q, L*S*S).
-// Ragged tiles (Q not a multiple of 32) are masked; batch > 1 is handled
-// by computing (b, p) from q.
+// K2's design (xtap_lookup_kernel, also K4's), against the faults of the
+// form it replaces (tools/k2_pr6_lookup_xtap.cu: 32-query tiles, 1.7 blocks
+// an SM at Sintel, each tap four scalar loads straight from the level, 3.2x
+// the loads the windows need, a floor and clamp a tap, the tile stored
+// element by element):
+//   * a block of 128 threads takes 8 consecutive queries, eight blocks an
+//     SM (21 KB of shared memory at raft_large bf16 / int8; 4 queries and
+//     18 KB at fp32, whose window rows take 80 bytes): 880-1760 blocks at
+//     raft_large Sintel, all resident at once. The kernel is instantiated
+//     for S = 7 and 9 (and any S), so its index arithmetic folds to
+//     constants and shifts (queries a block are a power of two): at these
+//     shapes the block's own arithmetic, not the memory, set the pace of the
+//     first designs (tools/k2_ablation.py). taps_plan (mirrored by
+//     _taps_plan in kernels/lookup_xtap.py) takes fewer queries, or the
+//     levels in passes, where a shape needs more shared memory; every shape
+//     the entry points take fits one query and one level a pass.
+//   * each (query, level)'s window of (S+1)^2 cells is copied once into
+//     shared memory at storage width, every copy of the block in flight at
+//     once, one cp.async group a level: 16-byte cp.async.cg chunks aligned
+//     down from each row's first cell (K1's chunked copy,
+//     gather_windows_lowp, at 16 bytes: per-row phase, the cells before
+//     x = 0 masked, no read past the tensor), rows an odd number of chunks
+//     apart; a level that does not start 16-byte aligned cell by cell (fp32
+//     by 4-byte cp.async, bf16 / int8 through registers), so any address is
+//     taken.
+//   * taps by a row walk, in rounds as the levels land: a lane a tap row of
+//     a window, walking its columns over window rows j and j+1, so each
+//     row's fraction and y-weights are worked out once and each y-dot row
+//     value once a column, without shuffles; the taps go to a tile laid out
+//     as the output, at output width (fp32, or bf16 rounded once). Each tap
+//     is the earlier form's bit for bit: its fractions are the tap's own
+//     ((cx + i - r) - its floor, not the window's), the flat form is
+//     flat_tap (form_tap's expression with the contraction nvcc gave it),
+//     the y-dot forms form_tap's roundings (tools/k2_ablation.py checks all
+//     three storages).
+//   * a block's queries are one contiguous span of the output: stored by
+//     16-byte vectors, the head and tail up to the 16-byte boundaries
+//     element by element, the tile placed alike mod 16 with its span.
+// NaN centroids give NaN taps (the table's centre is NaN, so is every
+// fraction); far-off centroids are clamped just outside the level.
 //
 // Reduced-precision forms (the has_scales / weight_dtype / mxu_dtype paths
 // of raft_tpu/kernels/lookup_xtap.py, l.263-283, 380-381, 438-447), both
@@ -165,6 +200,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -174,11 +210,7 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // bytes one block may use on sm_90
-
-// K2: queries per block
-constexpr int kTile = 32;
 
 // K1: block tile BM queries x BN channels of warp tiles WM x WN, weight
 // slices of KC columns in a ring of kStages
@@ -207,6 +239,23 @@ constexpr int kStageWordsB = kBN * kLdwB;
 constexpr size_t kTwoBlockSmem = 115712;  // bytes a block may use for two an SM: (228 KB - 2 x 1 KB) / 2
 static_assert(kBM % kWM == 0 && kWM % 16 == 0 && kWN % 8 == 0 && kKC % 8 == 0 && kKCB % 16 == 0,
               "m16n8k8 / m16n8k16 fragments");
+
+// K2 and K4: a block of kTapsThreads threads takes kTapsQueries queries
+// where eight blocks an SM hold them (kTapsSmemShare bytes each: 228 KB / 8
+// less 1 KB reserved), fewer where the shape needs more shared memory
+constexpr int kTapsThreads = 128;
+constexpr int kTapsWarps = kTapsThreads / 32;
+constexpr int kTapsQueries = 8;  // a power of two, as every plan's
+constexpr int kTapsBlocksPerSm = 8;
+// bytes a K2 window chunk copies: a window row of a level that starts
+// kTapsChunk-aligned goes to shared memory in chunks aligned down from its
+// first cell (cp.async.cg); other levels' rows cell by cell
+constexpr int kTapsChunk = 16;
+constexpr size_t kTapsSmemShare = 233472 / kTapsBlocksPerSm - 1024;
+// the shapes each entry point takes, those its earlier form took: K2 at
+// most kK2MaxTaps taps a query (L S^2), K4 S (S + 2) at most kK4MaxSpan
+constexpr int kK2MaxTaps = 1816;
+constexpr int kK4MaxSpan = 7264;
 
 // level storage (Pyramid::elem) and how a level's taps are formed (kind)
 enum : int { kElemF32 = 0, kElemBf16 = 1, kElemInt8 = 2 };
@@ -239,20 +288,6 @@ struct ProjectArgs {
 };
 
 // ---- shared: values, taps ----------------------------------------------
-
-// One stored value widened to fp32, exactly.
-template <typename T>
-__device__ __forceinline__ float load_val(const T* p);
-template <>
-__device__ __forceinline__ float load_val<float>(const float* p) { return __ldg(p); }
-template <>
-__device__ __forceinline__ float load_val<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __uint_as_float(uint32_t(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
-}
-template <>
-__device__ __forceinline__ float load_val<int8_t>(const int8_t* p) {
-  return float(__ldg(reinterpret_cast<const signed char*>(p)));
-}
 
 __device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -300,93 +335,6 @@ __device__ __forceinline__ float form_tap(int kind, float v00, float v01, float 
   return __fadd_rn(__fmul_rn(ra, 1.f - fx), __fmul_rn(rb, fx));
 }
 
-// ---- K2: 4-corner gather ------------------------------------------------
-
-// Tap of the (h, w) grid at (x, y) with zero padding, formed by kind.
-template <typename T>
-__device__ __forceinline__ float sample_zero_pad(const T* __restrict__ vol, int h, int w, float x, float y,
-                                                 int kind, float mul) {
-  if (isnan(x) || isnan(y)) return nanf("");
-  // Beyond one cell outside the grid every corner is out of range; the
-  // clamp keeps the float -> int conversion defined for far-off centroids
-  // and changes no result.
-  x = fminf(fmaxf(x, -2.f), float(w) + 1.f);
-  y = fminf(fmaxf(y, -2.f), float(h) + 1.f);
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float fx = x - x0f;
-  const float fy = y - y0f;
-  const int x0 = int(x0f);
-  const int y0 = int(y0f);
-  const bool xa = x0 >= 0 && x0 < w;
-  const bool xb = x0 + 1 >= 0 && x0 + 1 < w;
-  const bool ya = y0 >= 0 && y0 < h;
-  const bool yb = y0 + 1 >= 0 && y0 + 1 < h;
-  const float v00 = (ya && xa) ? load_val(vol + y0 * w + x0) : 0.f;
-  const float v01 = (ya && xb) ? load_val(vol + y0 * w + x0 + 1) : 0.f;
-  const float v10 = (yb && xa) ? load_val(vol + (y0 + 1) * w + x0) : 0.f;
-  const float v11 = (yb && xb) ? load_val(vol + (y0 + 1) * w + x0 + 1) : 0.f;
-  return form_tap(kind, v00, v01, v10, v11, fx, fy, y, y0, mul);
-}
-
-// Fill taps[t * row + c] (c = l*S*S + i*S + j) for the nq queries of the
-// tile starting at q0; padding columns and rows past nq are zero.
-template <typename T>
-__device__ void gather_taps(const Pyramid& pyr, const float* __restrict__ cents, int64_t q0, int nq,
-                            int radius, int row, float* taps) {
-  const int s = 2 * radius + 1;
-  const int ss = s * s;
-  const int c_in = pyr.num_levels * ss;
-  for (int idx = threadIdx.x; idx < kTile * row; idx += blockDim.x) {
-    const int t = idx / row;
-    if (t >= nq || idx - t * row >= c_in) taps[idx] = 0.f;
-  }
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int pair = warp; pair < nq * pyr.num_levels; pair += nwarps) {
-    const int t = pair / pyr.num_levels;
-    const int l = pair - t * pyr.num_levels;
-    const int64_t q = q0 + t;
-    const float inv = 1.f / float(1 << l);  // exact: a power of two
-    const float cx = cents[2 * q] * inv;
-    const float cy = cents[2 * q + 1] * inv;
-    const int hl = pyr.h[l];
-    const int wl = pyr.w[l];
-    const T* vol = static_cast<const T*>(pyr.level[l]) + q * int64_t(hl) * wl;
-    const int kind = pyr.kind[l];
-    const float mul = level_mul(pyr, l);
-    float* dst = taps + t * row + l * ss;
-    for (int ij = lane; ij < ss; ij += 32) {
-      const int j = ij / s;
-      const int i = ij - j * s;
-      dst[i * s + j] =
-          sample_zero_pad(vol, hl, wl, cx + float(i - radius), cy + float(j - radius), kind, mul);
-    }
-  }
-}
-
-// OutT: fp32 taps for fp32 levels, bf16 for bf16 and int8 levels.
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-xtap_lookup_kernel(Pyramid pyr, const float* __restrict__ cents, OutT* __restrict__ out, int64_t q,
-                   int radius, int row) {
-  extern __shared__ float4 smem[];
-  float* taps = reinterpret_cast<float*>(smem);
-  const int64_t q0 = int64_t(blockIdx.x) * kTile;
-  const int nq = int(q - q0 < kTile ? q - q0 : kTile);
-  gather_taps<T>(pyr, cents, q0, nq, radius, row, taps);
-  __syncthreads();
-
-  const int s = 2 * radius + 1;
-  const int c_in = pyr.num_levels * s * s;
-  OutT* dst = out + q0 * c_in;
-  for (int idx = threadIdx.x; idx < nq * c_in; idx += blockDim.x) {
-    const int t = idx / c_in;
-    store_val(dst + idx, taps[t * row + (idx - t * c_in)]);
-  }
-}
-
 // ---- K1: window gather, 3xTF32 product, NCHW epilogue -------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -408,6 +356,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 // is zero-filled, and src_bytes 0 reads nothing.
 __device__ __forceinline__ void cp_async4n(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+// 16-byte cp.async (L2 only) of the first src_bytes (0-16) of an aligned
+// chunk; the rest is zero-filled, and src_bytes 0 reads nothing.
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(src_bytes));
 }
 
@@ -567,7 +522,7 @@ __device__ __forceinline__ void gather_windows(const Pyramid& pyr, const float* 
     cp_async_wait<0>();
     __syncthreads();
     // tap (i, j) is formed from window cells (x = i, i+1; y = j, j+1) by
-    // the level's kind (form_tap; the flat form in sample_zero_pad's order)
+    // the level's kind (form_tap; the flat form in form_tap's order)
     for (int pair = warp; pair < kBM * nl; pair += kProjWarps) {
       const int t = pair / nl;
       const int l = l0 + pair - t * nl;
@@ -1050,6 +1005,375 @@ xtap_project_kernel(Pyramid pyr, const float* __restrict__ cents, const void* __
   }
 }
 
+// ---- K2 and K4: the taps alone -------------------------------------------
+
+// A window cell of an fp32 level in shared memory.
+template <>
+__device__ __forceinline__ float smem_val<float>(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+
+// Bytes from one window row to the next: the chunks that cover S+1 cells
+// from any phase (taps_row_chunks), at most kTapsChunk - ke + (S+1) ke
+// bytes, the rows an odd number of 16-byte chunks apart, so the walk's
+// lanes (a row each) spread over the banks.
+__host__ __device__ constexpr int taps_row_chunks(int s1, int ke) {
+  return (kTapsChunk - ke + s1 * ke + kTapsChunk - 1) / kTapsChunk;
+}
+
+__host__ __device__ constexpr int taps_row_bytes(int s1, int ke) {
+  return kTapsChunk * (taps_row_chunks(s1, ke) | 1);
+}
+
+// K2's and K4's block plan (taps_plan), worked out once on the host. Shared
+// memory: the table of windows (nq x L entries), then the windows of one
+// pass ((level, query)-major, S+1 rows of rb bytes each), then the tap
+// tile, 16-byte aligned.
+struct TapsArgs {
+  int64_t q;
+  int radius;
+  int nq;               // queries a block, a power of two
+  int nq_log2;
+  int levels_per_pass;  // levels whose windows and taps one pass holds
+  int pitch;            // bytes from one query's taps to the next in the tile, = C * out bytes (mod 16)
+  int win_off;          // byte offset of the windows
+  int tile_off;         // byte offset of the tap tile
+};
+
+// Each (query, level)'s window, one thread each: at[(l << nq_log2) + t]
+// holds its first cell (xs, ys) as int bits and the clamped centre (x, y),
+// both NaN for a NaN centroid. As window_table, but the centre rather than the
+// fraction: K2 forms each tap's fractions from its own position, as
+// sample_zero_pad did.
+__device__ __forceinline__ void taps_table(const Pyramid& pyr, const float* __restrict__ cents, int64_t q0, int nq,
+                                           int nq_log2, int radius, float4* at) {
+  for (int e = threadIdx.x; e < (pyr.num_levels << nq_log2); e += kTapsThreads) {
+    const int l = e >> nq_log2;
+    const int t = e & ((1 << nq_log2) - 1);
+    if (t >= nq) continue;
+    const float inv = 1.f / float(1 << l);  // exact: a power of two
+    float x = __ldg(cents + 2 * (q0 + t)) * inv;
+    float y = __ldg(cents + 2 * (q0 + t) + 1) * inv;
+    const bool nan_in = isnan(x) || isnan(y);
+    // beyond r + 1 cells outside the level every window cell is out of
+    // range: the clamp keeps the float -> int conversion defined
+    x = fminf(fmaxf(x, -float(radius + 2)), float(pyr.w[l] + radius + 1));
+    y = fminf(fmaxf(y, -float(radius + 2)), float(pyr.h[l] + radius + 1));
+    const int xs = int(floorf(x)) - radius;
+    const int ys = int(floorf(y)) - radius;
+    at[e] = make_float4(__int_as_float(xs), __int_as_float(ys), nan_in ? nanf("") : x, nan_in ? nanf("") : y);
+  }
+}
+
+// The lanes' share of one window's copies: cells lpr lanes a row and rps
+// rows a step; chunks from (rr0, k0) in steps of 32 chunks.
+struct CopyLanes {
+  int lpr, rps, ry, rx;
+  int rr0, k0, drr, dk;
+};
+
+// Window (xs, ys) of query qg at level l into dst (rows rb bytes apart),
+// zero outside the level, by one warp, at storage width. A level that
+// starts kTapsChunk-aligned (packed): K1's chunked copy
+// (gather_windows_lowp) at kTapsChunk = 16 bytes by cp.async.cg:
+// row_chunks chunks a row,
+// aligned down from its first cell, each row at its own phase; wholly
+// out-of-range chunks zero-filled, the last one cut at the row's last
+// in-range cell, so no copy reads past the tensor; the cells before x = 0
+// of a chunk that straddles the row's start are another row's bytes,
+// masked where the taps read them. Otherwise cell by cell at phase 0: fp32
+// by 4-byte cp.async, bf16 / int8 through registers.
+template <typename T>
+__device__ __forceinline__ void copy_window(unsigned char* dst, const Pyramid& pyr, int l, int64_t qg, int xs,
+                                            int ys, int s1, int rb, int row_chunks, bool packed,
+                                            const CopyLanes& cl) {
+  constexpr int kE = sizeof(T);
+  const int hl = pyr.h[l];
+  const int wl = pyr.w[l];
+  if (!packed) {
+    if (cl.ry >= cl.rps) return;
+    using Raw = typename std::conditional<kE == 4, float, typename std::conditional<kE == 2, unsigned short,
+                                                                                    unsigned char>::type>::type;
+    const Raw* vol = static_cast<const Raw*>(pyr.level[l]) + qg * int64_t(hl) * wl;
+    for (int yy = cl.ry; yy < s1; yy += cl.rps) {
+      const int y = ys + yy;
+      const bool row_ok = y >= 0 && y < hl;
+      for (int xx = cl.rx; xx < s1; xx += cl.lpr) {
+        const int x = xs + xx;
+        const bool ok = row_ok && x >= 0 && x < wl;
+        if constexpr (kE == 4) {
+          copy_cell(reinterpret_cast<float*>(dst + yy * rb) + xx, vol, int64_t(y) * wl + x, ok);
+        } else {
+          *reinterpret_cast<Raw*>(dst + yy * rb + xx * kE) = ok ? __ldg(vol + int64_t(y) * wl + x) : Raw(0);
+        }
+      }
+    }
+    return;
+  }
+  // byte offsets from the chunk-aligned address vbase: a row's first
+  // window cell and its in-range cells [xa, xb]
+  constexpr int kC = kTapsChunk;
+  static_assert(kC == 16, "cp_async16n copies the chunks");
+  const int s = s1 - 1;
+  const uintptr_t vol = reinterpret_cast<uintptr_t>(pyr.level[l]) + uintptr_t(qg * int64_t(hl) * wl * kE);
+  const int vlo = int(vol & (kC - 1));
+  const unsigned char* vbase = reinterpret_cast<const unsigned char*>(vol - vlo);
+  const int xa = max(xs, 0);
+  const int xb = min(xs + s, wl - 1);
+  int rr = cl.rr0;
+  int k = cl.k0;
+  for (int idx = threadIdx.x & 31; idx < s1 * row_chunks; idx += 32) {
+    const int y = ys + rr;
+    const int row = vlo + y * wl * kE;
+    const int c = ((row + xs * kE) & ~(kC - 1)) + kC * k;
+    const int b1 = row + (xb + 1) * kE;
+    const bool in = xa <= xb && y >= 0 && y < hl && c + kC > row + xa * kE && c < b1;
+    cp_async16n(dst + rr * rb + kC * k, in ? vbase + c : vbase, in ? min(kC, b1 - c) : 0);
+    rr += cl.drr;
+    k += cl.dk;
+    if (k >= row_chunks) {
+      k -= row_chunks;
+      ++rr;
+    }
+  }
+}
+
+// Tap row j's fraction fy (flat: a) or its two y-weights (y-dot: a, b), as
+// form_tap works them out from the row's centre p = cy + j - r and first
+// window row y0 = ys + j.
+__device__ __forceinline__ void tap_row(int kind, float cy, int ys, int j, int radius, float& a, float& b) {
+  const float p = __fadd_rn(cy, float(j - radius));
+  const int y0 = ys + j;
+  if (kind == kFlat) {
+    a = __fsub_rn(p, float(y0));
+    return;
+  }
+  const float w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(p, float(y0)))));
+  const float w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(p, float(y0 + 1)))));
+  a = kind == kYdotBf16 ? bf16_round(w0) : rintf(__fmul_rn(w0, 127.f));
+  b = kind == kYdotBf16 ? bf16_round(w1) : rintf(__fmul_rn(w1, 127.f));
+}
+
+// form_tap's flat tap with the contraction nvcc gave its expression in the
+// earlier K2 (tools/k2_pr6_lookup_xtap.cu), written out so that the taps
+// keep those bits wherever the compiler schedules them: each row's
+// x-combine fma(1 - fx, v0, fx * v1), then fma(1 - fy, top, fy * bottom).
+__device__ __forceinline__ float flat_tap(float v00, float v01, float v10, float v11, float fx, float fy,
+                                          float mul) {
+  const float gx = 1.f - fx;
+  const float top = __fmaf_rn(gx, v00, __fmul_rn(fx, v01));
+  const float bottom = __fmaf_rn(gx, v10, __fmul_rn(fx, v11));
+  const float t = __fmaf_rn(1.f - fy, top, __fmul_rn(fy, bottom));
+  return mul == 1.f ? t : __fmul_rn(t, mul);
+}
+
+// One tap row of K2's row walk: the lane holds tap row j of a window and
+// walks its columns, reading window rows j and j+1 (rows rb bytes apart,
+// row y's first cell (ph + y * wle) & (kTapsChunk - 1) bytes into it), and
+// writes taps (0 .. S-1, j) to dst[x * S + j]. Every tap is
+// sample_zero_pad's: x-fractions the tap's own ((cx + x - r) - its floor),
+// the row's fy and y-weights worked out once (tap_row), the flat form
+// flat_tap, the y-dot forms form_tap's roundings, each row pair's
+// y-contraction once a column; so the taps are the 4-corner form's bit for
+// bit (the window's cells are the corners it loaded). Columns before x0
+// hold another row's bytes (a chunked row that starts before x = 0) and
+// read as zero. kS: S known at compile time (the loop unrolls), or 0 and
+// S = s_rt.
+template <int kS, typename T, typename OutT>
+__device__ __forceinline__ void walk_row(const unsigned char* w, int rb, uint32_t ph, uint32_t wle, int x0, int xs,
+                                         int ys, float cx, float cy, int kind, float mul, int radius, int j,
+                                         OutT* dst, int s_rt = 0) {
+  constexpr int kE = sizeof(T);
+  constexpr bool kWide = std::is_same<T, float>::value;  // fp32 levels: every level flat
+  const int s = kS > 0 ? kS : s_rt;
+  const int r = kS > 0 ? (kS - 1) / 2 : radius;
+  constexpr uint32_t kPh = kTapsChunk - 1;
+  const unsigned char* row0 = w + j * rb + ((ph + uint32_t(ys + j) * wle) & kPh);
+  const unsigned char* row1 = w + (j + 1) * rb + ((ph + uint32_t(ys + j + 1) * wle) & kPh);
+  float a = 0.f;
+  float b = 0.f;
+  tap_row(kind, cy, ys, j, r, a, b);
+  const float xsf = float(xs);
+  auto cell = [&](const unsigned char* row, int x) {
+    return x >= x0 ? smem_val<T>(row + x * kE) : 0.f;
+  };
+  // the row pair's y-contraction at a column (y-dot forms)
+  auto contract = [&](float v0, float v1) {
+    if (kind == kYdotBf16) return bf16_round(__fadd_rn(__fmul_rn(a, v0), __fmul_rn(b, v1)));
+    return __fmul_rn(__fadd_rn(__fmul_rn(a, v0), __fmul_rn(b, v1)), mul);
+  };
+  float v0 = cell(row0, 0);
+  float v1 = cell(row1, 0);
+  float left = kWide || kind == kFlat ? 0.f : contract(v0, v1);
+  auto column = [&](int x) {
+    const float u0 = cell(row0, x + 1);
+    const float u1 = cell(row1, x + 1);
+    const float fx = __fsub_rn(__fadd_rn(cx, float(x - r)), __fadd_rn(xsf, float(x)));
+    float tap;
+    if (kWide || kind == kFlat) {
+      tap = flat_tap(v0, u0, v1, u1, fx, a, mul);
+    } else {
+      const float right = contract(u0, u1);
+      tap = __fadd_rn(__fmul_rn(left, 1.f - fx), __fmul_rn(right, fx));
+      left = right;
+    }
+    store_val(dst + x * s + j, tap);
+    v0 = u0;
+    v1 = u1;
+  };
+  if constexpr (kS > 0) {
+#pragma unroll
+    for (int x = 0; x < kS; ++x) column(x);
+  } else {
+    for (int x = 0; x < s; ++x) column(x);
+  }
+}
+
+// n elements from shared memory (src) to device memory (dst), the two
+// alike mod 16 bytes: the head up to dst's first 16-byte boundary and the
+// tail element by element, the body by 16-byte vectors; the block's threads
+// take the head's elements, the vectors and the tail's elements in turn
+// (TestK2Tile in tests/test_torch_kernels.py emulates the split).
+template <typename OutT>
+__device__ __forceinline__ void store_span(OutT* dst, const unsigned char* src, int n) {
+  constexpr int kV = 16 / int(sizeof(OutT));
+  const int head = min(n, int((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / int(sizeof(OutT)));
+  const int nv = (n - head) / kV;
+  const int items = n - nv * (kV - 1);  // head + nv vectors + tail
+  for (int k = threadIdx.x; k < items; k += kTapsThreads) {
+    if (k >= head && k < head + nv) {
+      const int e = head + (k - head) * kV;
+      *reinterpret_cast<uint4*>(dst + e) = *reinterpret_cast<const uint4*>(src + e * sizeof(OutT));
+    } else {
+      const int e = k < head ? k : k + nv * (kV - 1);
+      dst[e] = *reinterpret_cast<const OutT*>(src + e * sizeof(OutT));
+    }
+  }
+}
+
+// K2 (T: the levels' storage, OutT: fp32 taps for fp32 levels, bf16 for
+// bf16 and int8) and K4 (<float, float>): out (Q, L*S*S). A block takes
+// g.nq consecutive queries, one contiguous span of out. kS: S known at
+// compile time (7, 9: the index arithmetic folds, the loops unroll), or 0
+// and S = 2 g.radius + 1.
+template <typename T, typename OutT, int kS>
+__global__ void __launch_bounds__(kTapsThreads, kTapsBlocksPerSm)
+xtap_lookup_kernel(Pyramid pyr, const float* __restrict__ cents, OutT* __restrict__ out, TapsArgs g) {
+  constexpr int kE = sizeof(T);
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  float4* at = smem4;
+  unsigned char* win = base + g.win_off;
+  unsigned char* tile = base + g.tile_off;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_levels = pyr.num_levels;
+  const int radius = kS > 0 ? (kS - 1) / 2 : g.radius;
+  const int s = 2 * radius + 1;
+  const int s1 = s + 1;
+  const int ss = s * s;
+  const int c_all = n_levels * ss;
+  const int rb = taps_row_bytes(s1, kE);
+  const int row_chunks = taps_row_chunks(s1, kE);
+  const int wbytes = s1 * rb;
+  const int64_t q0 = int64_t(blockIdx.x) * g.nq;
+  const int nq = int(g.q - q0 < g.nq ? g.q - q0 : g.nq);
+  taps_table(pyr, cents, q0, nq, g.nq_log2, radius, at);
+  __syncthreads();
+
+  CopyLanes cl;
+  cl.lpr = min(s1, 32);
+  cl.rps = 32 / cl.lpr;
+  cl.ry = lane / cl.lpr;
+  cl.rx = lane - cl.ry * cl.lpr;
+  cl.rr0 = lane / row_chunks;
+  cl.k0 = lane - cl.rr0 * row_chunks;
+  cl.drr = 32 / row_chunks;
+  cl.dk = 32 - cl.drr * row_chunks;
+  // the walk: segments of seg lanes, a lane a tap row of a window (chunks
+  // of 32 rows where a window has more); items (level, query, chunk),
+  // level-major, g.nq (a power of two) queries a level
+  const int seg = min(s, 32);
+  const int chunks = (s + seg - 1) / seg;
+  const int nseg = 32 / seg;
+  const int sg = lane / seg;
+  const int jl = lane - sg * seg;
+  const int per_round = kTapsWarps * nseg;
+  const int per_level = g.nq * chunks;
+
+  for (int l0 = 0; l0 < n_levels; l0 += g.levels_per_pass) {
+    const int nl = min(g.levels_per_pass, n_levels - l0);
+    if (l0 > 0) __syncthreads();  // the last pass's windows and tile are read
+    for (int li = 0; li < nl; ++li) {
+      const int l = l0 + li;
+      const bool packed = (reinterpret_cast<uintptr_t>(pyr.level[l]) & (kTapsChunk - 1)) == 0;
+      for (int t = warp; t < nq; t += kTapsWarps) {
+        const float4 wd = at[(l << g.nq_log2) + t];
+        copy_window<T>(win + ((li << g.nq_log2) + t) * wbytes, pyr, l, q0 + t, __float_as_int(wd.x),
+                       __float_as_int(wd.y), s1, rb, row_chunks, packed, cl);
+      }
+      cp_async_commit();  // one group a level
+    }
+    // the pass's taps, tile row t at tile + ph0 + t * pitch: alike mod 16
+    // bytes with their place in out
+    OutT* span = out + (q0 * c_all + l0 * ss);
+    unsigned char* rows = tile + (reinterpret_cast<uintptr_t>(span) & 15);
+    const int items = nl * per_level;
+    int landed = -1;
+    for (int r0 = 0; r0 < items; r0 += per_round) {
+      const int last_level = chunks == 1 ? (min(r0 + per_round, items) - 1) >> g.nq_log2
+                                         : (min(r0 + per_round, items) - 1) / per_level;
+      if (last_level > landed) {
+        cp_async_wait_n(nl - 1 - last_level);
+        __syncthreads();
+        landed = last_level;
+      }
+      const int idx = r0 + warp * nseg + sg;
+      int li, t, j;
+      if (chunks == 1) {
+        li = idx >> g.nq_log2;
+        t = idx & (g.nq - 1);
+        j = jl;
+      } else {
+        li = idx / per_level;
+        const int rest = idx - li * per_level;
+        t = rest / chunks;
+        j = (rest - t * chunks) * seg + jl;
+      }
+      if (sg >= nseg || idx >= items || t >= nq || j >= s) continue;  // no shuffles below: lanes drop out
+      const int l = l0 + li;
+      const float4 wd = at[(l << g.nq_log2) + t];
+      const int xs = __float_as_int(wd.x);
+      const int ys = __float_as_int(wd.y);
+      const int kind = pyr.kind[l];
+      const float mul = level_mul(pyr, l);
+      // where row y's first window cell lies in its row of the window:
+      // (ph + y * wle) & (kTapsChunk - 1) bytes on. A chunked row starts at
+      // the chunk boundary before its first cell, and its cells before
+      // x = 0 are another row's (masked before column x0); cells copied one
+      // by one lie at phase 0
+      uint32_t ph = 0;
+      uint32_t wle = 0;
+      int x0 = INT_MIN;
+      if ((reinterpret_cast<uintptr_t>(pyr.level[l]) & (kTapsChunk - 1)) == 0) {
+        wle = uint32_t(pyr.w[l] * kE);
+        ph = uint32_t(reinterpret_cast<uintptr_t>(pyr.level[l])) +
+             uint32_t((q0 + t) * int64_t(pyr.h[l]) * pyr.w[l] * kE) + uint32_t(xs * kE);
+        x0 = -xs;
+      }
+      const unsigned char* w = win + ((li << g.nq_log2) + t) * wbytes;
+      OutT* dst = reinterpret_cast<OutT*>(rows + t * g.pitch) + li * ss;
+      walk_row<kS, T>(w, rb, ph, wle, x0, xs, ys, wd.z, wd.w, kind, mul, radius, j, dst, s);
+    }
+    __syncthreads();  // the pass's taps are in the tile
+    if (nl == n_levels) {
+      store_span(span, rows, nq * c_all);  // the block's queries: one span
+    } else {
+      for (int t = 0; t < nq; ++t) store_span(span + t * c_all, rows + t * g.pitch, nl * ss);
+    }
+  }
+}
+
 // ---- host side ----------------------------------------------------------
 
 // Fills the pyramid descriptor; false when the arguments are invalid: a
@@ -1164,17 +1488,74 @@ int project_launch(const Pyramid& pyr, const float* cents, const void* weight, c
   return int(cudaGetLastError());
 }
 
-template <typename T, typename OutT>
-int lookup_launch(const Pyramid& pyr, const float* cents, void* out, int64_t q, int radius, int row,
-                  size_t smem, cudaStream_t stream) {
-  auto kernel = xtap_lookup_kernel<T, OutT>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
+// K2's and K4's plan: the queries a block (kTapsQueries where eight blocks
+// an SM fit, else fewer), the levels a pass (all where shared memory
+// allows) and the shared-memory layout; fills g and returns the bytes a
+// block needs, or 0 for a shape the entry point does not take (K2 over
+// kK2MaxTaps taps a query, K4 S (S + 2) over kK4MaxSpan), each of which
+// fits one query and one level a pass. Mirrored by _taps_plan in
+// kernels/lookup_xtap.py.
+size_t taps_plan(TapsArgs* g, int num_levels, int elem, bool k4) {
+  const int s = 2 * g->radius + 1;
+  const int s1 = s + 1;
+  const int ss = s * s;
+  const int c = num_levels * ss;
+  if (k4 ? s * (s + 2) > kK4MaxSpan : c > kK2MaxTaps) return 0;
+  const int ke = elem == kElemF32 ? 4 : (elem == kElemBf16 ? 2 : 1);
+  const int es = elem == kElemF32 ? 4 : 2;  // the taps: fp32, or bf16
+  const int rb = taps_row_bytes(s1, ke);
+  for (const size_t budget : {kTapsSmemShare, kMaxSmem}) {
+    for (int nl = num_levels; nl >= 1; --nl) {
+      for (int nq = kTapsQueries; nq >= 1; nq /= 2) {
+        const size_t win_off = sizeof(float4) * nq * num_levels;
+        const size_t tile_off = (win_off + size_t(nl) * nq * s1 * rb + 15) & ~size_t(15);
+        const int pitch = nl * ss * es + ((c - nl * ss) * es) % 16;  // = c * es (mod 16)
+        const size_t total = tile_off + size_t(nq) * pitch + 16;    // + the span's phase
+        if (total <= budget) {
+          g->nq = nq;
+          g->nq_log2 = __builtin_ctz(unsigned(nq));
+          g->levels_per_pass = nl;
+          g->pitch = pitch;
+          g->win_off = int(win_off);
+          g->tile_off = int(tile_off);
+          return total;
+        }
+      }
+    }
   }
-  const unsigned grid = unsigned((q + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(pyr, cents, static_cast<OutT*>(out), q, radius, row);
+  return 0;
+}
+
+template <typename T, typename OutT>
+int taps_launch(const Pyramid& pyr, const float* cents, void* out, const TapsArgs& g, size_t smem,
+                cudaStream_t stream) {
+  const int s = 2 * g.radius + 1;
+  auto kernel = s == 9 ? xtap_lookup_kernel<T, OutT, 9> : s == 7 ? xtap_lookup_kernel<T, OutT, 7>
+                                                                 : xtap_lookup_kernel<T, OutT, 0>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             int(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return int(err);
+  const int64_t grid = (g.q + g.nq - 1) / g.nq;
+  if (grid > 0x7fffffff) return int(cudaErrorInvalidValue);
+  kernel<<<unsigned(grid), kTapsThreads, smem, stream>>>(pyr, cents, static_cast<OutT*>(out), g);
   return int(cudaGetLastError());
+}
+
+// K2 and K4 on a filled pyramid: the plan, then the launch.
+int taps_run(const Pyramid& pyr, const void* cents, void* out, int64_t q, int radius, bool k4, void* stream) {
+  TapsArgs g;
+  g.q = q;
+  g.radius = radius;
+  const size_t smem = taps_plan(&g, pyr.num_levels, pyr.elem, k4);
+  if (smem == 0) return int(cudaErrorInvalidValue);
+  if (q == 0) return int(cudaSuccess);
+  const float* c = static_cast<const float*>(cents);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pyr.elem == kElemF32) return taps_launch<float, float>(pyr, c, out, g, smem, st);
+  if (pyr.elem == kElemBf16) return taps_launch<__nv_bfloat16, __nv_bfloat16>(pyr, c, out, g, smem, st);
+  return taps_launch<int8_t, __nv_bfloat16>(pyr, c, out, g, smem, st);
 }
 
 }  // namespace
@@ -1230,23 +1611,27 @@ int xtap_project_launch(const void* const* levels, const int* heights, const int
 }
 
 // K2: out (Q, L*S*S) taps in the reference channel order; fp32 for fp32
-// levels, bf16 for bf16 and int8 levels (arguments as K1's).
+// levels, bf16 for bf16 and int8 levels, which may start at any address
+// (arguments as K1's).
 int xtap_lookup_launch(const void* const* levels, const int* heights, const int* widths, const int* kinds,
                        int num_levels, int elem, const void* scales, const void* cents, void* out, int64_t q,
                        int radius, void* stream) {
   Pyramid pyr;
   if (!fill_pyramid(levels, heights, widths, kinds, num_levels, elem, scales, radius, &pyr) || q < 0)
     return int(cudaErrorInvalidValue);
-  const int s = 2 * radius + 1;
-  const int row = (num_levels * s * s + 3) & ~3;  // tap rows padded to a multiple of 4 floats
-  const size_t smem = size_t(kTile) * size_t(row) * sizeof(float);
-  if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
-  if (q == 0) return int(cudaSuccess);
-  const float* c = static_cast<const float*>(cents);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (elem == kElemF32) return lookup_launch<float, float>(pyr, c, out, q, radius, row, smem, st);
-  if (elem == kElemBf16) return lookup_launch<__nv_bfloat16, __nv_bfloat16>(pyr, c, out, q, radius, row, smem, st);
-  return lookup_launch<int8_t, __nv_bfloat16>(pyr, c, out, q, radius, row, smem, st);
+  return taps_run(pyr, cents, out, q, radius, false, stream);
+}
+
+// K4: the same taps from fp32 levels, every level flat (K2's fp32 form), at
+// the radii K4 takes; levels[l] is (Q, heights[l], widths[l]) fp32, cents
+// (Q, 2) level-0 (x, y). Returns a cudaError_t.
+int lookup_dense_launch(const void* const* levels, const int* heights, const int* widths, int num_levels,
+                        const void* cents, void* out, int64_t q, int radius, void* stream) {
+  const int kinds[kMaxLevels] = {kFlat, kFlat, kFlat, kFlat, kFlat, kFlat, kFlat, kFlat};
+  Pyramid pyr;
+  if (!fill_pyramid(levels, heights, widths, kinds, num_levels, kElemF32, nullptr, radius, &pyr) || q < 0)
+    return int(cudaErrorInvalidValue);
+  return taps_run(pyr, cents, out, q, radius, true, stream);
 }
 
 }  // extern "C"

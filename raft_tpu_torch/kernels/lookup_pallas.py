@@ -1,12 +1,14 @@
-"""Multi-scale correlation lookup in separable form as a hand-written CUDA
-kernel for Hopper (K4), at the JAX package's ``lookup_pyramid_pallas``
-entry point.
+"""Multi-scale correlation lookup as a hand-written CUDA kernel for Hopper
+(K4), at the JAX package's ``lookup_pyramid_pallas`` entry point.
 
-:func:`lookup_pyramid_pallas` wraps ``csrc/lookup_dense.cu``; it computes
-the same taps as K2 (:func:`~raft_tpu_torch.kernels.lookup_xtap.lookup_pyramid_fused`),
-in the order of the plain version: a y-pass against the level, then an
-x-pass. No model path calls it: the JAX package keeps it as the readable
-statement of the fused lookup and the A/B baseline of its lookup bench.
+:func:`lookup_pyramid_pallas` computes the same taps as K2's fp32 form
+(:func:`~raft_tpu_torch.kernels.lookup_xtap.lookup_pyramid_fused`), and
+runs the same device code: ``csrc/lookup_xtap.cu``'s ``xtap_lookup_kernel``
+on fp32 levels, every level flat, behind its own launcher
+(``lookup_dense_launch``), at the radii K4 takes (``S*(S+2)`` up to
+``K4_MAX_SPAN``, beyond K2's limit of taps a query). No model path calls
+it: the JAX package keeps it as the readable statement of the fused lookup
+and the A/B baseline of its lookup bench.
 Its plain version is :func:`lookup_pyramid_reference` (``corr.lookup_pyramid``);
 the wrapper takes it only for tensors on the CPU, launches the kernel or
 raises for CUDA tensors, and counts its launches in
@@ -23,12 +25,10 @@ import torch
 
 from raft_tpu_torch.graphs import count_launch
 from raft_tpu_torch.kernels import build
-from raft_tpu_torch.kernels.lookup_xtap import _check_inputs, _check_no_grad
+from raft_tpu_torch.kernels.lookup_xtap import _check_inputs, _check_no_grad, _taps_smem_bytes
 from raft_tpu_torch.models.corr import lookup_pyramid
 
 __all__ = ["lookup_pyramid_pallas", "lookup_pyramid_reference"]
-
-WARPS_PER_BLOCK = 8  # one (query, level) pair per warp
 
 
 def lookup_pyramid_reference(
@@ -39,9 +39,9 @@ def lookup_pyramid_reference(
 
 
 def _smem_bytes(num_levels: int, radius: int) -> int:
-    """A warp-private S x (S+2) y-pass tile per warp."""
-    s = 2 * radius + 1
-    return WARPS_PER_BLOCK * s * (s + 2) * 4
+    """K4's dynamic shared memory per block: K2's plan on fp32 levels at
+    K4's limit (:func:`~raft_tpu_torch.kernels.lookup_xtap._taps_plan`)."""
+    return _taps_smem_bytes(num_levels, radius, 4, k4=True)
 
 
 def _pyramid_args(pyramid):
@@ -54,7 +54,7 @@ def _pyramid_args(pyramid):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load("lookup_dense")
+    lib = build.load("lookup_xtap")
     lib.lookup_dense_launch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,

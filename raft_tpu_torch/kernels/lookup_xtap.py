@@ -68,8 +68,8 @@ __all__ = [
 ]
 
 MAX_LEVELS = 8  # the kernel's pyramid descriptor holds at most this many levels
-QUERY_TILE = 32  # K2: queries per thread block
 MAX_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
+SM_SMEM_BYTES = 233472  # an SM's shared memory, 228 KB
 # K1's block tile (csrc/lookup_xtap.cu): queries x channels, weight slices
 # of PROJECT_KC columns in a ring of PROJECT_STAGES (3xTF32, rows of KC + 4
 # floats), or of PROJECT_KC_BF16 in PROJECT_STAGES_BF16 (bf16 product, rows
@@ -77,6 +77,14 @@ MAX_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
 PROJECT_BM, PROJECT_BN, PROJECT_KC, PROJECT_STAGES = 32, 256, 16, 3
 PROJECT_KC_BF16, PROJECT_STAGES_BF16 = 32, 4
 TWO_BLOCK_SMEM_BYTES = 115712  # two K1 blocks an SM: (228 KB - 2 x 1 KB reserved) / 2
+# K2 and K4 (taps_plan in csrc/lookup_xtap.cu): blocks of TAPS_THREADS take
+# TAPS_QUERIES queries where eight blocks an SM fit (TAPS_SMEM_SHARE bytes
+# each), fewer otherwise; K2 takes at most K2_MAX_TAPS taps a query (L*S*S),
+# K4 S*(S+2) up to K4_MAX_SPAN: the shapes their earlier forms took
+TAPS_THREADS, TAPS_QUERIES, TAPS_BLOCKS_PER_SM = 128, 8, 8
+TAPS_CHUNK = 16  # bytes a window chunk copies (rows aligned down to it)
+TAPS_SMEM_SHARE = SM_SMEM_BYTES // TAPS_BLOCKS_PER_SM - 1024
+K2_MAX_TAPS, K4_MAX_SPAN = 1816, 7264
 
 
 MAX_LANES = 128  # the JAX kernel's lane row: its level split counts rows of it
@@ -194,10 +202,48 @@ def lookup_project_reference(
     return torch.relu(y).to(torch.bfloat16).permute(0, 3, 1, 2)
 
 
-def _tile_smem_bytes(num_levels: int, radius: int) -> int:
-    """K2: a tile's taps, rows padded to a multiple of 4 floats."""
+def _taps_plan(num_levels: int, radius: int, elem_size: int = 4, k4: bool = False) -> Optional[dict]:
+    """K2's and K4's block plan, ``taps_plan`` in the source: the queries a
+    block (``nq``), the levels a pass and the shared-memory layout, or
+    ``None`` for a shape the entry point does not take (K2 over
+    ``K2_MAX_TAPS`` taps a query, K4 ``S*(S+2)`` over ``K4_MAX_SPAN``).
+    A block holds a 16-byte table entry per (query, level), one pass's
+    windows and the tap tile at output width (fp32 taps from fp32 levels,
+    else bf16), whose rows are ``pitch`` bytes apart, alike mod 16 with the
+    output's, plus 16 bytes for the span's phase. A window is ``S+1`` rows
+    ``rb`` bytes apart: the ``row_chunks`` chunks of ``TAPS_CHUNK`` bytes
+    that cover a row's ``S+1`` cells from any phase, rows an odd number of
+    16-byte chunks apart. The first of all levels down to one (outer) and ``nq`` =
+    8, 4, 2, 1 (inner) that fits ``TAPS_SMEM_SHARE`` (eight blocks an SM),
+    else ``MAX_SMEM_BYTES``."""
     s = 2 * radius + 1
-    return QUERY_TILE * (-(-num_levels * s * s // 4) * 4) * 4
+    s1, ss = s + 1, s * s
+    c = num_levels * ss
+    if (s * (s + 2) > K4_MAX_SPAN) if k4 else (c > K2_MAX_TAPS):
+        return None
+    es = 4 if elem_size == 4 else 2
+    row_chunks = -(-(TAPS_CHUNK - elem_size + s1 * elem_size) // TAPS_CHUNK)
+    rb = TAPS_CHUNK * (row_chunks | 1)
+    for budget in (TAPS_SMEM_SHARE, MAX_SMEM_BYTES):
+        for nl in range(num_levels, 0, -1):
+            nq = TAPS_QUERIES
+            while nq >= 1:
+                win_off = 16 * nq * num_levels
+                tile_off = (win_off + nl * nq * s1 * rb + 15) & ~15
+                pitch = nl * ss * es + ((c - nl * ss) * es) % 16
+                smem = tile_off + nq * pitch + 16
+                if smem <= budget:
+                    return dict(nq=nq, levels_per_pass=nl, rb=rb, row_chunks=row_chunks, pitch=pitch,
+                                win_off=win_off, tile_off=tile_off, smem=smem)
+                nq //= 2
+    return None
+
+
+def _taps_smem_bytes(num_levels: int, radius: int, elem_size: int = 4, k4: bool = False) -> int:
+    """K2's (K4's with ``k4``) dynamic shared memory per block
+    (:func:`_taps_plan`); over ``MAX_SMEM_BYTES`` for a shape refused."""
+    plan = _taps_plan(num_levels, radius, elem_size, k4)
+    return MAX_SMEM_BYTES + 1 if plan is None else plan["smem"]
 
 
 def _project_k_pad(c_in: int, bf16_product: bool = False) -> int:
@@ -293,7 +339,7 @@ def _check_inputs(who: str, pyramid, centroids: torch.Tensor, radius: int, extra
     Levels share one dtype, fp32, bf16 or int8; int8 levels come as a
     :class:`QuantizedPyramid` with ``(L,)`` fp32 scales. Everything else is
     fp32. ``smem_bytes(num_levels, radius)`` is the kernel's dynamic shared
-    memory per block (default: K2's tap tile)."""
+    memory per block (default: K2's plan, :func:`_taps_smem_bytes`)."""
     if centroids.dim() != 4 or centroids.shape[-1] != 2:
         raise ValueError(f"{who}: centroids must be (B, h, w, 2), got {tuple(centroids.shape)}")
     b, h, w, _ = centroids.shape
@@ -302,10 +348,10 @@ def _check_inputs(who: str, pyramid, centroids: torch.Tensor, radius: int, extra
         raise ValueError(f"{who}: needs 1..{MAX_LEVELS} pyramid levels, got {len(pyramid)}")
     if radius < 0:
         raise ValueError(f"{who}: radius must be >= 0, got {radius}")
-    if (smem_bytes or _tile_smem_bytes)(len(pyramid), radius) > MAX_SMEM_BYTES:
+    if (smem_bytes or _taps_smem_bytes)(len(pyramid), radius) > MAX_SMEM_BYTES:
         raise ValueError(
             f"{who}: {len(pyramid)} levels at radius {radius} need more shared "
-            "memory per block than a block has"
+            "memory per block than the kernel's plan allows"
         )
     for level, vol in enumerate(pyramid):
         if vol.dim() != 3 or vol.shape[0] != q or vol.shape[1] < 1 or vol.shape[2] < 1:
@@ -376,7 +422,9 @@ def lookup_pyramid_fused(pyramid: Sequence[torch.Tensor], centroids: torch.Tenso
 
     Args:
         pyramid: ``(B*h*w, hl, wl)`` contiguous levels, any sizes: fp32,
-            bf16, or a :class:`QuantizedPyramid` of int8 levels.
+            bf16, or a :class:`QuantizedPyramid` of int8 levels, at any
+            address (bf16 / int8 levels that start off a 4-byte boundary
+            are copied cell by cell, the others in 4-byte words).
         centroids: ``(B, h, w, 2)`` fp32 contiguous level-0 (x, y) centres.
     """
     who = "lookup_pyramid_fused"

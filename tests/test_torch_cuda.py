@@ -8,7 +8,8 @@ dependencies runs it with
 parity modules skip themselves there).
 
 Tolerances: 1e-5 for the taps of K2 and K4 (a 4-term fp32 bilinear sum per
-tap, summed in another order than the plain version's matmuls), 1e-4 for
+tap, summed in another order than the plain version's matmuls; NaN exactly
+where the plain version has it, NaN centroids included), 1e-4 for
 the K1 projection (a 100-324-term fp32 dot per output) and the K3 volume
 (a 32-256-term fp32 dot per cell), 1e-5 for K5 in fp32 and one bf16
 rounding step for its bf16 I/O. The reduced-precision forms: K3's bf16
@@ -95,7 +96,7 @@ def _inputs(case, device):
     return pyr, cents.to(device), radius
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(LOWP_EDGE_CASES))
 def test_k2_matches_plain(cuda_device, case):
     pyr, cents, radius = _inputs(case, cuda_device)
     before = lookup_pyramid_fused.launches
@@ -103,7 +104,8 @@ def test_k2_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert lookup_pyramid_fused.launches == before + 1
     want = lookup_pyramid_reference(pyr, cents, radius)
-    torch.testing.assert_close(got, want, rtol=LOOKUP_TOL, atol=LOOKUP_TOL)
+    # a NaN centroid gives NaN taps in the plain version: so must the kernel
+    torch.testing.assert_close(got, want, rtol=LOOKUP_TOL, atol=LOOKUP_TOL, equal_nan=True)
 
 
 @pytest.mark.parametrize("c_out", [256, 96, 48, 20])  # raft_large, raft_small, fixture, ragged
@@ -131,10 +133,15 @@ def test_cuda_path_never_runs_plain_version(cuda_device, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
+    from raft_tpu_torch.kernels import lookup_pallas
+
     monkeypatch.setattr(lookup_xtap, "lookup_pyramid_reference", boom)
     monkeypatch.setattr(lookup_xtap, "lookup_project_reference", boom)
     monkeypatch.setattr(lookup_xtap, "lookup_pyramid", boom)
+    monkeypatch.setattr(lookup_pallas, "lookup_pyramid_reference", boom)
+    monkeypatch.setattr(lookup_pallas, "lookup_pyramid", boom)
     lookup_pyramid_fused(pyr, cents, radius)
+    lookup_pallas.lookup_pyramid_pallas(pyr, cents, radius)
     weight = torch.zeros(8, len(pyr) * (2 * radius + 1) ** 2, device=cuda_device)
     lookup_project_fused(pyr, cents, weight, torch.zeros(8, device=cuda_device), radius)
     torch.cuda.synchronize()
@@ -233,16 +240,24 @@ def test_k3_matches_plain(cuda_device, case):
         torch.testing.assert_close(g, w_, rtol=VOLUME_TOL, atol=VOLUME_TOL, equal_nan=True)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(LOWP_EDGE_CASES) + ["wide_radius"])
 def test_k4_matches_plain(cuda_device, case):
     from raft_tpu_torch.kernels.lookup_pallas import lookup_pyramid_pallas, lookup_pyramid_reference
 
-    pyr, cents, radius = _inputs(case, cuda_device)
+    if case == "wide_radius":  # r 20 at 4 levels: a radius K4 takes and K2 does not (3364 taps a query)
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        pyr = corr.pool_pyramid(corr.correlation_volume(
+            torch.randn(1, 16, 9, 14, generator=gen), torch.randn(1, 16, 9, 14, generator=gen)), 4)
+        pyr = [v.to(cuda_device) for v in pyr]
+        cents, radius = (torch.rand(1, 9, 14, 2, generator=gen) * 40.0 - 13.0).to(cuda_device), 20
+    else:
+        pyr, cents, radius = _inputs(case, cuda_device)
     before = lookup_pyramid_pallas.launches
     got = lookup_pyramid_pallas(pyr, cents, radius)
     torch.cuda.synchronize()
     assert lookup_pyramid_pallas.launches == before + 1
-    torch.testing.assert_close(got, lookup_pyramid_reference(pyr, cents, radius), rtol=LOOKUP_TOL, atol=LOOKUP_TOL)
+    torch.testing.assert_close(got, lookup_pyramid_reference(pyr, cents, radius), rtol=LOOKUP_TOL, atol=LOOKUP_TOL,
+                               equal_nan=True)
 
 
 @pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
@@ -422,6 +437,48 @@ def test_k2_lowp_matches_plain(cuda_device, case, dtype):
     assert got.dtype == want.dtype == torch.bfloat16
     tol = _bf16_ulps_of_max(want)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol, equal_nan=True)
+
+
+def _offset_levels(levels, dtype):
+    """Each level a contiguous view one element into a buffer of its own:
+    off the 16-byte boundary the kernel's chunked window copies need (fp32 4
+    bytes past it, bf16 2, int8 1)."""
+    out = []
+    for v in levels:
+        buf = torch.zeros(v.numel() + 1, dtype=dtype, device=v.device)
+        buf[1:] = v.reshape(-1).to(dtype)
+        out.append(buf[1:].view(v.shape))
+        assert out[-1].data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("case", ["small", "unaligned_w13", "unaligned_w39", "edge_centroids", "raft_small_fused"])
+def test_k2_offset_levels(cuda_device, case, dtype):
+    """K2 takes levels at any address: levels that start one element into
+    a buffer (copied cell by cell) give the taps of the same levels at an
+    aligned address (copied in 16-byte chunks), bit for bit, within the
+    plain version's tolerance and with its NaNs."""
+    from raft_tpu_torch.models.corr import QuantizedPyramid
+
+    pyr, cents, radius = _inputs(case, cuda_device)
+    aligned = pyr if dtype == "fp32" else _lowp_pyramid(pyr, dtype)
+    if dtype == "int8":
+        offset = QuantizedPyramid(_offset_levels(aligned, torch.int8), aligned.scales)
+    else:
+        offset = _offset_levels(aligned, torch.float32 if dtype == "fp32" else torch.bfloat16)
+    before = lookup_pyramid_fused.launches
+    got = lookup_pyramid_fused(offset, cents, radius)
+    torch.cuda.synchronize()
+    assert lookup_pyramid_fused.launches == before + 1
+    want = lookup_pyramid_reference(offset, cents, radius)
+    tol = LOOKUP_TOL if dtype == "fp32" else _bf16_ulps_of_max(want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0 if dtype != "fp32" else LOOKUP_TOL, atol=tol,
+                               equal_nan=True)
+    same = lookup_pyramid_fused(aligned, cents, radius)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == "fp32" else torch.int16
+    assert torch.equal(got.view(bits), same.view(bits))
 
 
 @pytest.mark.parametrize("proj", ["fp32", "bf16"])

@@ -10,7 +10,8 @@ bf16 I/O of K5 may differ by one bf16 rounding step (2^-7 relative).
 ``TestK3Arithmetic`` and ``TestK1Arithmetic`` emulate the 3xTF32
 tensor-core arithmetic of K3 and K1 on the CPU against a tenth of the
 card's tolerance, and K3's NaN-safe TF32 split; ``TestK3Tile`` and
-``TestK1Tile`` check the wrappers' view of K3's and K1's tiles.
+``TestK1Tile`` check the wrappers' view of K3's and K1's tiles,
+``TestK2Tile`` of K2's and K4's plan and tile store.
 """
 
 import math
@@ -399,7 +400,7 @@ class TestK1Tile:
 
     def test_wrapper_refuses_what_the_tile_cannot_hold(self):
         """8 levels at radius 6 (C_in 1352) need more than a block's shared
-        memory for K1's 3xTF32 tile, while K2's tap tile and K1's bf16
+        memory for K1's 3xTF32 tile, while K2 and K1's bf16
         product on fp32 levels (a bf16 A tile) still take them; radius 5
         (C_in 968) fits both. bf16 / int8 windows wider than 32 columns (r >
         15) are refused at any level count: the earlier layout refused them
@@ -525,6 +526,121 @@ class TestK1WindowCopy:
                         if 0 <= y < hl and 0 <= xx < wl:
                             want[j, x] = float(level[q, y, xx].float())
                 np.testing.assert_array_equal(got, want, err_msg=f"q {q} window at ({xs}, {ys})")
+
+
+class TestK2Tile:
+    """The wrappers' view of K2's and K4's block plan (``taps_plan`` in
+    ``csrc/lookup_xtap.cu``): residency at the model shapes, the shapes each
+    entry point takes, and the 16-byte tile store's split of a span."""
+
+    SHAPES = {"raft_large": (1, 55, 128, 4, 4), "raft_small": (1, 55, 128, 4, 3), "batch8": (8, 55, 128, 4, 4)}
+
+    @staticmethod
+    def _resident(plan):
+        """Blocks an SM holds: by shared memory (1 KB reserved a block), by
+        threads (2048 an SM), at most 32."""
+        return min(lookup_xtap.SM_SMEM_BYTES // (plan["smem"] + 1024),
+                   2048 // lookup_xtap.TAPS_THREADS, 32)
+
+    @pytest.mark.parametrize("elem", [4, 2, 1], ids=["fp32", "bf16", "int8"])
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    def test_four_blocks_an_sm_fill_the_card(self, shape, elem):
+        """At the model shapes a block takes four or more queries and every
+        level in one pass, at least four blocks fit an SM, and the grid
+        gives each of the 132 SMs at least three."""
+        b, h, w, levels, radius = self.SHAPES[shape]
+        plan = lookup_xtap._taps_plan(levels, radius, elem)
+        assert plan["nq"] >= 4 and plan["levels_per_pass"] == levels
+        assert self._resident(plan) >= lookup_xtap.TAPS_BLOCKS_PER_SM
+        assert plan["smem"] <= lookup_xtap.TAPS_SMEM_SHARE
+        assert -(-(b * h * w) // plan["nq"]) >= 3 * 132
+        if elem == 4:  # K4 runs the fp32 form's plan
+            assert lookup_xtap._taps_plan(levels, radius, 4, k4=True) == plan
+
+    @pytest.mark.parametrize("entry", ["k2", "k4"])
+    def test_takes_the_shapes_the_earlier_forms_took(self, entry):
+        """K2 takes every (levels, radius) its 32-query fp32 tap tile held
+        (32 x ceil4(L S^2) x 4 bytes), K4 every one its eight S x (S+2) y-pass
+        tiles held (8 x S (S+2) x 4 bytes), each in every storage, and
+        refuses the rest."""
+        k4 = entry == "k4"
+        for levels in range(1, 9):
+            for radius in range(0, 48):
+                s = 2 * radius + 1
+                took = (8 * s * (s + 2) * 4 if k4 else 32 * (-(-levels * s * s // 4) * 4) * 4) <= 232448
+                for elem in ((4,) if k4 else (4, 2, 1)):
+                    got = lookup_xtap._taps_smem_bytes(levels, radius, elem, k4)
+                    assert (got <= lookup_xtap.MAX_SMEM_BYTES) == took, (levels, radius, elem)
+
+    @pytest.mark.parametrize("entry", ["k2", "k4"])
+    def test_wrappers_refuse_beyond_with_the_same_error(self, entry):
+        cents = torch.zeros(1, 2, 3, 2)
+        pyr = [torch.zeros(6, 4, 4) for _ in range(8)]
+        if entry == "k2":  # 8 levels: r 6 is 1352 taps a query, r 7 1800, r 8 2312
+            assert tuple(lookup_xtap.lookup_pyramid_fused(pyr, cents, 7).shape) == (1, 2, 3, 1800)
+            with pytest.raises(ValueError, match="shared memory"):
+                lookup_xtap.lookup_pyramid_fused(pyr, cents, 8)
+        else:  # r 41: S (S+2) = 7055; r 42: 7395
+            assert tuple(lookup_pyramid_pallas(pyr[:1], cents, 41).shape) == (1, 2, 3, 83 * 83)
+            with pytest.raises(ValueError, match="shared memory"):
+                lookup_pyramid_pallas(pyr[:1], cents, 42)
+
+    def test_passes_and_fewer_queries_where_shared_memory_is_short(self):
+        # K2's widest: one level at r 20 (S + 1 = 42 columns, over a warp)
+        plan = lookup_xtap._taps_plan(1, 20, 4)
+        assert plan["nq"] < lookup_xtap.TAPS_QUERIES and plan["smem"] <= lookup_xtap.MAX_SMEM_BYTES
+        # K4's widest: 8 levels at r 41, one query a block and the levels in passes
+        plan = lookup_xtap._taps_plan(8, 41, 4, k4=True)
+        assert plan["nq"] == 1 and plan["levels_per_pass"] < 8 and plan["smem"] <= lookup_xtap.MAX_SMEM_BYTES
+        assert plan["pitch"] % 16 == (8 * 83 * 83 * 4) % 16
+
+    @staticmethod
+    def _store(dst, n, es, threads=lookup_xtap.TAPS_THREADS):
+        """``store_span``'s split of n elements at byte address dst: the
+        elements each item writes, and whether each vector item is 16
+        bytes at a 16-byte boundary."""
+        kv = 16 // es
+        head = min(n, ((16 - dst % 16) % 16) // es)
+        nv = (n - head) // kv
+        items = n - nv * (kv - 1)
+        writes = []
+        for t in range(threads):
+            for k in range(t, items, threads):
+                if head <= k < head + nv:
+                    e = head + (k - head) * kv
+                    assert (dst + e * es) % 16 == 0
+                    writes.extend(range(e, e + kv))
+                else:
+                    writes.append(k if k < head else k + nv * (kv - 1))
+        return writes
+
+    @pytest.mark.parametrize("radius", [3, 4])
+    @pytest.mark.parametrize("storage", ["fp32", "bf16"])
+    def test_tile_store_writes_each_element_once(self, storage, radius):
+        """Every span a block stores, at every q0 (each parity, ragged last
+        tiles) and output alignment, in one pass or in per-query passes:
+        each element written exactly once."""
+        es = 4 if storage == "fp32" else 2
+        levels = 4
+        c = levels * (2 * radius + 1) ** 2
+        for base in (0, es, 8, 16 - es):
+            for q0 in range(0, 34):
+                for nq in (16, 5, 1):
+                    start = base + q0 * c * es
+                    for n in (nq * c, c, (2 * radius + 1) ** 2):  # one pass; a query; one level of a query
+                        writes = self._store(start, n, es)
+                        assert sorted(writes) == list(range(n)), (base, q0, nq, n)
+
+    def test_tile_rows_alike_mod_16_with_the_output(self):
+        """A pass's tile row t lies at phase + t * pitch: alike mod 16 with
+        its place in the output, so the store's vectors line up."""
+        for levels, radius, elem, k4 in [(4, 4, 4, False), (4, 3, 2, False), (8, 41, 4, True), (8, 6, 1, False)]:
+            plan = lookup_xtap._taps_plan(levels, radius, elem, k4)
+            s2 = (2 * radius + 1) ** 2
+            es = 4 if elem == 4 else 2
+            assert plan["tile_off"] % 16 == 0
+            assert plan["pitch"] >= plan["levels_per_pass"] * s2 * es
+            assert (plan["pitch"] - levels * s2 * es) % 16 == 0
 
 
 class TestLookupK4:

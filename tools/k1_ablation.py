@@ -90,7 +90,7 @@ _SKIP = "      if (m >= nq) continue;\n"  # both store loops of the epilogue
 _GATHER = "    gather_windows(pyr, cents, q0, nq, g, a, reinterpret_cast<float*>(region), at);\n"
 _CONST = "    for (int idx = tid; idx < kBM * g.lda; idx += kProjThreads) a[idx] = 0.5f;\n"
 _WINDOW = "  cp_async4(dst, ok ? vol + off : vol, ok);\n"
-_TAP = ("          store_val(dst + ij,\n"
+_TAP = ("          store_tap(dst + ij,\n"
         "                    (1.f - fy) * ((1.f - fx) * c[0] + fx * c[1]) + fy * ((1.f - fx) * c[s1] + fx * c[s1 + 1]));\n")
 _W = "      cp_async16(ws + n * kLdw + kk, ok ? weight + int64_t(n0 + n) * g.c_in + k0 + kk : weight, ok);\n"
 _W_BF16 = ("    cp_async16(ws + (n * kLdwB + kk / 2) * 4, ok ? weight + int64_t(n0 + n) * g.k_pad + k0 + kk : weight, "
@@ -115,7 +115,7 @@ ABLATIONS = {
     "product_only": [(_GATHER, _CONST, 1), (_SKIP, _SKIP.replace("m >= nq", "m >= 0"), 2)],
     "gather_only": [(_MMA3, _KEEP, 1), (_SKIP, _SKIP.replace("m >= nq", "m >= 0"), 2)],
     "no_window_copy": [(_WINDOW, "  (void)dst;\n  (void)off;\n  (void)ok;\n", 1)],
-    "no_taps": [(_TAP, "          store_val(dst + ij, fx + c[0] * 0.f);\n", 1)],
+    "no_taps": [(_TAP, "          store_tap(dst + ij, fx + c[0] * 0.f);\n", 1)],
     "no_w_copy": [(_W, "      (void)ok;\n", 1)],
     "floor": [(_GATHER, _CONST, 1), (_W, "      (void)ok;\n", 1), (_MMA3, _KEEP, 1)],
     "bm64": [_BM64],

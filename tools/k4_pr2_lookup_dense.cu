@@ -1,3 +1,7 @@
+// K4 as it stood from PR 2 to PR 9, kept for tools/k2_ablation.py, which
+// times the shipped K4 (xtap_lookup_kernel behind lookup_dense_launch in
+// raft_tpu_torch/kernels/csrc/lookup_xtap.cu) against it. Same C interface.
+//
 // Multi-scale correlation lookup in separable form (y-pass, then x-pass),
 // for Hopper (sm_90a).
 //
