@@ -61,8 +61,10 @@ Phases, each of which raises on failure (exit code 1):
      ``'dense'`` giving the same flow, one request under torch.profiler;
      then the same weights with ``corr_dtype='bfloat16'`` through
      ``validate`` over the same pairs (K3's bf16 form once per pair);
-  9. bench: ``python -m raft_tpu_torch.bench`` at 2 pairs a configuration,
-     its lines checked against the protocol's schema;
+  9. bench: ``python -m raft_tpu_torch.bench`` at 2 pairs a configuration
+     (each configuration's call captured once as a CUDA graph and
+     replayed), then ``--train`` at 2 steps a model, the lines checked
+     against the protocol's schema;
  10. serving: ``ServeEngine`` over raft_large (the main path's weights) at
      'quality' (fused) and 'throughput', bucket 440x1024, pool capacity 8,
      warmed (every program captured as a CUDA graph), 24 requests of
@@ -74,7 +76,16 @@ Phases, each of which raises on failure (exit code 1):
      off for both), then the device time per program family from the
      ledger in a burst of its own, peak memory; then the golden fixture
      through the engine at 'quality' (1e-3 px);
- 11. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+ 11. training: ``Trainer`` at raft_large's chairs stage, full width (batch
+     8, crop 368x496, 12 updates, dense fp32), on a synthetic FlyingChairs
+     tree of 24 pairs at 384x512: 8 steps, a checkpoint every 4, a
+     boundary every 2 (finite losses), preempted after step 4 and resumed
+     by a second Trainer (its state the saved one bit for bit, its
+     pipeline continuing the index stream), step times, pairs/s, peak
+     memory, checkpoint save/restore seconds, no kernel of the port
+     launched; then the loss must fall over 8 steps on one fixed batch,
+     one step profiled (idle share); the TF32 flags are checked unchanged;
+ 12. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -1393,6 +1404,191 @@ def golden_serving_phase(device):
         raise AssertionError("golden EPE through ServeEngine misses the reference")
 
 
+# The training phase: the chairs stage of raft_large at full width (batch 8,
+# crop 368x496, 12 updates, dense fp32, no remat), on a synthetic
+# FlyingChairs tree written from a seed
+TRAIN_PAIRS, TRAIN_FRAME, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_LOG_EVERY = 24, (384, 512), 8, 4, 2
+
+
+def write_chairs(root: Path, n: int = TRAIN_PAIRS, hw=TRAIN_FRAME, seed: int = 0) -> Path:
+    """A FlyingChairs tree: ``data/NNNNN_img{1,2}.ppm`` and ``_flow.flo``,
+    and a split file with every pair in the training split. Frame 2 is
+    frame 1 shifted by the flow's integer mean, so there is motion to
+    learn."""
+    from raft_tpu_torch.data.io import write_flo
+
+    rng = np.random.default_rng(seed)
+    (root / "data").mkdir(parents=True, exist_ok=True)
+    h, w = hw
+    for i in range(n):
+        shift = rng.integers(-6, 7, 2)
+        img1 = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        img2 = np.roll(img1, (int(shift[1]), int(shift[0])), axis=(0, 1))
+        flow = np.broadcast_to(shift.astype(np.float32), (h, w, 2)) + rng.normal(0, 0.1, (h, w, 2))
+        for k, img in ((1, img1), (2, img2)):
+            (root / "data" / f"{i:05d}_img{k}.ppm").write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+        write_flo(str(root / "data" / f"{i:05d}_flow.flo"), flow.astype(np.float32))
+    np.savetxt(root / "FlyingChairs_train_val.txt", np.ones(n), fmt="%d")
+    return root
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    """Two ``TrainState.state_dict()``s bit for bit."""
+    if a["model"].keys() != b["model"].keys():
+        return False
+    tensors = lambda sd: ([sd["model"][k] for k in sorted(sd["model"])] + sd["opt_state"]["mu"]  # noqa: E731
+                          + sd["opt_state"]["nu"] + [sd["opt_state"]["count"]]
+                          + [sd[k] for k in ("step", "skipped_steps", "good_steps", "grad_ema")])
+    ta, tb = tensors(a), tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def train_phase(device, card, overrides=None):
+    """``Trainer`` at the chairs stage of raft_large, full width: 8 steps
+    on a synthetic FlyingChairs tree, checkpoints every 4, a boundary every
+    2 (each loss finite), preempted after step 4 and resumed by a second
+    Trainer whose restored state equals the saved one bit for bit and whose
+    pipeline continues the index stream at step 4; step times (CUDA events
+    around each step), pairs/s, peak memory, checkpoint save and restore
+    seconds; 8 steps on one fixed batch must lower the loss, and one of
+    them runs under torch.profiler (idle share). No CUDA kernel of the
+    port's runs on this path (dense fp32): the launch counts stay 0.
+    ``overrides`` (TrainConfig fields) shrink the phase for a CPU rehearsal;
+    without them it is the chairs stage itself."""
+    import tempfile
+
+    from raft_tpu_torch.checkpoint import CheckpointManager
+    from raft_tpu_torch.data import FlyingChairs
+    from raft_tpu_torch.data.pipeline import TrainPipeline
+    from raft_tpu_torch.models.zoo import CONFIGS, build_raft
+    from raft_tpu_torch.train import TrainConfig, Trainer, TrainState, make_optimizer, make_train_step_fn
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="raft_train_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ds = FlyingChairs(str(write_chairs(tmp / "chairs")))
+        log(f"train: synthetic FlyingChairs tree, {len(ds)} pairs at {TRAIN_FRAME[0]}x{TRAIN_FRAME[1]} "
+            f"(PPM + .flo) in {time.perf_counter() - t0:.2f} s")
+        cfg = TrainConfig(arch="raft_large", stage="chairs", num_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+                          log_every=TRAIN_LOG_EVERY, checkpoint_dir=str(tmp / "ckpt"), **(overrides or {}))
+        if overrides is None and (cfg.global_batch_size, cfg.crop_size, cfg.num_flow_updates) != (8, (368, 496), 12):
+            raise AssertionError("TrainConfig's defaults are not the chairs stage")
+        first = Trainer(cfg, ds)
+        events = []
+        step_fn = first.step_fn
+
+        def timed_step(state, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(state, batch)
+            end.record()
+            events.append((start, end))
+            return out
+
+        first.step_fn = timed_step
+        logs, saved = [], {}
+
+        def on_log(step, m):
+            logs.append((step, m))
+            if step == TRAIN_CKPT_EVERY:
+                saved["state"] = first.state.state_dict()
+                first._preempted = True  # as SIGTERM's handler does: checkpoint at the boundary, return
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        first.run(log_fn=on_log)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        if first.manager.all_steps() != [TRAIN_CKPT_EVERY]:
+            raise AssertionError(f"checkpoints after the preempted run: {first.manager.all_steps()}")
+
+        t0 = time.perf_counter()
+        second = Trainer(cfg, ds)
+        resume_s = time.perf_counter() - t0
+        restored = second.state.state_dict()
+        if int(second.state.step) != TRAIN_CKPT_EVERY or not states_equal(restored, saved["state"]):
+            raise AssertionError("the resumed state is not the saved one bit for bit")
+        fresh = TrainPipeline(ds, cfg.global_batch_size, seed=cfg.seed, device="cpu")
+        stream = fresh._index_stream()
+        want = [next(stream) for _ in range(TRAIN_STEPS * cfg.global_batch_size)][TRAIN_CKPT_EVERY * cfg.global_batch_size:]
+        stream = second.pipeline._index_stream()
+        got = [next(stream) for _ in range(len(want))]
+        if second.pipeline.step != TRAIN_CKPT_EVERY or got != want:
+            raise AssertionError("the resumed pipeline does not continue the index stream")
+        step_fn = second.step_fn
+        second.step_fn = timed_step
+        t0 = time.perf_counter()
+        second.run(log_fn=lambda step, m: logs.append((step, m)))
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = read_counts()
+        if int(second.state.step) != TRAIN_STEPS or second.manager.latest_step() != TRAIN_STEPS:
+            raise AssertionError("the resumed run did not reach its last step")
+        for step, m in logs:
+            log(f"train: step {step}: loss {m['loss']:.6f} epe {m['epe']:.4f} grad_norm {m['grad_norm']:.4f} "
+                f"lr {m['lr']:.3e} pairs/s {m['pairs_per_s']:.3f}")
+        if [s for s, _ in logs] != list(range(TRAIN_LOG_EVERY, TRAIN_STEPS + 1, TRAIN_LOG_EVERY)) or not all(
+                math.isfinite(m["loss"]) for _, m in logs):
+            raise AssertionError("a boundary is missing or its loss is not finite")
+        ms = [s.elapsed_time(e) for s, e in events]
+        steady = ms[1:TRAIN_CKPT_EVERY] + ms[TRAIN_CKPT_EVERY + 1:]  # each run's first step warms up
+        log(f"train: {cfg.arch} {cfg.stage} stage (b={cfg.global_batch_size}, {cfg.crop_size[0]}x{cfg.crop_size[1]}, "
+            f"{cfg.num_flow_updates} updates, dense fp32, no remat), {TRAIN_STEPS} "
+            f"steps in two runs: step ms (CUDA events) {[round(t, 3) for t in ms]}, median after warm-up "
+            f"{float(np.median(steady)):.3f} ms = {cfg.global_batch_size * 1e3 / float(np.median(steady)):.3f} "
+            f"pairs/s; wall "
+            f"{wall1:.3f} + {wall2:.3f} s; peak device memory {peak} B ({peak / 2**30:.3f} GiB); "
+            f"launches {launches}; card {card}")
+        if any(launches.values()):
+            raise AssertionError(f"the dense training path launched a CUDA kernel of the port: {launches}")
+
+        mgr = CheckpointManager(str(tmp / "timing"), max_to_keep=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(1, second.state, force=True)
+        save_s = time.perf_counter() - t0
+        probe = TrainState.create(build_raft(CONFIGS[cfg.arch], device=device, seed=5), second.tx)
+        t0 = time.perf_counter()
+        mgr.restore(probe)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = (tmp / "timing" / "1" / "state.pt").stat().st_size
+        log(f"train: checkpoint save {save_s:.3f} s, restore {restore_s:.3f} s ({size} B; a Trainer's resume, "
+            f"model build included, {resume_s:.3f} s)")
+        if not states_equal(probe.state_dict(), second.state.state_dict()):
+            raise AssertionError("a restored checkpoint differs from the saved state")
+
+        # the loss falls on one fixed batch (the JAX package's
+        # test_loss_decreases_on_fixed_batch, at full width)
+        batch = next(iter(TrainPipeline(ds, cfg.global_batch_size, augmentor=second._augmentor, seed=1,
+                                        device=device)))
+        model = build_raft(CONFIGS[cfg.arch], device=device, seed=0)
+        tx = make_optimizer(1e-4, weight_decay=1e-5)
+        state = TrainState.create(model, tx)
+        step = make_train_step_fn(model, tx, num_flow_updates=cfg.num_flow_updates)
+        losses = []
+        for _ in range(TRAIN_STEPS - 1):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        prof = profile_request(lambda: step(state, batch), ())
+        if prof is not None:
+            by_name, busy_us = prof
+            conv_us = sum(us for name, us in by_name.items() if "conv" in name.lower() or "gemm" in name.lower()
+                          or "fprop" in name.lower() or "dgrad" in name.lower() or "wgrad" in name.lower())
+            log(f"train profile: convolutions and GEMMs {conv_us / 1e3:.3f} ms = {conv_us / busy_us:.4f} of one "
+                f"step's device busy time")
+        state, m = step(state, batch)
+        losses = [float(x) for x in losses + [m["loss"]]]
+        log(f"train: {len(losses) + 1} steps on one fixed batch, lr 1e-4: loss {[round(x, 5) for x in losses]}")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError("the loss did not fall on a fixed batch")
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def bench_phase():
     """``python -m raft_tpu_torch.bench`` at 2 pairs a configuration, in
     this process (its kernels are built): the lines and their schema. The
@@ -1420,6 +1616,21 @@ def bench_phase():
         "protocol is `python -m raft_tpu_torch.bench` (128 pairs a configuration)")
     if not ok:
         raise AssertionError("the bench's lines do not follow its protocol")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--train", "--steps", "2"])
+    lines = [json.loads(s) for s in out.getvalue().strip().splitlines()]
+    for line in lines:
+        log(f"bench --train: {json.dumps(line)}")
+    metrics = lines[1:]
+    ok = rc == 0 and [m["metric"] for m in metrics] == ["raft_small_train_pairs_s", "raft_large_train_pairs_s"] and all(
+        {"metric", "value", "unit", "protocol", "config"} <= set(m) and m["value"] > 0 and m["unit"] == "pairs/s"
+        and "eager" in m["protocol"] and "tf32=off" in m["config"] for m in metrics) and lines[0].get("card")
+    log(f"bench --train: schema {'ok' if ok else 'WRONG'}, {time.perf_counter() - t0:.1f} s at --steps 2; the "
+        "full protocol is `python -m raft_tpu_torch.bench --train` (20 steps a model)")
+    if not ok:
+        raise AssertionError("the bench's training lines do not follow its protocol")
 
 
 def tf32_flags():
@@ -1494,6 +1705,10 @@ def main() -> int:
     k1_serve_q, _ = serving_phase(device, card, "quality", weights)
     k1_serve_t, _ = serving_phase(device, card, "throughput", weights)
     golden_serving_phase(device)
+    train_phase(device, card)
+    if tf32_flags() != flags:
+        raise AssertionError(f"training left the tf32 flags changed: {tf32_flags()} after {flags}")
+    log(f"tf32 flags after the training phase: unchanged, {tf32_flags()}")
 
     k3, k3_large = k3_times["raft_small_sintel"], k3_times["raft_large_sintel"]
     k3b, k3b_large = k3b_times["raft_small_sintel"], k3b_times["raft_large_sintel"]

@@ -8,8 +8,12 @@ Run from the repository root on a machine with a CUDA card:
 The protocol is the JAX package's ``bench.py`` (the reference's published
 benchmark): batch 1, 440x1024 (Sintel 436x1024 replicate-padded), 32 flow
 updates, final flow only. Each configuration builds its model with seeded
-random weights, runs a warm-up, then times ``--pairs`` distinct seeded
-pairs (made on the card before the clock starts) back to back with CUDA
+random weights and captures its call once as a CUDA graph over two static
+input buffers (``inference.flow_program``: the port's counterpart of the JAX
+bench's one compiled program; the capture's warm-up runs under
+``cudnn.benchmark``), replays it once, then times ``--pairs`` distinct
+seeded pairs (made on the card before the clock starts) back to back, each
+two device-to-device copies into the buffers and one replay, with CUDA
 events around the whole chain and one synchronize at the end. Baselines
 are the reference's RTX 3090 Ti figures, 11.8 pairs/s for raft_large and
 36.6 for raft_small.
@@ -22,26 +26,36 @@ only) and ``_b8`` (batch 8, bf16 storage and convs). fp32 means IEEE fp32
 throughout (``device.fp32_precision``: no TF32).
 
 Output: a JSON line with the card's name and power limit (``nvidia-smi``)
-and the peak device memory of every configuration (the pairs' inputs,
-``input_bytes``, stay resident on the device and are part of it), then one
+and the peak device memory of every configuration, over its capture and
+its timed chain (the pairs' inputs, ``input_bytes``, stay resident on the
+device and are part of it; cuDNN's algorithm trials are not), then one
 JSON line per configuration, ``{"metric", "value", "unit", "vs_baseline",
-"config"}``, raft_large's headline last. Training throughput (the JAX ``bench.py
---train``) waits for the port's training loop.
+"config"}``, raft_large's headline last.
+
+``--train`` benches the training step instead (the JAX ``bench.py
+--train``): per model, ``{arch}_train_pairs_s`` at b=6, 368x768, 12
+updates, ``remat=True``, ``corr_impl='dense'`` in IEEE fp32, on one
+synthetic seeded batch made on the card: one warm-up step, then
+``--steps`` steps (default 20) back to back with CUDA events around them
+and one synchronize. The step runs eagerly (capturing it as a CUDA graph
+is ROADMAP work), which its ``protocol`` string says.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 from typing import List, Optional, Sequence
 
 import torch
 
-from raft_tpu_torch.device import resolve_device
+from raft_tpu_torch.device import cudnn_benchmark, resolve_device
+from raft_tpu_torch.inference import flow_program, run_flow
 
-__all__ = ["BASELINES", "describe_config", "plan", "bench_config", "main"]
+__all__ = ["BASELINES", "describe_config", "plan", "bench_config", "bench_train", "main"]
 
 # jax-raft reference on an RTX 3090 Ti (the JAX package's bench.py)
 BASELINES = {"raft_large": 11.8, "raft_small": 36.6}
@@ -90,8 +104,12 @@ def _pairs(n: int, batch: int, h: int, w: int, device, seed: int):
 def bench_config(arch: str, impl: str, corr_dtype: str, compute_dtype: str, batch: int, *,
                  n_pairs: int = N_PAIRS, device="cuda", seed: int = 0) -> dict:
     """Pairs per second of one configuration, its peak device memory and
-    the bytes of its inputs, resident on the device through the timed
-    chain (the peak includes them)."""
+    the bytes of its inputs. The peak is taken over the capture (its eager
+    run and the capture itself) and the timed chain, with the inputs, the
+    graph's two input buffers and the weights resident: the
+    configuration's working set. One eager call before it lets cuDNN time
+    its algorithms at this shape (benchmark mode), so their trial
+    workspaces, freed once the choice is made, stay out of the peak."""
     from raft_tpu_torch.models.zoo import CONFIGS, build_raft
 
     dev = torch.device(device)
@@ -99,21 +117,67 @@ def bench_config(arch: str, impl: str, corr_dtype: str, compute_dtype: str, batc
                                              compute_dtype=compute_dtype), device=dev, seed=seed)
     steps = max(n_pairs // batch, 1)
     with torch.inference_mode():
-        warm = _pairs(1, batch, H, W, dev, seed)
-        model(warm[0, 0], warm[0, 1], num_flow_updates=UPDATES, emit_all=False)
-        del warm
         pairs = _pairs(steps, batch, H, W, dev, seed + 1)
+        # the warm-up pair becomes the graph's input buffers
+        warm = _pairs(1, batch, H, W, dev, seed)
+        # the warm-up: one eager call, in which cuDNN chooses its
+        # algorithms; the capture's eager run and the capture; one replay
+        with cudnn_benchmark():
+            model(warm[0, 0], warm[0, 1], num_flow_updates=UPDATES, emit_all=False)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        prog = flow_program(model, warm[0, 0], warm[0, 1], num_flow_updates=UPDATES, name=f"bench {arch}")
+        prog()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for i in range(steps):
-            model(pairs[i, 0], pairs[i, 1], num_flow_updates=UPDATES, emit_all=False)
+            run_flow(prog, pairs[i, 0], pairs[i, 1])
         end.record()
         torch.cuda.synchronize(dev)
         seconds = start.elapsed_time(end) / 1e3
     return {"pairs_per_s": steps * batch / seconds, "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
             "input_bytes": pairs.numel() * pairs.element_size()}
+
+
+TRAIN_BATCH, TRAIN_CROP, TRAIN_UPDATES, TRAIN_STEPS = 6, (368, 768), 12, 20
+
+
+def bench_train(arch: str, *, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH, crop=TRAIN_CROP,
+                iters: int = TRAIN_UPDATES, device="cuda", seed: int = 0) -> dict:
+    """Training pairs per second of ``arch`` at dense fp32 with remat: the
+    full train step (forward, sequence loss, backward, clip + AdamW) on one
+    synthetic batch, and the peak device memory."""
+    from raft_tpu_torch.models.zoo import CONFIGS, build_raft
+    from raft_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    dev = torch.device(device)
+    model = build_raft(CONFIGS[arch].replace(remat=True, corr_impl="dense"), device=dev, seed=seed)
+    tx = make_optimizer(1e-4, weight_decay=1e-4, clip_norm=1.0)
+    state = TrainState.create(model, tx)
+    step_fn = make_train_step(model, tx, num_flow_updates=iters)
+    h, w = crop
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = {
+        "image1": torch.rand((batch, 3, h, w), generator=gen, device=dev) * 2 - 1,
+        "image2": torch.rand((batch, 3, h, w), generator=gen, device=dev) * 2 - 1,
+        "flow": torch.rand((batch, 2, h, w), generator=gen, device=dev) * 10 - 5,
+        "valid": torch.ones((batch, h, w), device=dev),
+    }
+    state, metrics = step_fn(state, data)  # warm-up
+    float(metrics["loss"])
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        state, metrics = step_fn(state, data)
+    end.record()
+    torch.cuda.synchronize(dev)
+    seconds = start.elapsed_time(end) / 1e3
+    if not math.isfinite(float(metrics["loss"])):
+        raise RuntimeError(f"{arch} training bench: nonfinite loss")
+    return {"pairs_per_s": steps * batch / seconds, "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "protocol": f"b={batch} {h}x{w} {iters} iters, fwd+bwd+AdamW, remat, eager"}
 
 
 def card_line() -> str:
@@ -136,9 +200,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--no-batched", action="store_true", help="skip the batch-8 lines")
     ap.add_argument("--no-exact", action="store_true", help="skip the _exact and _native lines")
+    ap.add_argument("--train", action="store_true", help="bench the training step instead")
+    ap.add_argument("--steps", type=int, default=TRAIN_STEPS, help="timed train steps (--train)")
     args = ap.parse_args(argv)
     dev = resolve_device()
     lines, memory, inputs = [], {}, {}
+    if args.train:
+        for arch in args.models:
+            r = bench_train(arch, steps=args.steps, device=dev)
+            metric = f"{arch}_train_pairs_s"
+            lines.append({"metric": metric, "value": round(r["pairs_per_s"], 3), "unit": "pairs/s",
+                          "protocol": r["protocol"],
+                          "config": describe_config("dense", "float32", "float32", TRAIN_BATCH)})
+            memory[metric] = r["peak_memory_bytes"]
+        print(json.dumps({"card": card_line(), "device": torch.cuda.get_device_name(dev), "steps": args.steps,
+                          "peak_memory_bytes": memory}), flush=True)
+        for line in lines:
+            print(json.dumps(line), flush=True)
+        return 0
     for arch in args.models:  # the headline of raft_large last
         for impl, cdt, dt, suffix, batch in plan(arch, args.corr, args.corr_dtype, args.dtype,
                                                  args.batch, not args.no_exact, not args.no_batched):

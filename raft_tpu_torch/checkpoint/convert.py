@@ -154,7 +154,7 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     def put(key: str, arr) -> None:
         if key in state:
             raise ValueError(f"duplicate state_dict key {key!r}")
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        state[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
     for (*scope, leaf), value in _leaves(variables.get("params", {})):
         arr = np.asarray(value)

@@ -1,10 +1,12 @@
-"""Flow-format and image I/O: Middlebury ``.flo``, ``.pfm``, 8-bit PNG.
+"""Flow-format and image I/O: Middlebury ``.flo``, KITTI 16-bit ``.png``,
+``.pfm``, 8-bit PNG and PPM images.
 
 Ported from the JAX package's ``raft_tpu/data/io.py``; readers return
-numpy arrays. :func:`read_image` decodes PNG itself with ``zlib`` and
-numpy (IHDR, the concatenated IDAT stream and the five row filters), so
-the port needs no image library. KITTI's 16-bit flow PNGs wait until that
-dataset is ported.
+numpy arrays. PNG is decoded here with ``zlib`` and numpy (IHDR, the
+concatenated IDAT stream and the five row filters; 8- and 16-bit samples)
+and KITTI flow PNGs are written the same way (filter 0), and PPM/PGM
+(FlyingChairs' images) are read from their header, so the port needs
+neither cv2 nor PIL.
 """
 
 from __future__ import annotations
@@ -19,8 +21,12 @@ import numpy as np
 
 __all__ = [
     "decode_png",
+    "encode_png",
     "read_flo",
     "write_flo",
+    "read_flow_png",
+    "write_flow_png",
+    "read_ppm",
     "read_pfm",
     "write_pfm",
     "read_image",
@@ -104,7 +110,7 @@ def write_pfm(path: str, data: np.ndarray) -> None:
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel (8-bit)
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
 
 
 def _unfilter_row(ftype: int, raw: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
@@ -141,9 +147,10 @@ def _unfilter_row(ftype: int, raw: np.ndarray, prev: np.ndarray, bpp: int) -> np
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """An 8-bit, non-interlaced grayscale, RGB or RGBA PNG ->
-    ``(H, W, channels)`` uint8. Palette, gray+alpha, 16-bit and interlaced
-    files raise."""
+    """An 8- or 16-bit, non-interlaced grayscale, RGB or RGBA PNG ->
+    ``(H, W, channels)`` uint8 or uint16 (16-bit samples are big-endian in
+    the file). Palette, gray+alpha, other depths and interlaced files
+    raise ``ValueError``, as does a corrupt stream."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("png: bad signature")
     pos, header, idat = 8, None, []
@@ -166,11 +173,17 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("png: interlaced files are not supported")
     if ctype == 3:
         raise ValueError("png: palette files are not supported")
-    if depth != 8 or ctype not in _PNG_CHANNELS:
-        raise ValueError(f"png: only 8-bit gray, RGB and RGBA are supported (depth {depth}, colour type {ctype})")
-    bpp = _PNG_CHANNELS[ctype]
+    if depth not in (8, 16) or ctype not in _PNG_CHANNELS:
+        raise ValueError(
+            f"png: only 8- and 16-bit gray, RGB and RGBA are supported (depth {depth}, colour type {ctype})"
+        )
+    channels = _PNG_CHANNELS[ctype]
+    bpp = channels * depth // 8  # bytes per pixel, the filters' stride
     stride = width * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"png: corrupt image data ({e})") from e
     if raw.size < height * (stride + 1):
         raise ValueError("png: truncated image data")
     rows = raw[: height * (stride + 1)].reshape(height, stride + 1)
@@ -178,14 +191,93 @@ def decode_png(data: bytes) -> np.ndarray:
     prev = np.zeros(stride, np.uint8)
     for y in range(height):
         prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
-    return out.reshape(height, width, bpp)
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(height, width, channels)
+    return out.reshape(height, width, channels)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """``(H, W, 3)`` uint8 or uint16 -> an RGB PNG of that depth, every row
+    with filter 0 (None), one IDAT chunk."""
+    img = np.asarray(img)
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"png: expected (H, W, 3) uint8 or uint16, got {img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    depth = 8 * img.dtype.itemsize
+    rows = img.astype(">u2" if depth == 16 else np.uint8).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes())) + _png_chunk(b"IEND", b""))
+
+
+def read_flow_png(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """KITTI flow png -> (``(H, W, 2)`` float32 flow, ``(H, W)`` bool valid
+    mask). Encoding: 16-bit RGB, flow = (u16 - 2^15) / 64, the third
+    channel > 0 marks valid pixels. A missing file raises
+    ``FileNotFoundError``, a corrupt one ``ValueError``."""
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    if img.dtype != np.uint16 or img.shape[2] < 3:
+        raise ValueError(f"{path}: a flow png is 16-bit RGB, got {img.dtype} with {img.shape[2]} channels")
+    img = img[:, :, :3].astype(np.float32)
+    return (img[:, :, :2] - 2**15) / 64.0, img[:, :, 2] > 0
+
+
+def write_flow_png(path: str, flow: np.ndarray, valid: Optional[np.ndarray] = None) -> None:
+    """The inverse of :func:`read_flow_png`; ``valid`` None marks every
+    pixel valid."""
+    h, w, _ = flow.shape
+    rgb = np.zeros((h, w, 3), np.uint16)
+    rgb[:, :, 0] = np.clip(flow[:, :, 0] * 64.0 + 2**15, 0, 65535)
+    rgb[:, :, 1] = np.clip(flow[:, :, 1] * 64.0 + 2**15, 0, 65535)
+    rgb[:, :, 2] = (np.ones((h, w)) if valid is None else valid).astype(np.uint16)
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb))
+
+
+def read_ppm(data: bytes) -> np.ndarray:
+    """A binary PPM (``P6``) or PGM (``P5``) with 8-bit samples ->
+    ``(H, W, 3)`` or ``(H, W, 1)`` uint8. Header comments are skipped."""
+    magic = data[:2]
+    if magic not in (b"P6", b"P5"):
+        raise ValueError("ppm: not a binary PPM/PGM file")
+    fields, pos = [], 2
+    while len(fields) < 3:
+        while pos < len(data) and data[pos : pos + 1].isspace():
+            pos += 1
+        if data[pos : pos + 1] == b"#":
+            while pos < len(data) and data[pos : pos + 1] not in (b"\n", b"\r"):
+                pos += 1
+            continue
+        start = pos
+        while pos < len(data) and not data[pos : pos + 1].isspace():
+            pos += 1
+        if start == pos:
+            raise ValueError("ppm: truncated header")
+        fields.append(int(data[start:pos]))
+    width, height, maxval = fields
+    if not 0 < maxval < 256:
+        raise ValueError(f"ppm: only 8-bit samples are supported (maxval {maxval})")
+    channels = 3 if magic == b"P6" else 1
+    count = height * width * channels
+    if len(data) < pos + 1 + count:  # one whitespace byte ends the header
+        raise ValueError("ppm: truncated image data")
+    return np.frombuffer(data, np.uint8, count=count, offset=pos + 1).reshape(height, width, channels)
 
 
 def read_image(path: str) -> np.ndarray:
-    """Image file -> ``(H, W, 3)`` uint8: grayscale broadcast to 3
-    channels, alpha dropped (the JAX package's contract)."""
+    """Image file (PNG, or PPM/PGM as FlyingChairs ships) -> ``(H, W, 3)``
+    uint8: grayscale broadcast to 3 channels, alpha dropped (the JAX
+    package's contract)."""
     with open(path, "rb") as f:
-        img = decode_png(f.read())
+        data = f.read()
+    img = read_ppm(data) if data[:2] in (b"P6", b"P5") else decode_png(data)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: images are read as 8-bit, got {img.dtype}")
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])
@@ -200,7 +292,5 @@ def read_flow(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         pfm = read_pfm(path)
         return (pfm[:, :, :2].copy() if pfm.ndim == 3 else pfm), None
     if ext == ".png":
-        raise NotImplementedError(
-            f"{path}: 16-bit KITTI flow PNGs wait until the KITTI dataset is ported"
-        )
+        return read_flow_png(path)
     raise ValueError(f"unsupported flow format: {path}")

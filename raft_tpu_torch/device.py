@@ -7,6 +7,8 @@ so a CPU run can never be mistaken for a run on the card.
 :func:`fp32_precision` pins what ``float32`` means while the port runs a
 model: IEEE fp32 convolutions and matmuls, whatever TF32 flags the caller
 has set globally (PyTorch lets cuDNN convolutions use TF32 by default).
+:func:`cudnn_benchmark` is the block in which the port lets cuDNN choose
+its convolution algorithms by timing them.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Iterator, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "fp32_precision"]
+__all__ = ["resolve_device", "fp32_precision", "cudnn_benchmark"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -76,3 +78,18 @@ def fp32_precision() -> Iterator[None]:
             if _depth == 0:
                 for k, value in zip(_knobs(), _saved):
                     k.fp32_precision = value
+
+
+@contextlib.contextmanager
+def cudnn_benchmark() -> Iterator[None]:
+    """``torch.backends.cudnn.benchmark`` on while the block is open; the
+    caller's setting comes back after it. The CUDA-graph warm-up
+    (``graphs.GraphProgram``, whose module says why) and the train step
+    (``train.step``) run in it.
+    """
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved

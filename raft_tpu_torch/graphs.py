@@ -45,6 +45,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from raft_tpu_torch.device import cudnn_benchmark
+
 __all__ = ["GraphProgram", "capture_events", "count_launch"]
 
 # captures are process-wide state in CUDA: one at a time, and one count
@@ -112,13 +114,8 @@ class GraphProgram:
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(current)
-            benchmark = torch.backends.cudnn.benchmark
-            torch.backends.cudnn.benchmark = True
-            try:
-                with torch.cuda.stream(side):
-                    self.fn()
-            finally:
-                torch.backends.cudnn.benchmark = benchmark
+            with cudnn_benchmark(), torch.cuda.stream(side):
+                self.fn()
             current.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             _recording.launches = launches = {}

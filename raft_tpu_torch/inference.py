@@ -24,7 +24,29 @@ from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.eval.padder import InputPadder
 from raft_tpu_torch.graphs import GraphProgram
 
-__all__ = ["FlowEstimator", "FlowStream"]
+__all__ = ["FlowEstimator", "FlowStream", "flow_program", "run_flow"]
+
+
+def flow_program(model, image1: torch.Tensor, image2: torch.Tensor, *, num_flow_updates: int,
+                 pool=None, name: str = "flow") -> GraphProgram:
+    """``model``'s final flow from the static input buffers ``image1`` and
+    ``image2``, as a :class:`~raft_tpu_torch.graphs.GraphProgram` whose
+    ``inputs`` are the buffers. The caller fills them before each call
+    (:func:`run_flow`); the first call on the card captures the graph on
+    what they hold. ``pool`` is the graph memory pool to capture into
+    (``None``: the program's own)."""
+    prog = GraphProgram(lambda: model(image1, image2, num_flow_updates=num_flow_updates, emit_all=False),
+                        image1.device, pool=pool, name=name)
+    prog.inputs = (image1, image2)
+    return prog
+
+
+def run_flow(prog: GraphProgram, image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
+    """One pair through a :func:`flow_program`: the pair copied into its
+    input buffers, then one call (a replay on the card)."""
+    prog.inputs[0].copy_(image1)
+    prog.inputs[1].copy_(image2)
+    return prog()
 
 
 class FlowEstimator:
@@ -59,8 +81,8 @@ class FlowEstimator:
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self._lock = threading.Lock()
         self._cache_info: Dict[Tuple[int, ...], int] = {}
-        # (padded NHWC shape, iterations) -> (program, input buffers)
-        self._programs: Dict[Tuple, Tuple[GraphProgram, torch.Tensor, torch.Tensor]] = {}
+        # (padded NHWC shape, iterations) -> program (flow_program)
+        self._programs: Dict[Tuple, GraphProgram] = {}
 
     def cache_info(self) -> Dict[Tuple[int, ...], int]:
         """Per-padded-shape call counts (a snapshot; thread-safe)."""
@@ -70,7 +92,7 @@ class FlowEstimator:
     def programs(self) -> Dict[Tuple, GraphProgram]:
         """The captured graphs, by (padded NHWC shape, iterations)."""
         with self._lock:
-            return {k: prog for k, (prog, _, _) in self._programs.items() if prog.captured}
+            return {k: prog for k, prog in self._programs.items() if prog.captured}
 
     def graph_launches(self) -> Dict[str, int]:
         """Kernel launches made by replaying this estimator's graphs, by
@@ -188,28 +210,23 @@ class FlowEstimator:
                 )
                 return self._to_host(flow)
             with self._lock:
-                prog, x1, x2 = self._program(p1.shape, iters)
-                x1.copy_(self._to_device(p1))
-                x2.copy_(self._to_device(p2))
-                return self._to_host(prog())
+                prog = self._program(p1.shape, iters)
+                return self._to_host(run_flow(prog, self._to_device(p1), self._to_device(p2)))
 
-    def _program(self, shape: Tuple[int, ...], iters: int):
-        """The graph of a padded NHWC ``shape`` at ``iters`` and its input
-        buffers, made on first use (captured at its first call)."""
+    def _program(self, shape: Tuple[int, ...], iters: int) -> GraphProgram:
+        """The graph of a padded NHWC ``shape`` at ``iters``, made on first
+        use (captured at its first call)."""
         key = (shape, iters)
-        entry = self._programs.get(key)
-        if entry is None:
+        prog = self._programs.get(key)
+        if prog is None:
             # the buffers keep the layout _to_device gives the model
             # (NHWC memory viewed as NCHW): cuDNN picks its kernels by
             # layout, so a replay and an eager call agree bit for bit
             x1 = torch.empty(shape, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
             x2 = torch.empty(shape, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
-            prog = GraphProgram(
-                lambda: self.model(x1, x2, num_flow_updates=iters, emit_all=False),
-                self.device, pool=self._pool, name=f"FlowEstimator {key}",
-            )
-            entry = self._programs[key] = (prog, x1, x2)
-        return entry
+            prog = self._programs[key] = flow_program(self.model, x1, x2, num_flow_updates=iters,
+                                                      pool=self._pool, name=f"FlowEstimator {key}")
+        return prog
 
     def open_stream(self) -> "FlowStream":
         """Start a video-stream session with encode-once feature caching."""

@@ -66,10 +66,28 @@ class Conv2d(nn.Conv2d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that normalizes in fp32 and returns fp32 for any
-    input dtype (the dtype Flax's BatchNorm gives a bf16 input)."""
+    input dtype (the dtype Flax's BatchNorm gives a bf16 input).
+
+    In train mode it is Flax's ``BatchNorm(use_running_average=False)``
+    (``raft_tpu/models/layers.py:107-113``), not torch's: the batch
+    variance is the biased one-pass ``max(0, E[x^2] - E[x]^2)``, used both
+    to normalize and to update ``running_var`` (torch updates it from the
+    unbiased variance), with ``running = (1 - momentum) * running +
+    momentum * batch`` (Flax's momentum 0.9 is this momentum 0.1)."""
 
     def forward(self, x):
-        return super().forward(x.float())
+        x = x.float()
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
 
 
 def conv(

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from raft_tpu_torch.device import fp32_precision
 from raft_tpu_torch.models.corr import LazyCorrFeatures, map_levels
@@ -41,6 +42,12 @@ class RAFT(nn.Module):
     ``corr_block`` is parameter-free and exposes ``build_pyramid`` /
     ``index_pyramid`` / ``index_project`` / ``out_channels``;
     ``mask_predictor`` (optional) outputs 8*8*9 channels.
+
+    ``remat=True`` recomputes each refinement step (with its upsample when
+    every iteration is emitted) in the backward pass instead of keeping
+    its activations, through ``torch.utils.checkpoint`` (the JAX
+    package's ``nn.remat`` of the scanned step); it changes nothing
+    without gradients.
     """
 
     def __init__(
@@ -50,8 +57,10 @@ class RAFT(nn.Module):
         corr_block,
         update_block: nn.Module,
         mask_predictor: Optional[nn.Module] = None,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.feature_encoder = feature_encoder
         self.context_encoder = context_encoder
         self.corr_block = corr_block
@@ -121,6 +130,15 @@ class RAFT(nn.Module):
         hidden, delta_flow = self.update_block(hidden, context, corr_features, coords1 - coords0)
         return coords1 + delta_flow, hidden
 
+    @fp32_precision()
+    def _refine(self, coords0, coords1, hidden, context, pyramid, emit_all: bool):
+        """One refinement iteration and, when ``emit_all``, its upsampled
+        flow (else ``None``): the unit ``remat`` recomputes, pinned to
+        IEEE fp32 on its own so a backward-pass recompute is too."""
+        coords1, hidden = self._step(coords0, coords1, hidden, context, pyramid)
+        flow = self._upsample(coords1 - coords0, hidden) if emit_all else None
+        return coords1, hidden, flow
+
     def _upsample(self, flow, hidden):
         up_mask = self.mask_predictor(hidden) if self.mask_predictor is not None else None
         return upsample_flow(flow, up_mask)
@@ -139,10 +157,16 @@ class RAFT(nn.Module):
         coords0 = coords_grid(b, h8, w8, device=fmap1.device)
         coords1 = coords0.clone()
         flows = []
+        remat = self.remat and torch.is_grad_enabled()
         for _ in range(num_flow_updates):
-            coords1, hidden = self._step(coords0, coords1, hidden, context, pyramid)
+            args = (coords0, coords1, hidden, context, pyramid, emit_all)
+            if remat:
+                coords1, hidden, flow = checkpoint(self._refine, *args, use_reentrant=False,
+                                                   preserve_rng_state=False)
+            else:
+                coords1, hidden, flow = self._refine(*args)
             if emit_all:
-                flows.append(self._upsample(coords1 - coords0, hidden))
+                flows.append(flow)
         if emit_all:
             return torch.stack(flows, dim=0)
         return self._upsample(coords1 - coords0, hidden)

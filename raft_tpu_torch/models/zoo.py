@@ -81,6 +81,10 @@ class RAFTConfig:
     # pyramid storage: None (follows compute_dtype) | 'float32' |
     # 'bfloat16' | 'int8' (corr_impl='fused' only, inference only)
     corr_dtype: Optional[str] = None
+    # recompute each refinement step in the backward pass (training)
+    remat: bool = False
+    # selective remat (the JAX package's REMAT_POLICIES): not ported yet
+    remat_policy: Optional[str] = None
 
     def replace(self, **kw) -> "RAFTConfig":
         return dataclasses.replace(self, **kw)
@@ -135,7 +139,12 @@ def _resolve_dtypes(config: RAFTConfig):
     ``compute_dtype``; int8 needs ``corr_impl='fused'``."""
     if config.corr_impl == "onthefly":
         raise NotImplementedError(
-            "corr_impl='onthefly' is not ported yet: ROADMAP queue 1 item 11"
+            "corr_impl='onthefly' is not ported yet: ROADMAP queue 1 item 5"
+        )
+    if config.remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={config.remat_policy!r} is not ported yet (selective remat): ROADMAP queue 1 "
+            "item 2d; remat=True with remat_policy=None recomputes whole refinement steps"
         )
     if config.corr_impl not in ("dense", "fused", "pallas"):
         raise ValueError(f"unknown corr_impl {config.corr_impl!r}")
@@ -233,6 +242,7 @@ def build_raft(config: RAFTConfig, *, device=None, seed: int = 0) -> RAFT:
                 if config.use_mask_predictor
                 else None
             ),
+            remat=config.remat,
         )
         _init_weights(model)
     _set_compute_dtype(model, compute_dtype)

@@ -771,3 +771,171 @@ def test_slow_path_on_the_worker_beside_the_pool(cuda_device):
         with torch.inference_mode():
             want = model(x1, x2, num_flow_updates=n, emit_all=False)[0].permute(1, 2, 0).cpu().numpy()
         np.testing.assert_allclose(r.flow, want[: a.shape[0], : a.shape[1]], rtol=0, atol=1e-4)
+
+
+# -- training on the card ------------------------------------------------------
+
+# tests/test_train.py's tiny_cfg widths (raft_small, and raft_large with its
+# BatchNorm context encoder), without importing the JAX package
+TINY = dict(feature_encoder_widths=(8, 8, 12, 16, 24), context_encoder_widths=(8, 8, 12, 16, 40),
+            motion_corr_widths=(16,), motion_flow_widths=(16, 8), motion_out_channels=20, gru_hidden=24,
+            flow_head_hidden=16)
+TINY_LARGE = dict(TINY, context_encoder_widths=(8, 8, 12, 16, 48), gru_hidden=32, corr_radius=2,
+                  motion_corr_widths=(16, 12))
+
+
+def _tiny_train_model(device, large=False, **over):
+    cfg = (rt.RAFT_LARGE if large else rt.RAFT_SMALL).replace(**(TINY_LARGE if large else TINY), **over)
+    model = rt.build_raft(cfg, device=device, seed=3)
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.05)
+    return model
+
+
+def _train_batch(device, b=2, hw=128, seed=1):
+    rng = np.random.default_rng(seed)
+    arr = {"image1": rng.uniform(-1, 1, (b, 3, hw, hw)), "image2": rng.uniform(-1, 1, (b, 3, hw, hw)),
+           "flow": rng.uniform(-5, 5, (b, 2, hw, hw)), "valid": (rng.random((b, hw, hw)) > 0.1)}
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in arr.items()}
+
+
+# the first step's whole gradient, card against CPU, in relative L2 norm:
+# a factor ~4 from either reading on an H100 (IEEE fp32 backward 2.2e-6
+# and 3.3e-6, small and large; TF32 backward 5.6e-5 and 8.6e-5)
+GRAD_REL = 1.4e-5
+
+
+def _train_steps(device, large, n, tf32_backward=False):
+    """``n`` train steps of the tiny model from seed 3's weights: each
+    step's metrics, the first step's gradients (recorded from the step's
+    ``torch.autograd.grad`` call) and the parameters' updates, on the host.
+    ``tf32_backward`` runs that call under TF32 settings for cuDNN's
+    convolutions and cuBLAS's matmuls, inside the step's IEEE pin."""
+    from raft_tpu_torch.train import TrainState, make_optimizer, make_train_step_fn, one_cycle_lr
+
+    knobs = (torch.backends.cudnn.conv, torch.backends.cuda.matmul)
+    real_grad = torch.autograd.grad
+    grads = []
+
+    def grad(*args, **kw):
+        saved = [k.fp32_precision for k in knobs]
+        if tf32_backward:
+            for k in knobs:
+                k.fp32_precision = "tf32"
+        try:
+            out = real_grad(*args, **kw)
+        finally:
+            for k, v in zip(knobs, saved):
+                k.fp32_precision = v
+        grads.append([g.detach().cpu().clone() for g in out])
+        return out
+
+    model = _tiny_train_model(device, large)
+    initial = [p.detach().cpu().clone() for p in model.parameters()]
+    tx = make_optimizer(one_cycle_lr(1e-4, 100))
+    state = TrainState.create(model, tx)
+    step = make_train_step_fn(model, tx, num_flow_updates=2)
+    batch = _train_batch(device)
+    metrics = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.autograd, "grad", grad)
+        for _ in range(n):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    updates = [p.detach().cpu() - p0 for p, p0 in zip(model.parameters(), initial)]
+    return metrics, torch.cat([g.reshape(-1) for g in grads[0]]), updates
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("large", [False, True], ids=["small", "large"])
+def test_train_step_on_card_matches_cpu(cuda_device, large):
+    """Two train steps on the card against the port's own CPU steps from
+    the same weights and batch: loss and EPE within 1e-5 relative,
+    grad_norm 1e-4, the first step's whole gradient within ``GRAD_REL``
+    in relative L2 norm, the parameters' updates 5e-2 in relative L2 norm
+    over all parameters (tests/test_torch_train.py's bounds). The control:
+    the card's first step again with TF32 allowed in its backward only
+    must miss the gradient bound, so the bound tells an IEEE fp32 backward
+    from a TF32 one (TF32 keeps 10 bits of an operand's mantissa)."""
+    cpu_m, cpu_g, cpu_du = _train_steps(torch.device("cpu"), large, 2)
+    card_m, card_g, card_du = _train_steps(cuda_device, large, 2)
+    _, tf32_g, _ = _train_steps(cuda_device, large, 1, tf32_backward=True)
+    err, tf32_err = _rel_l2(card_g, cpu_g), _rel_l2(tf32_g, cpu_g)
+    print(f"gradient relative L2 vs CPU: IEEE fp32 {err:.3e}, TF32 backward {tf32_err:.3e}")
+    for want, got in zip(cpu_m, card_m):
+        for k in ("loss", "epe"):
+            assert math.isclose(got[k], want[k], rel_tol=1e-5), (k, got[k], want[k])
+        assert math.isclose(got["grad_norm"], want["grad_norm"], rel_tol=1e-4)
+    assert err < GRAD_REL, err
+    assert tf32_err > GRAD_REL, tf32_err
+    a, b = torch.cat([d.reshape(-1) for d in card_du]), torch.cat([d.reshape(-1) for d in cpu_du])
+    assert _rel_l2(a, b) < 5e-2
+
+
+def test_remat_on_card(cuda_device):
+    """remat=True on the card: the loss bit for bit and every gradient
+    within 1e-4 relative L2 of remat=False's (cuDNN may pick another
+    backward algorithm for a recomputed step), or within 1e-6 of the whole
+    gradient's norm for a tensor whose gradient is rounding residue (a
+    conv bias before a norm)."""
+    from raft_tpu_torch.device import fp32_precision
+    from raft_tpu_torch.train import sequence_loss
+
+    batch = _train_batch(cuda_device)
+    out = []
+    for remat in (False, True):
+        model = _tiny_train_model(cuda_device, True, remat=remat).train()
+        with fp32_precision():
+            preds = model(batch["image1"], batch["image2"], num_flow_updates=2)
+            loss, _ = sequence_loss(preds, batch["flow"], batch["valid"])
+            out.append((loss.detach(), torch.autograd.grad(loss, list(model.parameters()))))
+    assert torch.equal(out[0][0], out[1][0])
+    total = float(torch.stack([g.norm() for g in out[0][1]]).norm())
+    for g0, g1 in zip(out[0][1], out[1][1]):
+        assert float((g1 - g0).norm()) <= 1e-4 * float(g0.norm()) + 1e-6 * total
+
+
+def test_bench_chain_graph_equals_eager(cuda_device):
+    """The bench's graphed chain (``inference.flow_program``): a pair copied
+    into its static buffers and replayed gives the eager model's flow on
+    those buffers bit for bit (raft_small fused, bf16 pyramid and convs:
+    the bench's raft_small headline, at a smaller frame)."""
+    from raft_tpu_torch.inference import flow_program, run_flow
+
+    model = rt.raft_small(corr_impl="fused", corr_dtype="bfloat16", compute_dtype="bfloat16", device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    pairs = torch.rand((3, 2, 1, 3, 128, 256), generator=gen, device=cuda_device) * 2 - 1
+    with torch.inference_mode():
+        prog = flow_program(model, pairs[0, 0].clone(), pairs[0, 1].clone(), num_flow_updates=6, name="test chain")
+        prog()
+        assert prog.captured
+        for i in (1, 2):
+            graphed = run_flow(prog, pairs[i, 0], pairs[i, 1]).clone()
+            eager = model(*prog.inputs, num_flow_updates=6, emit_all=False)
+            assert torch.isfinite(graphed).all() and torch.equal(graphed, eager)
+
+
+def test_train_step_makes_no_host_sync(cuda_device):
+    """After a warm-up step, a train step under ``torch.cuda``'s sync debug
+    mode 'error' (any synchronizing call raises): the step leaves its
+    metrics on the card, and the skip guard chooses there too."""
+    from raft_tpu_torch.train import TrainState, make_optimizer, make_train_step_fn, one_cycle_lr
+
+    model = _tiny_train_model(cuda_device, True)
+    tx = make_optimizer(one_cycle_lr(1e-4, 100))
+    state = TrainState.create(model, tx)
+    step = make_train_step_fn(model, tx, num_flow_updates=2, numerics_policy="skip", spike_factor=20.0,
+                              check_numerics=True)
+    batch = _train_batch(cuda_device)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.is_cuda for v in metrics.values())
+    assert float(metrics["skipped"]) == 0.0 and int(state.step) == 2

@@ -148,8 +148,10 @@ class TestPng:
 
     @pytest.mark.parametrize(
         "kwargs,match",
-        [(dict(ctype=3), "palette"), (dict(interlace=1), "interlaced"), (dict(depth=16), "8-bit"),
-         (dict(ctype=4), "8-bit gray, RGB and RGBA")],
+        # 16-bit samples are two bytes each: a 16-bit header over one byte
+        # a sample is a truncated file
+        [(dict(ctype=3), "palette"), (dict(interlace=1), "interlaced"), (dict(depth=16), "truncated"),
+         (dict(ctype=4), "8- and 16-bit gray, RGB and RGBA")],
         ids=["palette", "interlaced", "16bit", "gray_alpha"],
     )
     def test_refuses_what_it_does_not_decode(self, kwargs, match):
@@ -195,8 +197,11 @@ class TestFlowFiles:
     def test_read_flow_dispatch(self, tmp_path):
         flow, valid = io.read_flow(str(FIXTURE / FLOS[0]))
         assert valid is None and flow.shape == (92, 132, 2)
-        with pytest.raises(NotImplementedError, match="KITTI"):
-            io.read_flow(str(tmp_path / "x.png"))
+        # .png is KITTI's 16-bit flow with its validity channel
+        rng = np.random.default_rng(0)
+        jio.write_flow_png(str(tmp_path / "x.png"), rng.uniform(-9, 9, (5, 7, 2)), rng.random((5, 7)) > 0.5)
+        for got, want in zip(io.read_flow(str(tmp_path / "x.png")), jio.read_flow(str(tmp_path / "x.png"))):
+            np.testing.assert_array_equal(got, want)
         with pytest.raises(ValueError, match="unsupported"):
             io.read_flow(str(tmp_path / "x.jpg"))
 

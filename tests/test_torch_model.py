@@ -254,7 +254,7 @@ class TestEstimatorContract:
 
 
 class TestZoo:
-    @pytest.mark.parametrize("impl,item", [("onthefly", "item 11")])
+    @pytest.mark.parametrize("impl,item", [("onthefly", "item 5")])
     def test_unported_corr_impl_raises(self, impl, item):
         with pytest.raises(NotImplementedError, match=item):
             rt.raft_small(device="cpu", corr_impl=impl)

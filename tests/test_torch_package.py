@@ -13,7 +13,9 @@ import raft_tpu_torch as rt
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "flax", "raft_tpu")
+# the JAX package and what it leans on that the card machine lacks (or
+# that the port replaces with its own code)
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "raft_tpu", "cv2", "PIL", "msgpack", "tensorboardX")
 
 
 def _imported_roots(path):
@@ -28,8 +30,9 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    """No module of the port (nor the card smoke script) imports jax, flax
-    or the JAX package (``raft_tpu``, not followed by ``_torch``)."""
+    """No module of the port (nor the card smoke script) imports the JAX
+    package (``raft_tpu``, not followed by ``_torch``) or any of
+    ``FORBIDDEN``."""
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
@@ -47,19 +50,34 @@ SLICE_MODULES = (
     "raft_tpu_torch/kernels/inorm_pallas.py",
     "raft_tpu_torch/kernels/lookup_pallas.py",
     "raft_tpu_torch/utils/prefetch.py",
+    "raft_tpu_torch/checkpoint/manager.py",
+    "raft_tpu_torch/data/augment.py",
+    "raft_tpu_torch/data/pipeline.py",
+    "raft_tpu_torch/train/__init__.py",
+    "raft_tpu_torch/train/__main__.py",
+    "raft_tpu_torch/train/loss.py",
+    "raft_tpu_torch/train/optim.py",
+    "raft_tpu_torch/train/stability.py",
+    "raft_tpu_torch/train/state.py",
+    "raft_tpu_torch/train/step.py",
+    "raft_tpu_torch/train/trainer.py",
+    "raft_tpu_torch/utils/debug.py",
+    "raft_tpu_torch/utils/faults.py",
+    "raft_tpu_torch/utils/logging.py",
 )
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_slice_modules_are_checked(module):
-    """The evaluation and precision slices' modules exist and are among
-    those the two no-JAX checks cover."""
+    """The evaluation, precision and training slices' modules exist and
+    are among those the two no-JAX checks cover."""
     assert ROOT / module in PORT_FILES
 
 
 def test_import_leaves_jax_unloaded():
     """Importing every module of the port in a fresh interpreter loads
-    neither jax nor the JAX package."""
+    nothing of ``FORBIDDEN``: neither jax nor the JAX package, nor the
+    image and serialization libraries it uses."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "raft_tpu_torch").rglob("*.py")
@@ -67,7 +85,7 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'raft_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len(bad)); print(bad[:5])\n"
     )
     out = subprocess.run(
