@@ -31,7 +31,13 @@ Phases, each of which raises on failure (exit code 1):
      bench's ``_b8`` lines, and K2's bf16 and int8 forms at raft_small and
      batch 8; NaN cases: K1's fp32 form, K2's fp32 form and K4 on NaN
      centroids and K3's two forms on NaN features (both NaN bit patterns)
-     give NaN exactly where their plain versions do;
+     give NaN exactly where their plain versions do; K1 at the training
+     shapes (raft_large's chairs stage, Q = 22816, and the train bench,
+     Q = 26496), fp32/3xTF32 and bf16/bf16, against its plain version,
+     timed beside it, its library chain and its bound, and one training
+     lookup + projection, forward and backward, through the fused
+     block (K1, then the dense formulation's autograd) against the dense
+     block's: the gradients bit for bit, both timed;
   4. main path: raft_large (full widths, seeded random weights) with
      ``corr_impl='fused'`` answering 3 raw uint8 436x1024 requests at 32
      updates, first with ``FlowEstimator``'s model called eagerly on its
@@ -63,8 +69,10 @@ Phases, each of which raises on failure (exit code 1):
      ``validate`` over the same pairs (K3's bf16 form once per pair);
   9. bench: ``python -m raft_tpu_torch.bench`` at 2 pairs a configuration
      (each configuration's call captured once as a CUDA graph and
-     replayed), then ``--train`` at 2 steps a model, the lines checked
-     against the protocol's schema;
+     replayed), then ``--train`` at 2 steps a model, at dense fp32, at
+     ``--corr fused`` and at ``--corr fused --corr-dtype bfloat16 --dtype
+     bfloat16``, the lines checked against the protocol's schema and K1
+     launched 24 times a fused step (12 updates, remat);
  10. serving: ``ServeEngine`` over raft_large (the main path's weights) at
      'quality' (fused) and 'throughput', bucket 440x1024, pool capacity 8,
      warmed (every program captured as a CUDA graph), 24 requests of
@@ -84,7 +92,14 @@ Phases, each of which raises on failure (exit code 1):
      pipeline continuing the index stream), step times, pairs/s, peak
      memory, checkpoint save/restore seconds, no kernel of the port
      launched; then the loss must fall over 8 steps on one fixed batch,
-     one step profiled (idle share); the TF32 flags are checked unchanged;
+     one step profiled (idle share); the same at ``corr_impl='fused'``
+     with 2 steps a window, K1 once an update of each step's forward and
+     no other kernel; the fused step's first gradient against the dense
+     step's (2 updates, within ``TRAIN_GRAD_REL``) and a window of 2
+     fused steps bit for bit against two per-step calls (with a per-step
+     control); each remat policy at the train bench's shape (fused fp32:
+     pairs/s, peak memory, K1 24 launches a step, 12 under 'corr'); the
+     TF32 flags are checked unchanged;
  12. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
@@ -96,6 +111,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -725,6 +741,74 @@ def lowp_lookup_phase(device):
         log(f"kernels K1 {key} at batch 8 (Q={cents.shape[0] * cents.shape[1] * cents.shape[2]}): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in batch8[key].items()))
     return err, times, bounds, batch8, k2_shapes
+
+
+# K1 on the training path: raft_large's chairs stage (b=8, 368x496: a 46x62
+# grid, Q = 22816) and the train bench (b=6, 368x768: 46x96, Q = 26496), at
+# fp32 levels with the 3xTF32 product and at bf16 levels with the bf16 one
+TRAIN_SHAPES = {"chairs": (8, 46, 62), "bench": (6, 46, 96)}
+TRAIN_FORMS = (("k1", "fp32", None), ("k1_bf16_bf16", "bf16", torch.bfloat16))
+
+
+def k1_training_phase(device):
+    """K1 at the training shapes, each form against its plain version,
+    timed beside its plain version, its library chain and its bound; and
+    at fp32 one training lookup + projection, forward and backward, through
+    ``project_fused_diff`` (K1, then the dense formulation's autograd)
+    against the dense block's own forward and backward."""
+    from raft_tpu_torch.kernels import lookup_xtap as lx
+    from raft_tpu_torch.models.corr import CorrBlock
+
+    rows = {key: {} for key, _, _ in TRAIN_FORMS}
+    for label, (b, h, w) in TRAIN_SHAPES.items():
+        pyr32, cents, weight, bias = kernel_inputs(device, b, h, w)
+        weight_bf16 = lx.project_weight_bf16(weight)
+        for key, storage, proj in TRAIN_FORMS:
+            pyr = pyr32 if storage == "fp32" else lowp_pyramid(pyr32, storage)
+            wb = weight_bf16 if proj is not None else None
+            got = lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj, wb)
+            want = lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj)
+            torch.cuda.synchronize()
+            e, tol = (got.float() - want.float()).abs().max().item(), k1_tolerance(want, storage, proj)
+            if not (got.dtype == want.dtype and e <= tol):
+                raise AssertionError(f"K1 {key} disagrees with its plain version at the {label} training shape")
+            b1 = k1_bound(pyr, cents, weight, bias, RADIUS, proj)
+            rows[key].update({
+                f"train_{label}_ms": cuda_ms(
+                    lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj, wb)),
+                f"train_{label}_plain_ms": cuda_ms(
+                    lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj), reps=5),
+                f"train_{label}_library_ms": cuda_ms(
+                    lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS, None, proj or torch.float32), reps=5),
+                f"train_{label}_bound_ms": b1[0], f"train_{label}_bound_by": b1[1], f"train_{label}_max_abs_err": e,
+            })
+        # one training lookup + projection at fp32: forward and backward
+        # (levels, weight and bias require grad; the centroids are detached)
+        dense = CorrBlock(LEVELS, RADIUS)
+        fused = lx.FusedLookupCorrBlock(LEVELS, RADIUS)
+        leaves = [lvl.detach().requires_grad_() for lvl in pyr32]
+        wt, bs = weight.view(*weight.shape, 1, 1).detach().requires_grad_(), bias.detach().requires_grad_()
+        cot = torch.randn((b, C_OUT, h, w), device=device, generator=torch.Generator(device=device).manual_seed(3))
+
+        def fwd_bwd(block):
+            out = block.index_project(leaves, cents, wt, bs)
+            return torch.autograd.grad(out, leaves + [wt, bs], cot)
+
+        gf, gd = fwd_bwd(fused), fwd_bwd(dense)
+        same = all(torch.equal(a, c) for a, c in zip(gf, gd))
+        rows["k1"].update({
+            f"train_{label}_fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(fused), reps=5),
+            f"train_{label}_dense_fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(dense), reps=5),
+        })
+        log(f"kernels K1 at the {label} training shape (Q={b * h * w}): " + "; ".join(
+            f"{key} " + ", ".join(f"{k[len(label) + 7:]} {v:.4g}" if isinstance(v, float)
+                                  else f"{k[len(label) + 7:]} {v}"
+                                  for k, v in rows[key].items() if k.startswith(f"train_{label}_"))
+            for key, _, _ in TRAIN_FORMS) + f"; fused block's gradients the dense block's bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"the fused block's gradients are not the dense block's at the {label} shape")
+        del pyr32, leaves, gf, gd
+    return rows
 
 
 def volume_bf16_phase(device):
@@ -1443,18 +1527,21 @@ def states_equal(a: dict, b: dict) -> bool:
     return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
 
 
-def train_phase(device, card, overrides=None):
-    """``Trainer`` at the chairs stage of raft_large, full width: 8 steps
-    on a synthetic FlyingChairs tree, checkpoints every 4, a boundary every
-    2 (each loss finite), preempted after step 4 and resumed by a second
+def train_phase(device, card, overrides=None, corr_impl="dense", window_size=1):
+    """``Trainer`` at the chairs stage of raft_large, full width, at
+    ``corr_impl`` with ``window_size`` steps a dispatch: 8 steps on a
+    synthetic FlyingChairs tree, checkpoints every 4, a boundary every 2
+    (each loss finite), preempted after step 4 and resumed by a second
     Trainer whose restored state equals the saved one bit for bit and whose
     pipeline continues the index stream at step 4; step times (CUDA events
-    around each step), pairs/s, peak memory, checkpoint save and restore
-    seconds; 8 steps on one fixed batch must lower the loss, and one of
-    them runs under torch.profiler (idle share). No CUDA kernel of the
-    port's runs on this path (dense fp32): the launch counts stay 0.
-    ``overrides`` (TrainConfig fields) shrink the phase for a CPU rehearsal;
-    without them it is the chairs stage itself."""
+    around each dispatch), pairs/s, peak memory, checkpoint save and
+    restore seconds; 8 steps on one fixed batch must lower the loss, and
+    one of them runs under torch.profiler (idle share). At ``dense`` no
+    CUDA kernel of the port's runs (the launch counts stay 0); at
+    ``fused`` K1 runs once an update of every step's forward (no remat)
+    and no other kernel runs. ``overrides`` (TrainConfig fields) shrink the
+    phase for a CPU rehearsal; without them it is the chairs stage itself.
+    Returns the launch counts of the Trainer's 8 steps."""
     import tempfile
 
     from raft_tpu_torch.checkpoint import CheckpointManager
@@ -1471,22 +1558,29 @@ def train_phase(device, card, overrides=None):
         log(f"train: synthetic FlyingChairs tree, {len(ds)} pairs at {TRAIN_FRAME[0]}x{TRAIN_FRAME[1]} "
             f"(PPM + .flo) in {time.perf_counter() - t0:.2f} s")
         cfg = TrainConfig(arch="raft_large", stage="chairs", num_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
-                          log_every=TRAIN_LOG_EVERY, checkpoint_dir=str(tmp / "ckpt"), **(overrides or {}))
+                          log_every=TRAIN_LOG_EVERY, checkpoint_dir=str(tmp / "ckpt"), corr_impl=corr_impl,
+                          window_size=window_size, **(overrides or {}))
         if overrides is None and (cfg.global_batch_size, cfg.crop_size, cfg.num_flow_updates) != (8, (368, 496), 12):
             raise AssertionError("TrainConfig's defaults are not the chairs stage")
         first = Trainer(cfg, ds)
         events = []
-        step_fn = first.step_fn
 
-        def timed_step(state, batch):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step_fn(state, batch)
-            end.record()
-            events.append((start, end))
-            return out
+        def timed(trainer):
+            """Time each of the trainer's dispatches (a step or a window)."""
+            attr = "window_fn" if trainer.window_fn is not None else "step_fn"
+            fn = getattr(trainer, attr)
 
-        first.step_fn = timed_step
+            def timed_fn(state, batch):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(state, batch)
+                end.record()
+                events.append((start, end))
+                return out
+
+            setattr(trainer, attr, timed_fn)
+
+        timed(first)
         logs, saved = [], {}
 
         def on_log(step, m):
@@ -1518,8 +1612,7 @@ def train_phase(device, card, overrides=None):
         got = [next(stream) for _ in range(len(want))]
         if second.pipeline.step != TRAIN_CKPT_EVERY or got != want:
             raise AssertionError("the resumed pipeline does not continue the index stream")
-        step_fn = second.step_fn
-        second.step_fn = timed_step
+        timed(second)
         t0 = time.perf_counter()
         second.run(log_fn=lambda step, m: logs.append((step, m)))
         torch.cuda.synchronize()
@@ -1534,17 +1627,24 @@ def train_phase(device, card, overrides=None):
         if [s for s, _ in logs] != list(range(TRAIN_LOG_EVERY, TRAIN_STEPS + 1, TRAIN_LOG_EVERY)) or not all(
                 math.isfinite(m["loss"]) for _, m in logs):
             raise AssertionError("a boundary is missing or its loss is not finite")
-        ms = [s.elapsed_time(e) for s, e in events]
-        steady = ms[1:TRAIN_CKPT_EVERY] + ms[TRAIN_CKPT_EVERY + 1:]  # each run's first step warms up
+        # a step's time: each dispatch's over its steps; each run's first
+        # dispatch warms up
+        ms = [s.elapsed_time(e) / window_size for s, e in events]
+        half = TRAIN_CKPT_EVERY // window_size
+        steady = ms[1:half] + ms[half + 1:]
+        what = f"{corr_impl} fp32, no remat, window {window_size}"
         log(f"train: {cfg.arch} {cfg.stage} stage (b={cfg.global_batch_size}, {cfg.crop_size[0]}x{cfg.crop_size[1]}, "
-            f"{cfg.num_flow_updates} updates, dense fp32, no remat), {TRAIN_STEPS} "
-            f"steps in two runs: step ms (CUDA events) {[round(t, 3) for t in ms]}, median after warm-up "
+            f"{cfg.num_flow_updates} updates, {what}), {TRAIN_STEPS} "
+            f"steps in two runs: step ms (CUDA events, a dispatch's over its steps) {[round(t, 3) for t in ms]}, "
+            f"median after warm-up "
             f"{float(np.median(steady)):.3f} ms = {cfg.global_batch_size * 1e3 / float(np.median(steady)):.3f} "
             f"pairs/s; wall "
             f"{wall1:.3f} + {wall2:.3f} s; peak device memory {peak} B ({peak / 2**30:.3f} GiB); "
             f"launches {launches}; card {card}")
-        if any(launches.values()):
-            raise AssertionError(f"the dense training path launched a CUDA kernel of the port: {launches}")
+        want_k1 = cfg.num_flow_updates * TRAIN_STEPS if corr_impl == "fused" else 0
+        if launches != dict.fromkeys(launches, 0) | {"k1": want_k1}:
+            raise AssertionError(f"the {corr_impl} training path launched {launches}, expected K1 {want_k1} times "
+                                 "and no other kernel")
 
         mgr = CheckpointManager(str(tmp / "timing"), max_to_keep=3)
         torch.cuda.synchronize()
@@ -1566,14 +1666,18 @@ def train_phase(device, card, overrides=None):
         # test_loss_decreases_on_fixed_batch, at full width)
         batch = next(iter(TrainPipeline(ds, cfg.global_batch_size, augmentor=second._augmentor, seed=1,
                                         device=device)))
-        model = build_raft(CONFIGS[cfg.arch], device=device, seed=0)
+        model = build_raft(CONFIGS[cfg.arch].replace(corr_impl=corr_impl), device=device, seed=0)
         tx = make_optimizer(1e-4, weight_decay=1e-5)
         state = TrainState.create(model, tx)
         step = make_train_step_fn(model, tx, num_flow_updates=cfg.num_flow_updates)
         losses = []
-        for _ in range(TRAIN_STEPS - 1):
+        for i in range(TRAIN_STEPS - 1):
             state, m = step(state, batch)
             losses.append(m["loss"])
+            if i == 0:  # the first step's cuDNN trials stay out of the warm steps' peak
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+        warm_peak = torch.cuda.max_memory_allocated(device)
         prof = profile_request(lambda: step(state, batch), ())
         if prof is not None:
             by_name, busy_us = prof
@@ -1583,17 +1687,161 @@ def train_phase(device, card, overrides=None):
                 f"step's device busy time")
         state, m = step(state, batch)
         losses = [float(x) for x in losses + [m["loss"]]]
-        log(f"train: {len(losses) + 1} steps on one fixed batch, lr 1e-4: loss {[round(x, 5) for x in losses]}")
+        log(f"train: {len(losses) + 1} steps on one fixed batch at {corr_impl}, lr 1e-4: loss "
+            f"{[round(x, 5) for x in losses]}; peak device memory of the warm steps {warm_peak} B "
+            f"({warm_peak / 2**30:.3f} GiB)")
         if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
             raise AssertionError("the loss did not fall on a fixed batch")
-    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    log(f"train phase ({corr_impl}, window {window_size}): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# the fused step's first gradient against the dense step's, on the card,
+# in relative L2 norm over all parameters, both under cuDNN's
+# deterministic algorithms: the forwards differ by K1's 3xTF32 sums
+# (within 1e-4 of the plain version an output), which the backward, the
+# same dense formulation, carries into the gradient
+TRAIN_GRAD_REL = 1e-3
+TRAIN_GRAD_UPDATES = 2  # few updates: the recurrence amplifies rounding (ROADMAP's chaos trap)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms while the block is
+    open (``cudnn.benchmark`` then times only those). With the fastest
+    algorithms the card's backward is not bit-reproducible: some weight
+    gradients sum by atomics."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def fused_training_checks(device, card, overrides=None):
+    """At raft_large's chairs stage on one augmented batch, full width:
+    (1) the first gradient of a fused step against a dense step's from the
+    same weights at ``TRAIN_GRAD_UPDATES`` updates, in relative L2 over all
+    parameters: under cuDNN's deterministic algorithms within
+    ``TRAIN_GRAD_REL``, and, for scale, with the fastest ones, beside a
+    second dense run (the run-to-run spread of the atomics); (2) under the
+    deterministic algorithms, a window of 2 steps against two per-step
+    calls from the same weights at 12 updates, fused, the state
+    (parameters, buffers, Adam, counters) bit for bit, with a second
+    per-step run as the control that the step repeats itself bit for bit.
+    ``overrides`` (TrainConfig fields) shrink it for a CPU rehearsal."""
+    import tempfile
+
+    from raft_tpu_torch.data import FlyingChairs
+    from raft_tpu_torch.data.augment import AugmentConfig, FlowAugmentor
+    from raft_tpu_torch.data.pipeline import TrainPipeline
+    from raft_tpu_torch.device import cudnn_benchmark, fp32_precision
+    from raft_tpu_torch.models.zoo import CONFIGS, build_raft
+    from raft_tpu_torch.train import (TrainConfig, TrainState, make_optimizer, make_train_step_fn, make_window_step,
+                                      sequence_loss)
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(arch="raft_large", stage="chairs", **(overrides or {}))
+    with tempfile.TemporaryDirectory(prefix="raft_train_") as tmp:
+        ds = FlyingChairs(str(write_chairs(Path(tmp) / "chairs")))
+        aug = FlowAugmentor(AugmentConfig(crop_size=cfg.crop_size, min_scale=-0.1, max_scale=1.0))
+        it = iter(TrainPipeline(ds, cfg.global_batch_size, augmentor=aug, seed=2, device=device))
+        batches = [next(it) for _ in range(2)]
+        it.close()
+
+    def first_gradient(impl):
+        model = build_raft(CONFIGS[cfg.arch].replace(corr_impl=impl), device=device, seed=0).train()
+        with cudnn_benchmark(), fp32_precision():
+            preds = model(batches[0]["image1"], batches[0]["image2"], num_flow_updates=TRAIN_GRAD_UPDATES)
+            loss, _ = sequence_loss(preds, batches[0]["flow"], batches[0].get("valid"))
+            return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, list(model.parameters()))])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    fast = {run: first_gradient(impl) for run, impl in (("dense", "dense"), ("dense again", "dense"),
+                                                         ("fused", "fused"))}
+    with cudnn_deterministic():
+        det = {impl: first_gradient(impl) for impl in ("dense", "fused")}
+    grad_rel = rel(det["fused"], det["dense"])
+    log(f"train check: first gradient at {TRAIN_GRAD_UPDATES} updates (b={cfg.global_batch_size}, "
+        f"{cfg.crop_size[0]}x{cfg.crop_size[1]}), relative L2 over all parameters: fused vs dense {grad_rel:.3e} "
+        f"under cuDNN's deterministic algorithms (bound {TRAIN_GRAD_REL:g}); with the fastest ones fused vs dense "
+        f"{rel(fast['fused'], fast['dense']):.3e}, dense vs dense again {rel(fast['dense again'], fast['dense']):.3e}; "
+        f"card {card}")
+    if not grad_rel <= TRAIN_GRAD_REL:
+        raise AssertionError("the fused step's gradient misses the dense step's")
+    del fast, det
+
+    def state_tensors(state):
+        sd = state.state_dict()
+        return ([sd["model"][k] for k in sorted(sd["model"])] + sd["opt_state"]["mu"] + sd["opt_state"]["nu"]
+                + [sd["opt_state"]["count"]] + [sd[k] for k in ("step", "skipped_steps", "good_steps", "grad_ema")])
+
+    kw = dict(num_flow_updates=cfg.num_flow_updates, numerics_policy="skip", spike_factor=20.0)
+    runs = {}
+    with cudnn_deterministic():
+        for run in ("per_step", "control", "window"):
+            model = build_raft(CONFIGS[cfg.arch].replace(corr_impl="fused"), device=device, seed=0)
+            tx = make_optimizer(1e-4, weight_decay=1e-4, clip_norm=1.0)
+            state = TrainState.create(model, tx)
+            reset_counts()
+            if run == "window":
+                window = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+                state, metrics = make_window_step(model, tx, window_size=2, **kw)(state, window)
+                losses = metrics["loss"].tolist()
+            else:
+                step = make_train_step_fn(model, tx, **kw)
+                losses = []
+                for b in batches:
+                    state, m = step(state, b)
+                    losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            runs[run] = ([t.detach().clone() for t in state_tensors(state)], losses, read_counts()["k1"])
+            del model, state
+    same = {run: all(torch.equal(a, b) for a, b in zip(runs[run][0], runs["per_step"][0]))
+            for run in ("control", "window")}
+    log(f"train check: under cuDNN's deterministic algorithms, a window of 2 fused steps ({cfg.num_flow_updates} "
+        f"updates) against 2 per-step calls: state bit for bit {same['window']} (per-step control "
+        f"{same['control']}); losses {runs['window'][1]} vs {runs['per_step'][1]}; K1 launches {runs['window'][2]} "
+        f"vs {runs['per_step'][2]}")
+    if not (same["control"] and same["window"] and runs["window"][2] == runs["per_step"][2] > 0):
+        raise AssertionError("the window step is not the per-step loop bit for bit")
+    log(f"train checks: {time.perf_counter() - t_phase:.1f} s")
+    return grad_rel
+
+
+# the remat policies at the train bench's shape (raft_large, b=6, 368x768,
+# 12 updates, fused fp32): K1 twice a refinement step a training step (the
+# forward, then the recompute) except under 'corr', which keeps its output
+REMAT_STEPS = 3
+REMAT_K1 = {None: 24, "dots": 24, "dots_no_batch": 24, "corr": 12}
+
+
+def remat_phase(device, card):
+    """Each remat policy through the train bench (``bench_train``, its
+    warm-up step then ``REMAT_STEPS`` timed steps): pairs/s, step ms, peak
+    memory and K1's launches a step."""
+    from raft_tpu_torch import bench
+
+    rows = {}
+    for policy, want in REMAT_K1.items():
+        r = bench.bench_train("raft_large", steps=REMAT_STEPS, corr="fused", remat_policy=policy, device=device)
+        rows[policy or "none"] = r
+        log(f"remat: raft_large fused fp32 b={bench.TRAIN_BATCH} {bench.TRAIN_CROP[0]}x{bench.TRAIN_CROP[1]}, "
+            f"remat_policy={policy}: {r['pairs_per_s']:.3f} pairs/s = {bench.TRAIN_BATCH * 1e3 / r['pairs_per_s']:.1f} "
+            f"ms a step, peak {r['peak_memory_bytes']} B ({r['peak_memory_bytes'] / 2**30:.3f} GiB), K1 "
+            f"{r['k1_launches_per_step']:g} launches a step; card {card}")
+        if r["k1_launches_per_step"] != want:
+            raise AssertionError(f"remat_policy={policy}: K1 ran {r['k1_launches_per_step']} times a step, not {want}")
+    return rows
 
 
 def bench_phase():
     """``python -m raft_tpu_torch.bench`` at 2 pairs a configuration, in
     this process (its kernels are built): the lines and their schema. The
     full protocol is 128 pairs, the command logged here."""
-    import contextlib
     import io
 
     from raft_tpu_torch import bench
@@ -1631,6 +1879,32 @@ def bench_phase():
         "full protocol is `python -m raft_tpu_torch.bench --train` (20 steps a model)")
     if not ok:
         raise AssertionError("the bench's training lines do not follow its protocol")
+    # training through K1: fused fp32, then fused with bf16 pyramid and convs
+    # (K1's bf16 product), 24 launches a step (12 updates, remat)
+    k1_train = {}
+    for args, label in ((["--corr", "fused"], "corr_impl=fused, corr_dtype=fp32, compute_dtype=fp32"),
+                        (["--corr", "fused", "--corr-dtype", "bfloat16", "--dtype", "bfloat16"],
+                         "corr_impl=fused, corr_dtype=bf16, compute_dtype=bf16")):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--train", "--steps", "2", *args])
+        lines = [json.loads(s) for s in out.getvalue().strip().splitlines()]
+        for line in lines:
+            log(f"bench --train {' '.join(args)}: {json.dumps(line)}")
+        metrics = lines[1:]
+        launches = lines[0].get("k1_launches_per_step", {})
+        ok = rc == 0 and [m["metric"] for m in metrics] == ["raft_small_train_pairs_s", "raft_large_train_pairs_s"] \
+            and all({"metric", "value", "unit", "protocol", "config"} <= set(m) and m["value"] > 0
+                    and m["unit"] == "pairs/s" and m["config"].startswith(label) and "tf32=off" in m["config"]
+                    and launches.get(m["metric"]) == 24 for m in metrics) and lines[0].get("card")
+        log(f"bench --train {' '.join(args)}: schema and K1 launches {'ok' if ok else 'WRONG'}, "
+            f"{time.perf_counter() - t0:.1f} s at --steps 2")
+        if not ok:
+            raise AssertionError("the bench's fused training lines do not follow its protocol")
+        k1_train[label] = {"pairs_per_s": {m["metric"]: m["value"] for m in metrics},
+                           "peak_memory_bytes": lines[0]["peak_memory_bytes"], "k1_launches_per_step": launches}
+    return k1_train
 
 
 def tf32_flags():
@@ -1678,6 +1952,7 @@ def main() -> int:
 
     lookup_err, lookup_times, lookup_bounds, k4_launches = lookup_phase(device)
     lowp_err, lowp_times, lowp_bounds, k1_batch8, k2_shapes = lowp_lookup_phase(device)
+    k1_train = k1_training_phase(device)
     k3_err, k3_times = volume_phase(device)
     k3b_err, k3b_times = volume_bf16_phase(device)
     t0 = time.perf_counter()
@@ -1701,11 +1976,14 @@ def main() -> int:
     log(f"tf32 flags after the main paths: unchanged, {tf32_flags()}")
     _, golden_launches = golden_phase(device)
     k3_launches, k3b_launches = sintel_path(device, card)
-    bench_phase()
+    bench_train_k1 = bench_phase()
     k1_serve_q, _ = serving_phase(device, card, "quality", weights)
     k1_serve_t, _ = serving_phase(device, card, "throughput", weights)
     golden_serving_phase(device)
     train_phase(device, card)
+    fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
+    fused_training_checks(device, card)
+    remat_phase(device, card)
     if tf32_flags() != flags:
         raise AssertionError(f"training left the tf32 flags changed: {tf32_flags()} after {flags}")
     log(f"tf32 flags after the training phase: unchanged, {tf32_flags()}")
@@ -1729,7 +2007,11 @@ def main() -> int:
               launches["k1"], "FlowEstimator, raft_large fused fp32 (main path, graph replays)", lookup_err["k1"], k1,
               lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1, **k1_batch8["k1"],
               serving_path=f"ServeEngine 'quality' at fused, raft_large, {SERVE_REQUESTS} requests (graph replays)",
-              serving_launches=k1_serve_q),
+              serving_launches=k1_serve_q,
+              training_path=f"Trainer, raft_large chairs stage at fused fp32 (b=8, 368x496, 12 updates, window 2), "
+                            f"{TRAIN_STEPS} steps", training_launches=fused_launches["k1"],
+              bench_train_k1_launches_per_step=bench_train_k1[
+                  "corr_impl=fused, corr_dtype=fp32, compute_dtype=fp32"]["k1_launches_per_step"], **k1_train["k1"]),
         entry("xtap_project (K1), bf16 levels, 3xTF32 product", lookup_src, k1_src,
               golden_launches["fused + bf16 corr"], "validate, golden fixture at fused + bf16 corr (clean)",
               lowp_err["k1_bf16"], lowp_times["k1_bf16"], lowp_bounds["k1_bf16"]),
@@ -1738,7 +2020,11 @@ def main() -> int:
               lowp_err["k1_bf16_bf16"],
               lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"], **k1_batch8["k1_bf16_bf16"],
               serving_path=f"ServeEngine 'throughput', raft_large, {SERVE_REQUESTS} requests (graph replays)",
-              serving_launches=k1_serve_t),
+              serving_launches=k1_serve_t,
+              training_path="bench --train --corr fused --corr-dtype bfloat16 --dtype bfloat16 (b=6, 368x768, "
+                            "12 updates, remat)", bench_train_k1_launches_per_step=bench_train_k1[
+                  "corr_impl=fused, corr_dtype=bf16, compute_dtype=bf16"]["k1_launches_per_step"],
+              **k1_train["k1_bf16_bf16"]),
         entry("xtap_project (K1), int8 levels, 3xTF32 product", lookup_src, k1_src, golden_launches["edge"],
               "validate, golden fixture at 'edge' (clean)", lowp_err["k1_int8"], lowp_times["k1_int8"],
               lowp_bounds["k1_int8"]),

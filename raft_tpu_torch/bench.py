@@ -34,11 +34,14 @@ JSON line per configuration, ``{"metric", "value", "unit", "vs_baseline",
 
 ``--train`` benches the training step instead (the JAX ``bench.py
 --train``): per model, ``{arch}_train_pairs_s`` at b=6, 368x768, 12
-updates, ``remat=True``, ``corr_impl='dense'`` in IEEE fp32, on one
-synthetic seeded batch made on the card: one warm-up step, then
+updates, ``remat=True``, by default ``corr_impl='dense'`` in IEEE fp32, on
+one synthetic seeded batch made on the card: one warm-up step, then
 ``--steps`` steps (default 20) back to back with CUDA events around them
-and one synchronize. The step runs eagerly (capturing it as a CUDA graph
-is ROADMAP work), which its ``protocol`` string says.
+and one synchronize. ``--corr``, ``--corr-dtype``, ``--dtype`` and
+``--remat-policy`` set the step's knobs, with the JAX labels (``--corr
+fused`` runs K1 in the forward, twice a refinement step under remat; its
+launches a step go to the info line). The step runs eagerly (capturing it
+as a CUDA graph is ROADMAP work), which its ``protocol`` string says.
 """
 
 from __future__ import annotations
@@ -143,15 +146,27 @@ TRAIN_BATCH, TRAIN_CROP, TRAIN_UPDATES, TRAIN_STEPS = 6, (368, 768), 12, 20
 
 
 def bench_train(arch: str, *, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH, crop=TRAIN_CROP,
-                iters: int = TRAIN_UPDATES, device="cuda", seed: int = 0) -> dict:
-    """Training pairs per second of ``arch`` at dense fp32 with remat: the
-    full train step (forward, sequence loss, backward, clip + AdamW) on one
-    synthetic batch, and the peak device memory."""
+                iters: int = TRAIN_UPDATES, corr: Optional[str] = None, corr_dtype: Optional[str] = None,
+                dtype: Optional[str] = None, remat_policy: Optional[str] = None, device="cuda",
+                seed: int = 0) -> dict:
+    """Training pairs per second of ``arch`` with remat (dense fp32 unless
+    ``corr``, ``corr_dtype``, ``dtype``, ``remat_policy`` say otherwise,
+    as the JAX ``bench_train`` takes them): the full train step (forward,
+    sequence loss, backward, clip + AdamW) on one synthetic batch, the peak
+    device memory and K1's launches a timed step."""
+    from raft_tpu_torch.kernels.lookup_xtap import lookup_project_fused
     from raft_tpu_torch.models.zoo import CONFIGS, build_raft
     from raft_tpu_torch.train import TrainState, make_optimizer, make_train_step
 
+    if corr_dtype == "int8":
+        raise ValueError("corr_dtype='int8' is inference-only; use bfloat16")
+    cfg = CONFIGS[arch].replace(remat=True, remat_policy=remat_policy, corr_impl=corr or "dense")
+    if corr_dtype is not None:
+        cfg = cfg.replace(corr_dtype=corr_dtype)
+    if dtype is not None:
+        cfg = cfg.replace(compute_dtype=dtype)
     dev = torch.device(device)
-    model = build_raft(CONFIGS[arch].replace(remat=True, corr_impl="dense"), device=dev, seed=seed)
+    model = build_raft(cfg, device=dev, seed=seed)
     tx = make_optimizer(1e-4, weight_decay=1e-4, clip_norm=1.0)
     state = TrainState.create(model, tx)
     step_fn = make_train_step(model, tx, num_flow_updates=iters)
@@ -167,6 +182,7 @@ def bench_train(arch: str, *, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH
     float(metrics["loss"])
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    launches = lookup_project_fused.launches
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(steps):
@@ -176,8 +192,11 @@ def bench_train(arch: str, *, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH
     seconds = start.elapsed_time(end) / 1e3
     if not math.isfinite(float(metrics["loss"])):
         raise RuntimeError(f"{arch} training bench: nonfinite loss")
+    protocol = f"b={batch} {h}x{w} {iters} iters, fwd+bwd+AdamW, remat, eager"
+    if remat_policy:
+        protocol += f", remat_policy={remat_policy}"
     return {"pairs_per_s": steps * batch / seconds, "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-            "protocol": f"b={batch} {h}x{w} {iters} iters, fwd+bwd+AdamW, remat, eager"}
+            "k1_launches_per_step": (lookup_project_fused.launches - launches) / steps, "protocol": protocol}
 
 
 def card_line() -> str:
@@ -202,19 +221,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--no-exact", action="store_true", help="skip the _exact and _native lines")
     ap.add_argument("--train", action="store_true", help="bench the training step instead")
     ap.add_argument("--steps", type=int, default=TRAIN_STEPS, help="timed train steps (--train)")
+    ap.add_argument("--remat-policy", default=None, choices=["dots", "dots_no_batch", "corr"],
+                    help="selective-remat policy for --train")
     args = ap.parse_args(argv)
     dev = resolve_device()
-    lines, memory, inputs = [], {}, {}
+    lines, memory, inputs, k1 = [], {}, {}, {}
     if args.train:
+        # the JAX labels: the library default corr is dense, and
+        # corr_dtype=None follows the compute dtype
+        t_impl = args.corr or "dense"
+        t_dt = args.dtype or "float32"
+        t_cdt = args.corr_dtype or t_dt
         for arch in args.models:
-            r = bench_train(arch, steps=args.steps, device=dev)
+            r = bench_train(arch, steps=args.steps, corr=args.corr, corr_dtype=args.corr_dtype, dtype=args.dtype,
+                            remat_policy=args.remat_policy, device=dev)
             metric = f"{arch}_train_pairs_s"
             lines.append({"metric": metric, "value": round(r["pairs_per_s"], 3), "unit": "pairs/s",
-                          "protocol": r["protocol"],
-                          "config": describe_config("dense", "float32", "float32", TRAIN_BATCH)})
+                          "protocol": r["protocol"], "config": describe_config(t_impl, t_cdt, t_dt, TRAIN_BATCH)})
             memory[metric] = r["peak_memory_bytes"]
+            k1[metric] = r["k1_launches_per_step"]
         print(json.dumps({"card": card_line(), "device": torch.cuda.get_device_name(dev), "steps": args.steps,
-                          "peak_memory_bytes": memory}), flush=True)
+                          "peak_memory_bytes": memory, "k1_launches_per_step": k1}), flush=True)
         for line in lines:
             print(json.dumps(line), flush=True)
         return 0

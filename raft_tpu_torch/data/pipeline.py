@@ -1,7 +1,7 @@
 """Input pipeline: augmented, prefetched training batches on the device.
 
 Ported from the JAX package's ``raft_tpu/data/pipeline.py`` for one
-process and ``window_size=1``:
+process:
 
   * deterministic epoch shuffling from a seed: epoch ``e`` is
     ``np.random.default_rng((seed, e)).permutation(len(dataset))``, and a
@@ -17,19 +17,21 @@ process and ``window_size=1``:
     :func:`normalize_images`), copied to the device from pinned memory
     with ``non_blocking=True`` and permuted to the port's NCHW on a
     prefetch thread (``utils.prefetch``), ``prefetch_depth`` batches
-    ahead.
-
-Stacked batch windows (``window_size > 1``) are not ported yet (ROADMAP
-queue 1 item 2d).
+    ahead;
+  * stacked batch windows (``window_size=k > 1``): ``k`` consecutive
+    batches, in the per-step order, staged in rotating preallocated host
+    buffers (:class:`_WindowStaging`, pinned for the card) and sent to the
+    device in one copy a window, for ``train.step.make_window_step``.
 """
 
 from __future__ import annotations
 
+import math
 import random
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +43,75 @@ from raft_tpu_torch.utils.faults import BadSampleBudgetError, DataFaultPolicy
 from raft_tpu_torch.utils.prefetch import prefetch
 
 __all__ = ["TrainPipeline", "collate", "normalize_images", "to_device"]
+
+
+class _WindowStaging:
+    """Rotating preallocated host buffers for stacked batch windows (the
+    JAX package's ``_WindowStaging``).
+
+    ``k`` consecutive host batches (float32 NHWC arrays) are copied into
+    ONE flat buffer of a ring of ``slots``, every key's ``(k, ...)`` block
+    a view of it, in place of a per-window ``np.stack``. For the card the
+    buffers are pinned, so a window goes to the device in one non-blocking
+    copy, and a buffer is rewritten only once the copy that read it has
+    finished (an event a slot: the host runs ahead of the device, so
+    ``slots`` alone cannot promise that)."""
+
+    def __init__(self, slots: int, device: torch.device):
+        self._slots = max(2, int(slots))
+        self._device = device
+        self._rings: Dict[tuple, list] = {}
+        self._idx: Dict[tuple, int] = {}
+
+    def stack(self, batches) -> Tuple[torch.Tensor, list, int, tuple]:
+        """The window's flat host buffer, its layout ``[(key, shape,
+        offset)]``, the slot and the ring's key."""
+        k = len(batches)
+        first = batches[0]
+        sig = (k,) + tuple((key, v.shape, str(v.dtype)) for key, v in first.items())
+        ring = self._rings.get(sig)
+        if ring is None:
+            numel = k * sum(v.size for v in first.values())
+            pin = self._device.type == "cuda"
+            ring = [[torch.empty(numel, dtype=torch.float32, pin_memory=pin), None] for _ in range(self._slots)]
+            self._rings[sig] = ring
+            self._idx[sig] = 0
+        i = self._idx[sig]
+        self._idx[sig] = (i + 1) % len(ring)
+        buf, copied = ring[i]
+        if copied is not None:
+            copied.synchronize()  # the copy that last read this buffer
+        flat = buf.numpy()
+        layout, off = [], 0
+        for key, v in first.items():
+            if v.dtype != np.float32:
+                raise TypeError(f"window staging takes float32 arrays, got {key}: {v.dtype}")
+            block = flat[off:off + k * v.size].reshape((k,) + v.shape)
+            for j, b in enumerate(batches):
+                block[j] = b[key]
+            layout.append((key, (k,) + v.shape, off))
+            off += k * v.size
+        return buf, layout, i, sig
+
+    def to_device(self, staged) -> Dict[str, torch.Tensor]:
+        """One copy of the window's buffer to the device (a fresh CPU
+        tensor on the CPU), then each key's block: images ``(k, B, 3, H,
+        W)``, flow ``(k, B, 2, H, W)``, valid ``(k, B, H, W)``."""
+        buf, layout, slot, sig = staged
+        if self._device.type == "cuda":
+            dev = buf.to(self._device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._rings[sig][slot][1] = event
+        else:
+            dev = buf.clone()
+        out = {}
+        for key, shape, off in layout:
+            t = dev[off:off + math.prod(shape)].view(shape)
+            if t.ndim == 5:  # (k, B, H, W, C) -> (k, B, C, H, W)
+                t = t.permute(0, 1, 4, 2, 3).contiguous()
+            out[key] = t
+        return out
 
 
 def normalize_images(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -90,7 +161,11 @@ class TrainPipeline:
         fault_policy: what a failing ``dataset[idx]`` does (None =
             propagate); ``counters`` holds ``data/skipped`` and
             ``data/retries`` for the trainer's log boundary.
-        window_size: 1 only (stacked windows are not ported yet).
+        window_size: with ``k > 1`` the iterator yields stacked windows,
+            every leaf with a leading ``(k,)`` axis holding ``k``
+            consecutive batches (the data order of ``k`` per-step draws),
+            one host-to-device copy a window (:class:`_WindowStaging`);
+            ``step`` still counts batches.
     """
 
     def __init__(
@@ -109,10 +184,6 @@ class TrainPipeline:
     ):
         if window_size < 1:
             raise ValueError(f"window_size must be >= 1, got {window_size}")
-        if window_size > 1:
-            raise NotImplementedError(
-                "stacked batch windows (window_size > 1) are not ported yet: ROADMAP queue 1 item 2d"
-            )
         self.dataset = dataset
         self.augmentor = augmentor
         self.seed = seed
@@ -122,6 +193,7 @@ class TrainPipeline:
         self.step = start_step
         self.fault_policy = fault_policy
         self.window_size = window_size
+        self._staging = _WindowStaging(prefetch_depth + 1, self.device) if window_size > 1 else None
         self.counters: Dict[str, int] = {"data/skipped": 0, "data/retries": 0}
         self.quarantined: set = set()
         self._fault_lock = threading.Lock()
@@ -238,8 +310,18 @@ class TrainPipeline:
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
 
+    def _make_windows(self):
+        """``window_size`` consecutive host batches, staged as one window."""
+        it = self._make_batches()
+        while True:
+            yield self._staging.stack([next(it) for _ in range(self.window_size)])
+
     def __iter__(self):
-        source = (to_device(b, self.device) for b in self._make_batches())
+        k = self.window_size
+        if k == 1:
+            source = (to_device(b, self.device) for b in self._make_batches())
+        else:
+            source = (self._staging.to_device(w) for w in self._make_windows())
         for batch in prefetch(source, self.prefetch_depth):
-            self.step += 1
+            self.step += k
             yield batch

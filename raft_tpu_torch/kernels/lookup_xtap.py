@@ -31,9 +31,16 @@ bf16, fp32 sums, fp32 bias) and returns that dtype. The bf16 product reads
 a zero-padded bf16 copy of the weight (:func:`project_weight_bf16`), which
 :class:`FusedLookupCorrBlock` makes once per weight version and keeps.
 
-The kernels are inference-only for now: a call with grad enabled on inputs
-that require grad raises (training comes with an ``autograd.Function`` in a
-later slice, as the JAX package pairs its kernel with the XLA backward).
+The raw wrappers are inference-only: a call with grad enabled on inputs
+that require grad raises. Training goes through their differentiable
+forms, :func:`lookup_fused_diff` (K2) and :func:`project_fused_diff` (K1),
+the JAX package's ``custom_vjp``s of the same names: the forward is the
+kernel (its plain version on the CPU), the backward autograd of the dense
+block's own formulation (``models.corr.lookup_pyramid`` at the block's
+``weight_dtype``, then ``project_taps`` at ``proj_dtype``) recomputed from
+the saved inputs. There is no hand-written backward kernel, as the JAX
+package has none: on the card the backward is cuBLAS's batched matmuls.
+int8 levels stay inference-only.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from raft_tpu_torch.device import fp32_precision
 from raft_tpu_torch.graphs import count_launch
 from raft_tpu_torch.kernels import build
 from raft_tpu_torch.models.corr import (
@@ -59,10 +67,12 @@ __all__ = [
     "FusedLookupCorrBlock",
     "MAX_LEVELS",
     "flat_levels",
+    "lookup_fused_diff",
     "lookup_project_fused",
     "lookup_project_reference",
     "lookup_pyramid_fused",
     "lookup_pyramid_reference",
+    "project_fused_diff",
     "project_weight_bf16",
     "quantize_pyramid",
 ]
@@ -311,7 +321,7 @@ def project_weight_bf16(weight: torch.Tensor) -> torch.Tensor:
     k_pad)`` bf16, each row the ``C_in`` weights rounded to bf16 (RNE), then
     zeros up to ``k_pad``, a multiple of 16 (16-byte rows for the kernel's
     copies)."""
-    w = weight.reshape(weight.shape[0], -1)
+    w = weight.detach().reshape(weight.shape[0], -1)
     out = torch.zeros(w.shape[0], _project_k_pad(w.shape[1], True), dtype=torch.bfloat16, device=w.device)
     out[:, : w.shape[1]] = w
     return out
@@ -324,12 +334,13 @@ def _check_no_grad(who: str, pyramid, *tensors: torch.Tensor) -> None:
                 f"{who}: corr_dtype='int8' is inference-only (the quantized lookup "
                 "defines no gradient), and an input requires grad. Run under "
                 "torch.no_grad()/torch.inference_mode(), or train with corr_dtype "
-                "'float32' or 'bfloat16' at corr_impl='dense'"
+                "'float32' or 'bfloat16' (both differentiate through the fused block)"
             )
         raise RuntimeError(
             f"{who} is inference-only: its inputs require grad. Run under "
-            "torch.no_grad()/torch.inference_mode(), or use corr_impl='dense' "
-            "to train (the kernel's autograd.Function is not ported yet)"
+            "torch.no_grad()/torch.inference_mode(), or differentiate through "
+            "lookup_fused_diff / project_fused_diff (the kernel forward, the "
+            "dense formulation's backward), as FusedLookupCorrBlock does"
         )
 
 
@@ -522,6 +533,93 @@ def lookup_project_fused(
 lookup_project_fused.launches = 0
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _dense_vjp(ctx, fn, tensors, grad):
+    """The backward of a differentiable wrapper: ``fn(*tensors)``, the dense
+    formulation, recomputed under grad mode (IEEE fp32, as the model's
+    entry points pin it) on detached copies of the saved inputs, and its
+    vector-Jacobian product with ``grad``: one gradient per tensor, ``None``
+    where ``ctx.needs_input_grad`` (offset past the wrapper's leading
+    non-tensor arguments by ``ctx.first``) asks for none."""
+    needs = [ctx.needs_input_grad[ctx.first + i] for i in range(len(tensors))]
+    leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
+    wanted = [leaf for leaf in leaves if leaf.requires_grad]
+    if not wanted:
+        return [None] * len(tensors)
+    with torch.enable_grad(), fp32_precision():
+        out = fn(*leaves)
+    grads = iter(torch.autograd.grad(out, wanted, grad))
+    return [next(grads) if leaf.requires_grad else None for leaf in leaves]
+
+
+class _LookupFn(torch.autograd.Function):
+    """K2 forward, the dense lookup's backward (``lookup_fused_diff``)."""
+
+    @staticmethod
+    def forward(ctx, radius, weight_dtype, centroids, *levels):
+        ctx.radius, ctx.weight_dtype, ctx.first = radius, weight_dtype, 2
+        ctx.save_for_backward(centroids, *levels)
+        return lookup_pyramid_fused(list(levels), centroids, radius)
+
+    @staticmethod
+    def backward(ctx, grad):
+        radius, weight_dtype = ctx.radius, ctx.weight_dtype
+        grads = _dense_vjp(ctx, lambda c, *lv: lookup_pyramid(list(lv), c, radius, weight_dtype),
+                           ctx.saved_tensors, grad)
+        return (None, None, *grads)
+
+
+class _ProjectFn(torch.autograd.Function):
+    """K1 forward, the dense lookup + ``convcorr1``'s backward
+    (``project_fused_diff``)."""
+
+    @staticmethod
+    def forward(ctx, radius, weight_dtype, proj_dtype, weight_bf16, centroids, weight, bias, *levels):
+        ctx.radius, ctx.weight_dtype, ctx.proj_dtype, ctx.first = radius, weight_dtype, proj_dtype, 4
+        ctx.save_for_backward(centroids, weight, bias, *levels)
+        return lookup_project_fused(list(levels), centroids, weight, bias, radius, proj_dtype, weight_bf16)
+
+    @staticmethod
+    def backward(ctx, grad):
+        radius, weight_dtype, proj_dtype = ctx.radius, ctx.weight_dtype, ctx.proj_dtype
+
+        def dense(c, w, b, *lv):
+            taps = lookup_pyramid(list(lv), c, radius, weight_dtype)
+            return project_taps(taps, w, b, proj_dtype).permute(0, 3, 1, 2)
+
+        return (None, None, None, None, *_dense_vjp(ctx, dense, ctx.saved_tensors, grad))
+
+
+def lookup_fused_diff(pyramid, centroids: torch.Tensor, radius: int, weight_dtype=None) -> torch.Tensor:
+    """K2 as a differentiable function (the JAX ``lookup_fused_diff``):
+    the forward is :func:`lookup_pyramid_fused`, the backward autograd of
+    ``models.corr.lookup_pyramid(levels, centroids, radius, weight_dtype)``,
+    the dense block's lookup, recomputed from the saved levels and
+    centroids. Gradients reach every level and the centroids. Without
+    grad (or on int8 levels, which refuse a gradient) it is the raw
+    wrapper."""
+    if isinstance(pyramid, QuantizedPyramid) or not _needs_grad((*pyramid, centroids)):
+        return lookup_pyramid_fused(pyramid, centroids, radius)
+    return _LookupFn.apply(radius, weight_dtype, centroids, *pyramid)
+
+
+def project_fused_diff(pyramid, centroids: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, radius: int,
+                       weight_dtype=None, proj_dtype=None, weight_bf16: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1 as a differentiable function (the JAX ``project_fused_diff``):
+    the forward is :func:`lookup_project_fused`, the backward autograd of
+    the dense block's ``project_taps(lookup_pyramid(levels, centroids,
+    radius, weight_dtype), weight, bias, proj_dtype)``, NCHW, recomputed
+    from the saved inputs. Gradients reach every level, the centroids,
+    the weight and the bias. Without grad (or on int8 levels, which
+    refuse a gradient) it is the raw wrapper."""
+    if isinstance(pyramid, QuantizedPyramid) or not _needs_grad((*pyramid, centroids, weight, bias)):
+        return lookup_project_fused(pyramid, centroids, weight, bias, radius, proj_dtype, weight_bf16)
+    return _ProjectFn.apply(radius, weight_dtype, proj_dtype, weight_bf16, centroids, weight, bias, *pyramid)
+
+
 class FusedLookupCorrBlock(CorrBlock):
     """Dense correlation block whose per-step lookup (and the motion
     encoder's ``convcorr1`` projection, via ``index_project``) runs in the
@@ -535,7 +633,16 @@ class FusedLookupCorrBlock(CorrBlock):
     its kernel cannot run (a y-dot level narrower than S+1 or wider than
     512), a deliberate difference. The pyramid is the plain list of levels,
     or a :class:`QuantizedPyramid`.
+
+    Training (fp32 and bf16 levels): ``index_pyramid`` and
+    ``index_project`` go through :func:`lookup_fused_diff` and
+    :func:`project_fused_diff`, whose gradients are the dense block's
+    (:class:`CorrBlock` at the same ``dtype``). They keep only their
+    inputs for the backward, so ``remat_policy='corr'`` computes the
+    projection outside any checkpoint (``projection_keeps_inputs``).
     """
+
+    projection_keeps_inputs = True
 
     def __init__(self, num_levels: int = 4, radius: int = 4, dtype=None):
         self.quantize = dtype == torch.int8
@@ -570,9 +677,10 @@ class FusedLookupCorrBlock(CorrBlock):
         return quantize_pyramid(levels) if self.quantize else levels
 
     def index_pyramid(self, pyramid, centroids: torch.Tensor) -> torch.Tensor:
-        return lookup_pyramid_fused(pyramid, centroids.contiguous(), self.radius)
+        return lookup_fused_diff(pyramid, centroids.contiguous(), self.radius, self.dtype)
 
     def index_project(self, pyramid, centroids: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                       dtype=None) -> torch.Tensor:
         weight_bf16 = self.weight_bf16(weight) if dtype == torch.bfloat16 and weight.is_cuda else None
-        return lookup_project_fused(pyramid, centroids.contiguous(), weight, bias, self.radius, dtype, weight_bf16)
+        return project_fused_diff(pyramid, centroids.contiguous(), weight, bias, self.radius, self.dtype, dtype,
+                                  weight_bf16)

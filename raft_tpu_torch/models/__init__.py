@@ -2,7 +2,7 @@
 
 from raft_tpu_torch.models.corr import CorrBlock, LazyCorrFeatures
 from raft_tpu_torch.models.encoders import FeatureEncoder
-from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.models.raft import RAFT, REMAT_POLICIES
 from raft_tpu_torch.models.zoo import (
     CONFIGS,
     RAFT_LARGE,
@@ -24,6 +24,7 @@ __all__ = [
     "RAFTConfig",
     "RAFT_LARGE",
     "RAFT_SMALL",
+    "REMAT_POLICIES",
     "build_raft",
     "load_checkpoint",
     "raft_for_serving",

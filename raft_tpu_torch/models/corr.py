@@ -252,10 +252,11 @@ class LazyCorrFeatures:
     themselves.
     """
 
-    def __init__(self, block, pyramid: Sequence[torch.Tensor], centroids: torch.Tensor):
+    def __init__(self, block, pyramid: Sequence[torch.Tensor], centroids: torch.Tensor, projected=None):
         self.block = block
         self.pyramid = pyramid
         self.centroids = centroids
+        self.projected = projected  # project()'s result, when computed beforehand
 
     @property
     def out_channels(self) -> int:
@@ -266,7 +267,11 @@ class LazyCorrFeatures:
         return self.block.index_pyramid(self.pyramid, self.centroids)
 
     def project(self, weight: torch.Tensor, bias: torch.Tensor, dtype=None) -> torch.Tensor:
-        """``(B, C_out, h, w)`` projected motion features at ``dtype``."""
+        """``(B, C_out, h, w)`` projected motion features at ``dtype``
+        (``projected`` when given: the same weights' output, computed
+        outside a checkpointed step by ``RAFT``'s ``remat_policy='corr'``)."""
+        if self.projected is not None:
+            return self.projected
         return self.block.index_project(self.pyramid, self.centroids, weight, bias, dtype=dtype)
 
 

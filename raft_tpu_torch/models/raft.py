@@ -22,18 +22,52 @@ matmuls are IEEE fp32 whatever the caller's global TF32 flags say.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from raft_tpu_torch.device import fp32_precision
 from raft_tpu_torch.models.corr import LazyCorrFeatures, map_levels
 from raft_tpu_torch.ops.sampling import coords_grid
 from raft_tpu_torch.ops.upsample import upsample_flow
 
-__all__ = ["RAFT"]
+__all__ = ["RAFT", "REMAT_POLICIES"]
+
+_aten = torch.ops.aten
+# the aten ops a matmul or a convolution reaches under autograd: JAX's
+# dot_general without batch dimensions, with them, and conv_general_dilated
+_MATMULS_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
+_MATMULS = _MATMULS_NO_BATCH | {_aten.bmm.default, _aten.baddbmm.default}
+_CONVS = frozenset({_aten.convolution.default})
+
+
+def _saving(ops):
+    """A selective-checkpoint policy that keeps the outputs of ``ops`` and
+    recomputes everything else."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+# The JAX package's selective-remat policies (``raft_tpu/models/raft.py``),
+# each the set of aten ops whose outputs a checkpointed refinement step
+# keeps: 'dots' is jax.checkpoint_policies.checkpoint_dots (dot_general and
+# conv_general_dilated), 'dots_no_batch' dots_with_no_batch_dims_saveable
+# (matmuls without batch dimensions). 'corr' keeps exactly the
+# correlation features, convcorr1's output (the JAX ``checkpoint_name(c,
+# "corr_features")`` anchor): no op names it here, as K1 launches outside
+# PyTorch's dispatcher, so RAFT computes it before the checkpointed region
+# and passes it in (``_corr_features``); its value is ``None``.
+REMAT_POLICIES = {
+    "dots": _saving(_MATMULS | _CONVS),
+    "dots_no_batch": _saving(_MATMULS_NO_BATCH),
+    "corr": None,
+}
 
 
 class RAFT(nn.Module):
@@ -47,7 +81,11 @@ class RAFT(nn.Module):
     every iteration is emitted) in the backward pass instead of keeping
     its activations, through ``torch.utils.checkpoint`` (the JAX
     package's ``nn.remat`` of the scanned step); it changes nothing
-    without gradients.
+    without gradients. ``remat_policy`` (a key of :data:`REMAT_POLICIES`)
+    makes it selective: ``'dots'`` keeps every convolution's and matmul's
+    output, ``'dots_no_batch'`` the matmuls' without batch dimensions,
+    ``'corr'`` the correlation features alone. A policy changes memory and
+    time, never values.
     """
 
     def __init__(
@@ -58,9 +96,18 @@ class RAFT(nn.Module):
         update_block: nn.Module,
         mask_predictor: Optional[nn.Module] = None,
         remat: bool = False,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
+        if remat_policy is not None and not remat:
+            raise ValueError(
+                "remat_policy is set but remat=False — the policy would be "
+                "silently ignored; enable remat or drop the policy"
+            )
+        if remat_policy is not None and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; choose from {sorted(REMAT_POLICIES)}")
         self.remat = remat
+        self.remat_policy = remat_policy
         self.feature_encoder = feature_encoder
         self.context_encoder = context_encoder
         self.corr_block = corr_block
@@ -121,23 +168,40 @@ class RAFT(nn.Module):
         hidden, context = context_out.split([hidden_size, context_out.shape[1] - hidden_size], dim=1)
         return torch.tanh(hidden), torch.relu(context)
 
-    def _step(self, coords0, coords1, hidden, context, pyramid):
-        """One refinement iteration."""
+    def _step(self, coords0, coords1, hidden, context, pyramid, projected=None):
+        """One refinement iteration; ``projected`` is its correlation
+        features when computed beforehand (:meth:`_corr_features`)."""
         # flow targets do not backprop through the accumulated coordinates
         coords1 = coords1.detach()
         centroids = coords1.permute(0, 2, 3, 1)  # (B, h, w, 2)
-        corr_features = LazyCorrFeatures(self.corr_block, pyramid, centroids)
+        corr_features = LazyCorrFeatures(self.corr_block, pyramid, centroids, projected)
         hidden, delta_flow = self.update_block(hidden, context, corr_features, coords1 - coords0)
         return coords1 + delta_flow, hidden
 
     @fp32_precision()
-    def _refine(self, coords0, coords1, hidden, context, pyramid, emit_all: bool):
+    def _refine(self, coords0, coords1, hidden, context, pyramid, emit_all: bool, projected=None):
         """One refinement iteration and, when ``emit_all``, its upsampled
         flow (else ``None``): the unit ``remat`` recomputes, pinned to
         IEEE fp32 on its own so a backward-pass recompute is too."""
-        coords1, hidden = self._step(coords0, coords1, hidden, context, pyramid)
+        coords1, hidden = self._step(coords0, coords1, hidden, context, pyramid, projected)
         flow = self._upsample(coords1 - coords0, hidden) if emit_all else None
         return coords1, hidden, flow
+
+    @fp32_precision()
+    def _corr_features(self, coords1, pyramid):
+        """The step's correlation features, ``convcorr1``'s output, for
+        ``remat_policy='corr'``: kept, where the step after it is
+        recomputed. A block whose projection keeps only its inputs for the
+        backward (the fused one) runs as is; the dense lookup's own
+        intermediates are recomputed in the backward, as JAX does."""
+        motion = self.update_block.motion_encoder
+        proj = motion.convcorr1[0]
+        centroids = coords1.detach().permute(0, 2, 3, 1)
+        project = partial(self.corr_block.index_project, dtype=motion.compute_dtype)
+        if getattr(self.corr_block, "projection_keeps_inputs", False):
+            return project(pyramid, centroids, proj.weight, proj.bias)
+        return checkpoint(project, pyramid, centroids, proj.weight, proj.bias, use_reentrant=False,
+                          preserve_rng_state=False)
 
     def _upsample(self, flow, hidden):
         up_mask = self.mask_predictor(hidden) if self.mask_predictor is not None else None
@@ -158,11 +222,15 @@ class RAFT(nn.Module):
         coords1 = coords0.clone()
         flows = []
         remat = self.remat and torch.is_grad_enabled()
+        policy = REMAT_POLICIES.get(self.remat_policy)
+        context_fn = {} if policy is None else {"context_fn": partial(create_selective_checkpoint_contexts, policy)}
         for _ in range(num_flow_updates):
             args = (coords0, coords1, hidden, context, pyramid, emit_all)
             if remat:
+                if self.remat_policy == "corr":
+                    args += (self._corr_features(coords1, pyramid),)
                 coords1, hidden, flow = checkpoint(self._refine, *args, use_reentrant=False,
-                                                   preserve_rng_state=False)
+                                                   preserve_rng_state=False, **context_fn)
             else:
                 coords1, hidden, flow = self._refine(*args)
             if emit_all:

@@ -83,7 +83,8 @@ class RAFTConfig:
     corr_dtype: Optional[str] = None
     # recompute each refinement step in the backward pass (training)
     remat: bool = False
-    # selective remat (the JAX package's REMAT_POLICIES): not ported yet
+    # selective remat under remat=True: a key of models.raft.REMAT_POLICIES
+    # ('dots', 'dots_no_batch', 'corr'); None recomputes whole steps
     remat_policy: Optional[str] = None
 
     def replace(self, **kw) -> "RAFTConfig":
@@ -140,11 +141,6 @@ def _resolve_dtypes(config: RAFTConfig):
     if config.corr_impl == "onthefly":
         raise NotImplementedError(
             "corr_impl='onthefly' is not ported yet: ROADMAP queue 1 item 5"
-        )
-    if config.remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r} is not ported yet (selective remat): ROADMAP queue 1 "
-            "item 2d; remat=True with remat_policy=None recomputes whole refinement steps"
         )
     if config.corr_impl not in ("dense", "fused", "pallas"):
         raise ValueError(f"unknown corr_impl {config.corr_impl!r}")
@@ -243,6 +239,7 @@ def build_raft(config: RAFTConfig, *, device=None, seed: int = 0) -> RAFT:
                 else None
             ),
             remat=config.remat,
+            remat_policy=config.remat_policy,
         )
         _init_weights(model)
     _set_compute_dtype(model, compute_dtype)

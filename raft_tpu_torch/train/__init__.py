@@ -10,7 +10,13 @@ from raft_tpu_torch.train.stability import (
     perturb_seed,
 )
 from raft_tpu_torch.train.state import TrainState
-from raft_tpu_torch.train.step import make_eval_step, make_train_step, make_train_step_fn
+from raft_tpu_torch.train.step import (
+    make_eval_step,
+    make_train_step,
+    make_train_step_fn,
+    make_window_step,
+    make_window_step_fn,
+)
 from raft_tpu_torch.train.trainer import STAGES, TrainConfig, Trainer
 
 __all__ = [
@@ -22,6 +28,8 @@ __all__ = [
     "make_eval_step",
     "make_train_step",
     "make_train_step_fn",
+    "make_window_step",
+    "make_window_step_fn",
     "DivergenceError",
     "RollbackAttempt",
     "StabilityMonitor",

@@ -6,11 +6,15 @@
         --init-from ckpts/things/best.pt --checkpoint-dir ckpts/sintel
     python -m raft_tpu_torch.train ... --device cpu   # no card
 
+    python -m raft_tpu_torch.train ... --corr-impl fused --corr-dtype bfloat16 \
+        --remat --remat-policy dots --window-size 2  # K1 in the step
+
 The arguments are the JAX package's ``scripts/train.py``'s; the knobs the
-port has not ported yet (``--window-size`` above 1, ``--remat-policy``,
-``--corr-impl fused|pallas|onthefly``, ``--watchdog-timeout``,
-``--profile-port``) raise. ``--init-from`` and ``--export`` take the
-port's weight files (``--init-from`` also a Flax ``.msgpack``).
+port has not ported yet (``--watchdog-timeout``, ``--profile-port``) raise,
+and ``--corr-impl pallas|onthefly`` does not train (K3 defines no
+gradient; the on-the-fly block is not ported). ``--init-from`` and
+``--export`` take the port's weight files (``--init-from`` also a Flax
+``.msgpack``).
 """
 
 from __future__ import annotations
@@ -85,13 +89,19 @@ def main(argv=None) -> int:
     p.add_argument("--profile-port", type=int, default=None, help="not ported yet: raises")
     p.add_argument("--init-from", default=None, help="weights to start from (.pt/.pth or Flax .msgpack)")
     p.add_argument("--corr-impl", default="dense", choices=["dense", "onthefly", "pallas", "fused"],
-                   help="'dense' only: the others raise (not ported for training yet)")
+                   help="'dense', or 'fused' (K1 runs the lookup + convcorr1 forward, the dense "
+                        "formulation's autograd the backward); 'pallas' and 'onthefly' raise")
     p.add_argument("--corr-dtype", default=None, choices=["bfloat16"])
     p.add_argument("--compute-dtype", default=None, choices=["bfloat16"])
     p.add_argument("--remat", action="store_true", help="recompute each refinement step in the backward")
     p.add_argument("--remat-policy", default=None, choices=["dots", "dots_no_batch", "corr"],
-                   help="not ported yet: raises")
-    p.add_argument("--window-size", type=int, default=1, help="1 only (the fused window step is not ported)")
+                   help="selective rematerialization under --remat: 'dots' keeps every convolution's and "
+                        "matmul's output, 'dots_no_batch' the matmuls' without batch dimensions, 'corr' the "
+                        "correlation features alone (convcorr1's output); the rest of each step is recomputed")
+    p.add_argument("--window-size", type=int, default=1,
+                   help="train steps a dispatch: the steps of a stacked batch window run back to back, their "
+                        "metrics stay on the device until the log boundary's one fetch; --log-every, "
+                        "--eval-every, --steps and the checkpoint interval must be multiples of it")
     p.add_argument("--check-numerics", action="store_true")
     p.add_argument("--export", default=None, help="write the final weights (torch state_dict) here")
     p.add_argument("--eval-every", type=int, default=0)

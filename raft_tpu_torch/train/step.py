@@ -22,9 +22,13 @@ parameters, the optimizer's count and moments and the BatchNorm buffers
 bitwise as they were. The schedule's count is the optimizer's, so after a
 skip the learning rate lags ``state.step``, as in the JAX step.
 
-Only ``corr_impl='dense'`` trains yet: the CUDA kernels of ``fused`` and
-``pallas`` have no backward (ROADMAP queue 2 item 1). The window step
-(``make_window_step``) is not ported (ROADMAP queue 1 item 2d).
+``corr_impl='dense'`` and ``'fused'`` (fp32 and bf16 levels) train: the
+fused block's kernel runs the forward and the dense formulation's autograd
+the backward (``kernels.lookup_xtap.project_fused_diff``). ``'pallas'``
+does not: K3 defines no gradient in either package.
+
+:func:`make_window_step_fn` runs ``window_size`` such steps over a stacked
+window of batches, in order, with their metrics stacked on the device.
 """
 
 from __future__ import annotations
@@ -40,18 +44,32 @@ from raft_tpu_torch.train.optim import Optimizer, global_norm
 from raft_tpu_torch.train.state import TrainState
 from raft_tpu_torch.utils.debug import nonfinite_count, nonfinite_leaf_counts
 
-__all__ = ["make_train_step_fn", "make_train_step", "make_eval_step", "check_trainable"]
+__all__ = [
+    "make_train_step_fn",
+    "make_train_step",
+    "make_window_step_fn",
+    "make_window_step",
+    "make_eval_step",
+    "check_trainable",
+]
 
 Batch = Dict[str, torch.Tensor]
 
 
 def check_trainable(model) -> None:
     """Raise unless the model's correlation block can be differentiated:
-    the plain ``dense`` block only."""
-    if type(model.corr_block) is not CorrBlock:
+    the ``dense`` block, and the ``fused`` one on fp32 or bf16 levels."""
+    from raft_tpu_torch.kernels.lookup_xtap import FusedLookupCorrBlock
+
+    block = model.corr_block
+    if isinstance(block, FusedLookupCorrBlock) and block.quantize:
+        raise ValueError("corr_dtype='int8' is inference-only (the quantized lookup defines no gradient); "
+                         "train with corr_dtype 'float32' or 'bfloat16'")
+    if type(block) not in (CorrBlock, FusedLookupCorrBlock):
         raise NotImplementedError(
-            f"training through {type(model.corr_block).__name__} (corr_impl 'fused' or 'pallas') is not ported "
-            "yet: its CUDA kernels have no backward (ROADMAP queue 2 item 1); train with corr_impl='dense'"
+            f"training through {type(block).__name__} (corr_impl='pallas') is not supported: K3, its pyramid "
+            "kernel, defines no gradient, in the JAX package as here (there its block trains only at widths "
+            "where it falls back to XLA, w/8 % 128 != 0); train with corr_impl='dense' or 'fused'"
         )
 
 
@@ -152,6 +170,40 @@ def make_train_step(model, tx: Optimizer, **kw):
     step here; the port runs it eagerly (capturing it as a CUDA graph is
     ROADMAP work)."""
     return make_train_step_fn(model, tx, **kw)
+
+
+def make_window_step_fn(model, tx: Optimizer, *, window_size: int, **kw):
+    """The ``window_size``-step body ``(state, window) -> (state,
+    metrics)`` (the JAX ``make_window_step_fn``, ``lax.scan`` there): the
+    per-step body of :func:`make_train_step_fn` (``**kw`` are its
+    arguments) run on ``window[key][i]`` for ``i`` in order, so the skip
+    guard's counters, its EMA and a skipped step's metrics are the
+    per-step loop's by construction. Every leaf of the window has a
+    leading ``(window_size,)`` axis: images ``(k, B, 3, H, W)``, flow
+    ``(k, B, 2, H, W)``, valid ``(k, B, H, W)``. The metrics come out
+    stacked, ``(k, ...)`` per key, on the device: nothing syncs the host
+    inside the window."""
+    if window_size < 1:
+        raise ValueError(f"window_size must be >= 1, got {window_size}")
+    step_fn = make_train_step_fn(model, tx, **kw)
+
+    def window_step(state: TrainState, window: Batch):
+        for key, value in window.items():
+            if value.shape[0] != window_size:
+                raise ValueError(f"window[{key!r}] has {value.shape[0]} steps, window_size is {window_size}")
+        per_step = []
+        for i in range(window_size):
+            state, metrics = step_fn(state, {key: value[i] for key, value in window.items()})
+            per_step.append(metrics)
+        return state, {key: torch.stack([m[key] for m in per_step]) for key in per_step[0]}
+
+    return window_step
+
+
+def make_window_step(model, tx: Optimizer, *, window_size: int, **kw):
+    """The window step (:func:`make_window_step_fn`), eager, as
+    :func:`make_train_step` is."""
+    return make_window_step_fn(model, tx, window_size=window_size, **kw)
 
 
 def make_eval_step(model, *, num_flow_updates: int = 32):

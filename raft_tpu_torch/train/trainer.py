@@ -6,20 +6,24 @@ and resume. The stage presets encode the RAFT C -> T -> S/K/H curriculum;
 each stage is one ``TrainConfig``, with every field and default of the
 JAX one (``device`` is the port's own).
 
-Ported: the per-step loop; log boundaries with one metrics fetch each
+Ported: the loop, per step or, with ``window_size=k > 1``, per stacked
+window of ``k`` steps (``train.step.make_window_step``; log, checkpoint and
+eval intervals and ``num_steps`` must be multiples of ``k``, and a run
+resumes only at a window start); log boundaries with one metrics fetch each
 (the step itself makes no host sync); checkpoints every
 ``checkpoint_every`` steps and resume from the latest; ``numerics_policy``
 ``'raise'`` and ``'skip'`` with the rollback ladder; in-loop eval through
 the port's ``validate`` with the best-EPE export (``best.pt``, a torch
 state_dict that ``checkpoint=`` reads); SIGTERM/SIGINT preemption saved at
-the next step boundary, in one process.
+the next window boundary, in one process; ``corr_impl`` ``'dense'`` and
+``'fused'`` with ``remat_policy``; the device-time ledger of the window
+step (``ledger_sample_every``, family ``train_window_step/<k>``).
 
 Not ported yet, each raising ``NotImplementedError`` from
-:meth:`Trainer._check_ported`: ``window_size > 1``, ``remat_policy``,
-training at ``fused``/``pallas``, ``watchdog_timeout``, ``profile_port``
-and ``ledger_sample_every > 0``. The JAX trainer's traces, metrics
-registry and flight recorder have no knob and no port yet (ROADMAP queue 1
-item 3f).
+:meth:`Trainer._check_ported`: ``watchdog_timeout`` and ``profile_port``.
+``corr_impl='pallas'`` does not train (K3 defines no gradient). The JAX
+trainer's traces and flight recorder have no knob and no port yet
+(ROADMAP queue 1 item 3f).
 """
 
 from __future__ import annotations
@@ -42,10 +46,11 @@ from raft_tpu_torch.data.pipeline import TrainPipeline
 from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.eval.validate import validate
 from raft_tpu_torch.models.zoo import CONFIGS, build_raft
+from raft_tpu_torch.obs import DeviceTimeLedger, MetricsRegistry
 from raft_tpu_torch.train.optim import make_optimizer, one_cycle_lr
 from raft_tpu_torch.train.stability import StabilityMonitor, StabilityPolicy
 from raft_tpu_torch.train.state import TrainState
-from raft_tpu_torch.train.step import make_train_step
+from raft_tpu_torch.train.step import make_train_step, make_window_step
 from raft_tpu_torch.utils.debug import NumericsError, format_report, nonfinite_report
 from raft_tpu_torch.utils.faults import DataFaultPolicy
 from raft_tpu_torch.utils.logging import MetricLogger
@@ -74,10 +79,11 @@ class TrainConfig:
     log_dir: Optional[str] = None  # durable scalars (JSONL)
     profile_port: Optional[int] = None  # not ported: raises
     remat: bool = False
-    # selective-remat policy under remat=True: not ported, raises
+    # selective-remat policy under remat=True ('dots', 'dots_no_batch',
+    # 'corr': models.raft.REMAT_POLICIES)
     remat_policy: Optional[str] = None
-    # 'dense' only: 'fused' and 'pallas' raise (their kernels have no
-    # backward yet)
+    # 'dense' or 'fused' (K1's forward, the dense formulation's backward);
+    # 'pallas' raises (K3 defines no gradient)
     corr_impl: str = "dense"
     # storage dtype for the correlation pyramid (None | 'bfloat16');
     # 'int8' is inference-only
@@ -88,7 +94,10 @@ class TrainConfig:
     # the JAX package's data-axis mesh; the port trains on one device, so
     # this changes nothing (multi-device training is ROADMAP work)
     data_mesh: bool = True
-    # fused multi-step dispatch: 1 only (not ported, raises)
+    # steps a dispatch: window_size=k > 1 runs k train steps over a
+    # stacked batch window (train.step.make_window_step), metrics stacked
+    # on the device until the log boundary's one fetch; log_every,
+    # checkpoint_every, eval_every and num_steps must be multiples of k
     window_size: int = 1
     # In-loop validation: every `eval_every` steps (0 = never) the port's
     # validate() runs on the eval dataset, eval/* scalars are logged and
@@ -141,8 +150,9 @@ class TrainConfig:
     # Eval-EPE regression tolerated before a checkpoint stops being tagged
     # known-good (fraction of the best EPE so far; only with eval_every).
     good_epe_slack: float = 0.2
-    # device-time ledger sampling of train steps: 0 only (not ported,
-    # raises)
+    # device-time ledger (obs.ledger): every Kth window dispatch is timed
+    # between CUDA events (family 'train_window_step/<k>'), a deliberate
+    # host sync; 0 (the default) keeps the loop sync-free
     ledger_sample_every: int = 0
     # where to train (the port's own field): the card unless 'cpu'
     device: Optional[str] = None
@@ -204,16 +214,16 @@ class Trainer:
     @staticmethod
     def _check_ported(config: TrainConfig) -> None:
         """Raise for the JAX trainer's knobs the port does not have yet,
-        each naming its ROADMAP item; none falls back."""
+        each naming its ROADMAP item, and for ``corr_impl='pallas'``;
+        none falls back."""
+        if config.corr_impl == "pallas":
+            raise NotImplementedError(
+                "training at corr_impl='pallas' is not supported: K3, its pyramid kernel, defines no gradient "
+                "(train.step.check_trainable); train with corr_impl='dense' or 'fused'"
+            )
         unported = [
-            (config.window_size > 1, "window_size > 1 (the fused window step)", "queue 1 item 2d"),
-            (config.remat_policy is not None, "remat_policy (selective remat)", "queue 1 item 2d"),
-            (config.corr_impl in ("fused", "pallas"), f"training at corr_impl={config.corr_impl!r} "
-             "(its kernels have no backward)", "queue 2 item 1 and queue 1 item 2e"),
             (config.watchdog_timeout is not None, "watchdog_timeout (the stall watchdog)", "queue 1 item 3g"),
             (config.profile_port is not None, "profile_port (the live profiler server)", "queue 1 item 3f"),
-            (config.ledger_sample_every > 0, "ledger_sample_every > 0 (the device-time ledger of train "
-             "steps)", "queue 1 item 3f"),
         ]
         for bad, what, item in unported:
             if bad:
@@ -235,6 +245,16 @@ class Trainer:
             raise ValueError(f"window_size must be >= 1, got {config.window_size}")
         if config.ledger_sample_every < 0:
             raise ValueError(f"ledger_sample_every must be >= 0 (0 = off), got {config.ledger_sample_every}")
+        if config.window_size > 1:
+            # boundaries (log, checkpoint, eval, preemption) fall only on
+            # window starts: a misaligned interval would shift them all
+            k = config.window_size
+            for name, every in (("log_every", config.log_every),
+                                ("checkpoint_every", config.checkpoint_every if config.checkpoint_dir else 0),
+                                ("eval_every", config.eval_every), ("num_steps", config.num_steps)):
+                if every and every % k:
+                    raise ValueError(f"{name}={every} is not a multiple of window_size={k}; boundaries are "
+                                     "window-aligned")
         self._check_ported(config)
         self.config = config
         self.device = resolve_device(config.device)
@@ -258,7 +278,11 @@ class Trainer:
         self._preempted = False
 
         self.state = TrainState.create(self.model, self.tx)
-        self.step_fn = make_train_step(self.model, self.tx, **self._step_kw())
+        self._make_step_fns()
+        # the device-time ledger: the trainer's one device family is the
+        # window step, every Kth dispatch timed
+        self.metrics = MetricsRegistry("train")
+        self.ledger = DeviceTimeLedger(config.ledger_sample_every, device=self.device, registry=self.metrics)
 
         self.manager = None
         self._resumed = False
@@ -304,7 +328,8 @@ class Trainer:
         config = self.config
         if config.compute_dtype not in (None, "float32") or config.corr_dtype not in (None, "float32"):
             self.eval_model = build_raft(
-                self.model_config(config).replace(compute_dtype="float32", corr_dtype="float32", remat=False),
+                self.model_config(config).replace(compute_dtype="float32", corr_dtype="float32", remat=False,
+                                                remat_policy=None),
                 device=self.device,
             )
         eval_mode = config.eval_mode
@@ -338,6 +363,13 @@ class Trainer:
             spike_factor=config.spike_factor, spike_warmup=config.spike_warmup,
         )
 
+    def _make_step_fns(self) -> None:
+        """The per-step function and, at ``window_size > 1``, the window
+        step, both over ``self.tx``."""
+        self.step_fn = make_train_step(self.model, self.tx, **self._step_kw())
+        self.window_fn = (make_window_step(self.model, self.tx, window_size=self.config.window_size,
+                                           **self._step_kw()) if self.config.window_size > 1 else None)
+
     def _build_pipeline(self, *, seed: int, start_step: int) -> TrainPipeline:
         """The pipeline's state is ``(seed, step)``: a rollback rebuilds it
         with a perturbed seed at the restored step."""
@@ -354,21 +386,24 @@ class Trainer:
 
     @staticmethod
     def _host_window(window) -> list:
-        """A window of per-step device metrics -> one host dict per step,
-        in ONE device-to-host copy. ``"_"``-prefixed metrics (per-leaf
-        counts) stay arrays; the rest become floats."""
+        """A list of ``(n_steps, metrics)`` dispatches, per-step metrics
+        (``n=1``) or a window step's stacked ``(n, ...)`` ones, -> one host
+        dict per step, in step order, in ONE device-to-host copy.
+        ``"_"``-prefixed metrics (per-leaf counts) stay arrays; the rest
+        become floats."""
         if not window:
             return []
-        keys = list(window[0])
-        flat = torch.cat([m[k].reshape(-1).to(torch.float64) for m in window for k in keys]).cpu().numpy()
+        keys = list(window[0][1])
+        flat = torch.cat([m[k].reshape(-1).to(torch.float64) for _, m in window for k in keys]).cpu().numpy()
         out, pos = [], 0
-        for m in window:
-            rec = {}
+        for n, m in window:
+            cols = {}
             for k in keys:
-                n = m[k].numel()
-                rec[k] = flat[pos:pos + n].copy() if k.startswith("_") else float(flat[pos])
-                pos += n
-            out.append(rec)
+                size = m[k].numel()
+                cols[k] = flat[pos:pos + size].reshape(n, -1)
+                pos += size
+            out.extend({k: cols[k][i].copy() if k.startswith("_") else float(cols[k][i, 0]) for k in keys}
+                       for i in range(n))
         return out
 
     def _check_window(self, step: int, window) -> None:
@@ -420,7 +455,7 @@ class Trainer:
             base = self.lr_schedule
             self.tx = make_optimizer(lambda count, s=lr_scale: base(count) * s,
                                      weight_decay=self.config.weight_decay, clip_norm=self.config.clip_norm)
-            self.step_fn = make_train_step(self.model, self.tx, **self._step_kw())
+            self._make_step_fns()
         self.pipeline = self._build_pipeline(seed=new_seed, start_step=to_step)
         attempt = mon.record_rollback(at_step, to_step, window_skips, seed=new_seed, lr_scale=lr_scale)
         self._pending_good = []
@@ -505,8 +540,18 @@ class Trainer:
         cfg = self.config
         log_fn = log_fn or (lambda step, m: print(
             f"step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items())))
-        logger = MetricLogger(cfg.log_dir) if cfg.log_dir else None
         start = int(self.state.step)
+        # with window_size=k > 1 every iteration below advances k steps
+        # through one window dispatch, the per-step loop with a stride;
+        # boundaries are window-aligned (checked at construction), and a
+        # run resumes, or rolls back, only to a window start
+        wsize = cfg.window_size
+        if wsize > 1 and start % wsize:
+            raise ValueError(
+                f"resumed at step {start}, which is not a multiple of window_size={wsize} (a checkpoint from a "
+                f"differently windowed run?); resume with window_size=1 or a divisor of {start} to realign"
+            )
+        logger = MetricLogger(cfg.log_dir) if cfg.log_dir else None
         self.model.train()
         t0 = time.perf_counter()
         window: list = []
@@ -521,18 +566,21 @@ class Trainer:
                     print(f"preempted: checkpointed step {step}, exiting")
                     return self.state
                 batch = next(data_iter)
-                self.state, metrics = self.step_fn(self.state, batch)
-                window.append(metrics)
-                at_log = (step + 1) % cfg.log_every == 0
+                fn = self.window_fn or self.step_fn
+                self.state, metrics = self.ledger.run(("train_window_step", wsize),
+                                                      lambda: fn(self.state, batch))
+                window.append((wsize, metrics))
+                end = step + wsize
+                at_log = end % cfg.log_every == 0
                 hwin = None
                 if at_log or (cfg.check_numerics and self.manager is not None
-                              and (step + 1) % cfg.checkpoint_every == 0):
+                              and end % cfg.checkpoint_every == 0):
                     hwin = self._host_window(window)
                     if cfg.check_numerics and cfg.numerics_policy == "raise":
                         # never persist a poisoned state as the latest
-                        self._check_window(step + 1, hwin)
-                if self.manager is not None and self.manager.save(step + 1, self.state):
-                    self._pending_good.append(step + 1)
+                        self._check_window(end, hwin)
+                if self.manager is not None and self.manager.save(end, self.state):
+                    self._pending_good.append(end)
                 if at_log:
                     # skipped steps carry their bad batch's NaN loss in
                     # their metrics (the state never saw it): keep them out
@@ -558,23 +606,23 @@ class Trainer:
                             for s in self._pending_good:
                                 self.manager.tag_good(s, {"loss": mean.get("loss")})
                         self._pending_good = []
-                    log_fn(step + 1, mean)
+                    log_fn(end, mean)
                     if logger is not None:
-                        logger.log(step + 1, mean)
+                        logger.log(end, mean)
                     window = []
                     t0 = time.perf_counter()
                     if breached:
-                        self._rollback(step + 1, window_skips, log_fn, logger)
+                        self._rollback(end, window_skips, log_fn, logger)
                         data_iter.close()
                         data_iter = iter(self.pipeline)
                         step = int(self.state.step)
                         t0 = time.perf_counter()
                         continue
-                if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
+                if cfg.eval_every and end % cfg.eval_every == 0:
                     t_eval = time.perf_counter()
-                    self._run_eval(step + 1, log_fn, logger)
+                    self._run_eval(end, log_fn, logger)
                     t0 += time.perf_counter() - t_eval  # eval is not training time
-                step += 1
+                step = end
         finally:
             restore_handlers()
             data_iter.close()

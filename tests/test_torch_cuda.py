@@ -939,3 +939,122 @@ def test_train_step_makes_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert all(v.is_cuda for v in metrics.values())
     assert float(metrics["skipped"]) == 0.0 and int(state.step) == 2
+
+
+# -- training through the kernels -----------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_fused_index_project_grads_are_dense_grads(cuda_device, dtype):
+    """One training ``index_project`` call on the card (K1 forward, the
+    dense formulation's backward): the gradients reaching the levels, the
+    weight and the bias are the dense block's bit for bit (a fixed
+    cotangent, so the forward's rounding cannot reach them), and K1 ran
+    once."""
+    from raft_tpu_torch.kernels.lookup_xtap import FusedLookupCorrBlock
+
+    levels_dtype = torch.bfloat16 if dtype == "bf16" else None
+    pyr, cents, radius = _inputs("batch2", cuda_device)
+    if levels_dtype is not None:
+        pyr = [lvl.to(levels_dtype) for lvl in pyr]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    c_in = len(pyr) * (2 * radius + 1) ** 2
+    weight = torch.randn(32, c_in, 1, 1, device=cuda_device, generator=gen) * 0.05
+    bias = torch.randn(32, device=cuda_device, generator=gen) * 0.05
+    cot = torch.randn((cents.shape[0], 32) + cents.shape[1:3], device=cuda_device, generator=gen)
+    grads = []
+    for block in (corr.CorrBlock(len(pyr), radius, levels_dtype), FusedLookupCorrBlock(len(pyr), radius, levels_dtype)):
+        leaves = [lvl.detach().clone().requires_grad_() for lvl in pyr]
+        w, b = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+        before = lookup_project_fused.launches
+        out = block.index_project(leaves, cents, w, b, dtype=levels_dtype)
+        launched = lookup_project_fused.launches - before
+        grads.append(torch.autograd.grad(out.float(), leaves + [w, b], cot))
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert all(torch.equal(a, c) for a, c in zip(grads[1], grads[0]))
+
+
+def test_window_step_is_the_per_step_loop_on_the_card(cuda_device, monkeypatch):
+    """A window of 2 fused steps against two per-step calls from the same
+    weights (the skip guard armed), under cuDNN's deterministic algorithms
+    (with the fastest ones some weight gradients sum by atomics, and two
+    per-step runs differ): the state bit for bit, K1 once an update of
+    each step's forward in both."""
+    from raft_tpu_torch.train import TrainState, make_optimizer, make_train_step_fn, make_window_step, one_cycle_lr
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    batches = [_train_batch(cuda_device, seed=s) for s in (1, 2)]
+    kw = dict(num_flow_updates=2, numerics_policy="skip", spike_factor=20.0)
+    states, launches = [], []
+    for window in (False, True):
+        model = _tiny_train_model(cuda_device, True, corr_impl="fused")
+        tx = make_optimizer(one_cycle_lr(1e-4, 100))
+        state = TrainState.create(model, tx)
+        before = lookup_project_fused.launches
+        if window:
+            stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+            state, _ = make_window_step(model, tx, window_size=2, **kw)(state, stacked)
+        else:
+            step = make_train_step_fn(model, tx, **kw)
+            for b in batches:
+                state, _ = step(state, b)
+        torch.cuda.synchronize()
+        launches.append(lookup_project_fused.launches - before)
+        sd = state.state_dict()
+        states.append([sd["model"][k] for k in sorted(sd["model"])] + sd["opt_state"]["mu"] + sd["opt_state"]["nu"])
+    assert launches == [4, 4]
+    assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+def test_k1_runs_inside_a_grad_enabled_step(cuda_device, monkeypatch):
+    """A fused train step on the card launches K1 once an update (twice
+    under remat, once under remat_policy='corr') and never calls the plain
+    version; the loss is finite and the weight's bf16 copy follows the
+    optimizer's updates."""
+    from raft_tpu_torch.train import TrainState, make_optimizer, make_train_step_fn, one_cycle_lr
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(lookup_xtap, "lookup_project_reference", boom)
+    batch = _train_batch(cuda_device)
+    for over, want in ((dict(), 2), (dict(remat=True), 4), (dict(remat=True, remat_policy="corr"), 2),
+                       (dict(compute_dtype="bfloat16", corr_dtype="bfloat16"), 2)):
+        model = _tiny_train_model(cuda_device, True, corr_impl="fused", **over)
+        tx = make_optimizer(one_cycle_lr(1e-4, 100))
+        state = TrainState.create(model, tx)
+        step = make_train_step_fn(model, tx, num_flow_updates=2)
+        before = lookup_project_fused.launches
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        assert lookup_project_fused.launches - before == want, over
+        assert math.isfinite(float(metrics["loss"])), over
+        if "compute_dtype" in over:
+            weight = model.update_block.motion_encoder.convcorr1[0].weight
+            assert torch.equal(model.corr_block.weight_bf16(weight), lookup_xtap.project_weight_bf16(weight))
+
+
+def test_window_step_makes_no_host_sync(cuda_device):
+    """After a warm-up window, a window of 2 fused steps under ``torch.cuda``'s
+    sync debug mode 'error': K1's launches, the skip guard and the stacked
+    metrics all stay on the card."""
+    from raft_tpu_torch.train import TrainState, make_optimizer, make_window_step, one_cycle_lr
+
+    model = _tiny_train_model(cuda_device, True, corr_impl="fused")
+    tx = make_optimizer(one_cycle_lr(1e-4, 100))
+    state = TrainState.create(model, tx)
+    window_step = make_window_step(model, tx, window_size=2, num_flow_updates=2, numerics_policy="skip",
+                                   spike_factor=20.0, check_numerics=True)
+    batches = [_train_batch(cuda_device, seed=s) for s in (1, 2)]
+    window = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    state, _ = window_step(state, window)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = window_step(state, window)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.is_cuda and v.shape[0] == 2 for v in metrics.values())
+    assert metrics["skipped"].tolist() == [0.0, 0.0] and int(state.step) == 4

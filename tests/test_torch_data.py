@@ -283,7 +283,8 @@ def _nhwc(batch):
 
 def test_pipeline_matches_jax():
     """Three batches through both pipelines (one augmentor, the port's),
-    then a pipeline started at step 2: the same batches exactly."""
+    then a pipeline started at step 2, then a window of 2 batches
+    (``window_size=2``): the same batches exactly."""
     samples = _samples()
     aug = FlowAugmentor(AugmentConfig(crop_size=(48, 64)))
     port = _batches(TrainPipeline(_ListDataset(samples), 3, augmentor=aug, seed=5, device="cpu"), 3)
@@ -296,8 +297,14 @@ def test_pipeline_matches_jax():
     assert port[0]["image1"].shape == (3, 3, 48, 64) and port[0]["flow"].shape == (3, 2, 48, 64)
     resumed = _batches(TrainPipeline(_ListDataset(samples), 3, augmentor=aug, seed=5, device="cpu", start_step=2), 1)
     assert all(torch.equal(resumed[0][k], port[2][k]) for k in port[2])
-    with pytest.raises(NotImplementedError, match="queue 1 item 2d"):
-        TrainPipeline(_ListDataset(samples), 3, device="cpu", window_size=2)
+    # a window of 2: the first two batches stacked, as the JAX pipeline's
+    (window,) = _batches(TrainPipeline(_ListDataset(samples), 3, augmentor=aug, seed=5, device="cpu",
+                                       window_size=2), 1)
+    (jwindow,) = _batches(JaxTrainPipeline(_ListDataset(samples), 3, augmentor=aug, seed=5, window_size=2), 1)
+    assert all(torch.equal(window[k][i], port[i][k]) for i in range(2) for k in port[i])
+    for key, want in jwindow.items():
+        got = window[key].permute(0, 1, 3, 4, 2) if window[key].ndim == 5 else window[key]
+        assert np.array_equal(got.numpy(), np.asarray(want)), key
 
 
 def test_pipeline_fault_policy_matches_jax():

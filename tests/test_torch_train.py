@@ -1,14 +1,16 @@
 """The port's training slice against the JAX package: the sequence loss,
 the one-cycle schedule, clip + AdamW, the train step (one and three steps,
-BatchNorm statistics and Adam state included), the skip guard, remat, the
-stability monitor, the checkpoint manager and the Trainer as a whole.
+BatchNorm statistics and Adam state included) at ``dense`` and at
+``fused``, the skip guard, remat, the stability monitor, the checkpoint
+manager and the Trainer as a whole.
 
 Models: ``tests/test_train.py``'s ``tiny_cfg`` widths, small and large
 (the large one has the BatchNorm context encoder), at 128x128 (the least
 a 4-level pyramid takes), 2 updates, ``corr_impl='dense'``; one JAX
 variable tree (shapes from ``jax.eval_shape``, values from a seeded numpy
 generator, the flow head's last conv scaled by 0.05) loaded into both
-packages. The JAX steps are jitted once a module.
+packages (the fused step is held against the JAX dense step). The JAX
+steps are jitted once a module.
 
 Tolerances:
   * loss and EPE 1e-5 relative, ``grad_norm`` 1e-4 relative (the
@@ -67,6 +69,7 @@ from tests.test_train import tiny_cfg  # noqa: E402
 
 import raft_tpu_torch as rt  # noqa: E402
 from raft_tpu_torch.checkpoint import CheckpointManager, state_dict_from_flax  # noqa: E402
+from raft_tpu_torch.kernels import lookup_xtap  # noqa: E402
 from raft_tpu_torch.models.layers import ConvNormAct  # noqa: E402
 from raft_tpu_torch.train import (  # noqa: E402
     DivergenceError,
@@ -323,6 +326,39 @@ def test_train_step_matches_jax(setup):
     assert int(pstate.step) == int(jstate.step) == 3
 
 
+def test_fused_train_step_matches_jax(small):
+    """One step, then two more, at ``corr_impl='fused'`` (the skip guard
+    armed, none skipped) against the module's jitted JAX dense step (the
+    JAX package makes its fused step's gradient the dense one's by
+    construction; its interpret-mode kernel inside a jitted step would
+    take minutes to compile here), same weights and batch: metrics every
+    step, parameters, BatchNorm statistics and Adam's state after the
+    first and third (the step test's bounds); the fused model's bf16
+    weight copy (kept per weight version) is remade after each optimizer
+    update."""
+    batch = _batch()
+    jstep = small.jax_step(**GUARD)
+    jstate = JaxTrainState.create(small.variables, small.jax_tx())
+    model = small.port_model(corr_impl="fused")
+    assert type(model.corr_block) is lookup_xtap.FusedLookupCorrBlock
+    tx = _port_tx()
+    pstate = TrainState.create(model, tx)
+    pstep = make_train_step_fn(model, tx, num_flow_updates=UPDATES, **GUARD)
+    weight = model.update_block.motion_encoder.convcorr1[0].weight
+    pb, jb = _port_batch(batch), {k: jnp.asarray(v) for k, v in batch.items()}
+    for i in range(3):
+        copy = model.corr_block.weight_bf16(weight)
+        assert model.corr_block.weight_bf16(weight) is copy
+        jstate, jm = jstep(jstate, jb)
+        pstate, pm = pstep(pstate, pb)
+        assert float(pm["skipped"]) == float(jm["skipped"]) == 0.0
+        _assert_metrics_match(jm, pm)
+        if i in (0, 2):
+            _assert_state_matches(jstate, pstate, small.state_dict, i + 1)
+        fresh = model.corr_block.weight_bf16(weight)  # the update bumped the weight's version
+        assert fresh is not copy and torch.equal(fresh, lookup_xtap.project_weight_bf16(weight))
+
+
 def test_skip_guard_matches_jax(small):
     """A good step, a NaN batch, a finite gradient spike (both images
     scaled by 1e4: the gradient norm grows 1.9x here, past
@@ -383,19 +419,23 @@ def test_remat_gradients_equal_plain(small):
 
 
 def test_unported_knobs_raise(small):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2d"):
-        small.port_model(remat=True, remat_policy="dots")
-    for impl in ("fused", "pallas"):
-        model = rt.build_raft(_port_cfg(small.jcfg).replace(corr_impl=impl), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 2 item 1"):
-            make_train_step_fn(model, _port_tx())
+    """What does not train still raises: ``pallas`` (K3 defines no
+    gradient, in either package), int8 pyramids, and the Trainer's stall
+    watchdog and profiler server (not ported); ``fused`` builds a step."""
+    model = rt.build_raft(_port_cfg(small.jcfg).replace(corr_impl="pallas"), device="cpu")
+    with pytest.raises(NotImplementedError, match="defines no gradient"):
+        make_train_step_fn(model, _port_tx())
+    model = rt.build_raft(_port_cfg(small.jcfg).replace(corr_impl="fused", corr_dtype="int8"), device="cpu")
+    with pytest.raises(ValueError, match="inference-only"):
+        make_train_step_fn(model, _port_tx())
+    make_train_step_fn(small.port_model(corr_impl="fused"), _port_tx())
     with pytest.raises(ValueError, match="numerics_policy"):
         make_train_step_fn(small.port_model(), _port_tx(), numerics_policy="ignore")
-    for kw, item in [(dict(window_size=2), "queue 1 item 2d"), (dict(remat_policy="dots"), "queue 1 item 2d"),
-                     (dict(corr_impl="fused"), "queue 2 item 1"), (dict(watchdog_timeout=5.0), "queue 1 item 3g"),
-                     (dict(profile_port=9999), "queue 1 item 3f"), (dict(ledger_sample_every=4), "queue 1 item 3f")]:
+    for kw, item in [(dict(watchdog_timeout=5.0), "queue 1 item 3g"), (dict(profile_port=9999), "queue 1 item 3f")]:
         with pytest.raises(NotImplementedError, match=item):
             Trainer(TrainConfig(device="cpu", **kw), dataset=None)
+    with pytest.raises(NotImplementedError, match="defines no gradient"):
+        Trainer(TrainConfig(device="cpu", corr_impl="pallas"), dataset=None)
     with pytest.raises(ValueError, match="inference-only"):
         Trainer(TrainConfig(device="cpu", corr_dtype="int8"), dataset=None)
 
