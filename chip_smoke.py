@@ -84,7 +84,23 @@ Phases, each of which raises on failure (exit code 1):
      off for both), then the device time per program family from the
      ledger in a burst of its own, peak memory; then the golden fixture
      through the engine at 'quality' (1e-3 px);
- 11. training: ``Trainer`` at raft_large's chairs stage, full width (batch
+ 11. whole-request serving: ``ServeEngine`` with ``pool_capacity=0``
+     (max_batch 8, batch ladder 1/2/4/8, depth 2, every program captured
+     at ``start()``) over the same weights at 'edge' (K1's int8 form) and
+     at 'quality', 24 requests from 8 threads: boot and its peak memory,
+     no capture after ``start()``, requests/s, p50/p99, padding waste,
+     in-flight peak, the run's peak memory, K1 launches, every dispatched
+     batch bit for bit the eager forward of its staged inputs, the idle
+     share of a profiled burst of 8; at 'quality' the flows against the
+     graphed FlowEstimator (1e-3 / 5e-2 px), a stream of 8 moving frames
+     against pairwise submits (the encoder cache hit rate) and a
+     ``submit_many`` burst of 16 with two invalid items; the golden
+     fixture through it at 'quality' and 'edge' (1e-3, 3e-2 px; the pairs
+     one at a time, and in one burst, which 'edge' logs: ROADMAP R3); streams
+     in the pool at 'quality' against pairwise, then with
+     ``stream_warm_start`` and a residual threshold (updates to converge,
+     warm against cold); ``FlowStream`` graphed bit for bit eager;
+ 12. training: ``Trainer`` at raft_large's chairs stage, full width (batch
      8, crop 368x496, 12 updates, dense fp32), on a synthetic FlyingChairs
      tree of 24 pairs at 384x512: 8 steps, a checkpoint every 4, a
      boundary every 2 (finite losses), preempted after step 4 and resumed
@@ -100,7 +116,7 @@ Phases, each of which raises on failure (exit code 1):
      control); each remat policy at the train bench's shape (fused fp32:
      pairs/s, peak memory, K1 24 launches a step, 12 under 'corr'); the
      TF32 flags are checked unchanged;
- 12. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+ 13. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -722,21 +738,29 @@ def lowp_lookup_phase(device):
                                    for k, v in k2_shapes[key2].items() if k.startswith(label))
             for key2 in K2_FORMS))
 
-    # the launch of the serving pool's tick and the bench's _b8 lines: batch 8, Q = 56320
+    # the launch of the serving pool's tick, the bench's _b8 lines and the
+    # whole-request engine's batches of 8 ('edge': int8 levels): batch 8,
+    # Q = 56320, each form held against its plain version there too
     pyr32, cents, weight, bias = kernel_inputs(device, **LOOKUP_CASES["serving_batch8"])
     weight_bf16 = lx.project_weight_bf16(weight)
     batch8 = {}
-    for key, storage, proj in (("k1", "fp32", None), ("k1_bf16_bf16", "bf16", torch.bfloat16)):
+    for key, storage, proj in (("k1", "fp32", None), ("k1_bf16_bf16", "bf16", torch.bfloat16),
+                               ("k1_int8", "int8", None)):
         pyr = pyr32 if storage == "fp32" else lowp_pyramid(pyr32, storage)
         wb = weight_bf16 if proj is not None else None
+        scales = getattr(pyr, "scales", None)
         b8 = k1_bound(pyr, cents, weight, bias, RADIUS, proj)
+        want = lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj).float()
+        err8 = (lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj, wb).float() - want).abs().max().item()
+        if not err8 <= k1_tolerance(want, storage, proj):
+            raise AssertionError(f"K1 {key} at batch 8 disagrees with its plain version: {err8:.3e}")
         batch8[key] = {
             "batch8_ms": cuda_ms(lambda: lx.lookup_project_fused(pyr, cents, weight, bias, RADIUS, proj, wb)),
             "batch8_plain_ms": cuda_ms(lambda: lx.lookup_project_reference(pyr, cents, weight, bias, RADIUS, proj),
                                        reps=5),
             "batch8_library_ms": cuda_ms(
-                lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS, None, proj or torch.float32), reps=5),
-            "batch8_bound_ms": b8[0], "batch8_bound_by": b8[1],
+                lambda: k1_library_chain(pyr, cents, weight, bias, RADIUS, scales, proj or torch.float32), reps=5),
+            "batch8_bound_ms": b8[0], "batch8_bound_by": b8[1], "batch8_max_abs_err": err8,
         }
         log(f"kernels K1 {key} at batch 8 (Q={cents.shape[0] * cents.shape[1] * cents.shape[2]}): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in batch8[key].items()))
@@ -1373,8 +1397,9 @@ def serving_phase(device, card, preset, weights):
     model = rt.raft_for_serving(ServeConfig.preset(preset), corr_impl="fused", device=device)
     model.load_state_dict(weights)
     # a generous deadline: every request runs to its own target here
+    # streams off: the stream phases run on engines of their own
     cfg = ServeConfig(buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER, warmup=True,
-                      default_deadline_ms=120_000.0, ledger_sample_every=0)
+                      default_deadline_ms=120_000.0, ledger_sample_every=0, stream_cache_size=0)
     pairs = [request_pair(100 + i)[:2] for i in range(SERVE_REQUESTS)]
     targets = [SERVE_LADDER[i % len(SERVE_LADDER)] for i in range(SERVE_REQUESTS)]
     torch.cuda.synchronize()
@@ -1486,6 +1511,355 @@ def golden_serving_phase(device):
         f"{ref:.7f}, |d| {abs(epe - ref):.3e}, tol {EPE_TOL:g})")
     if not abs(epe - ref) < EPE_TOL or any(r.num_flow_updates != 32 for r in results):
         raise AssertionError("golden EPE through ServeEngine misses the reference")
+
+
+# The whole-request engine (pool_capacity=0) at raft_large full width: the
+# serving phase's bucket, ladder, requests and threads, max_batch 8 (batch
+# ladder 1, 2, 4, 8), pipeline depth 2, every program captured at start().
+# Every dispatched batch is held bit for bit against the model's eager
+# forward on its staged inputs (the batch-wide int8 scale makes a batch-1
+# reference the wrong one at 'edge'); at 'quality' each request's flow also
+# against the graphed FlowEstimator, the pool's bounds.
+WR_MAX_BATCH, WR_DEPTH = 8, 2
+STREAM_FRAMES, STREAM_STEP = 8, (3, -2)  # frames of a stream, its motion a frame (dx, dy px)
+SUBMIT_MANY_ITEMS, SUBMIT_MANY_BAD = 16, (3, 11)
+
+
+def stream_frames(seed: int, n: int = STREAM_FRAMES, step=STREAM_STEP):
+    """``n`` raw uint8 IMAGE-sized frames of one smooth random texture
+    moving ``step`` pixels a frame (``request_pair``'s texture): a video
+    whose flow is the same every pair."""
+    rng = np.random.default_rng(seed)
+    h, w = IMAGE
+    m = 8 + n * max(abs(s) for s in step)
+    hh, ww = h + 2 * m, w + 2 * m
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, hh // 8 + 2, ww // 8 + 2)).astype(np.float32))
+    tex = torch.nn.functional.interpolate(coarse, size=(hh, ww), mode="bicubic", align_corners=False)
+    tex = tex[0].permute(1, 2, 0).clamp(0, 255).numpy().astype(np.uint8)
+    dx, dy = step
+    return [np.ascontiguousarray(tex[m - t * dy: m - t * dy + h, m - t * dx: m - t * dx + w]) for t in range(n)]
+
+
+def flow_gap(results, wants):
+    """(mean, max) |flow - want| px over paired flows."""
+    d = [np.abs(r - w) for r, w in zip(results, wants)]
+    return float(np.mean([x.mean() for x in d])), float(max(x.max() for x in d))
+
+
+def record_batches(engine):
+    """Wrap ``engine._run_batch`` (the dispatch seam) so each dispatched
+    batch's staged inputs, iterations and flow are kept for a reference
+    run; returns the list they go to."""
+    orig, seen = engine._run_batch, []
+
+    def run(p1, p2, iters):
+        flow = orig(p1, p2, iters)
+        seen.append((torch.as_tensor(p1).clone(), torch.as_tensor(p2).clone(), int(iters), flow.clone()))
+        return flow
+
+    engine._run_batch = run
+    return seen
+
+
+def whole_request_phase(device, card, preset, weights):
+    """``ServeEngine`` with ``pool_capacity=0`` over raft_large at
+    ``preset``: boot and captures, 24 requests from 8 threads (targets
+    32/20/12; a batch runs at the largest of its members'), no capture
+    after ``start()``, speed, padding, the window, a profiled burst,
+    peak memory, K1 launches; every dispatched batch bit for bit the eager
+    forward of its staged inputs; at 'quality' each flow against the
+    graphed FlowEstimator, then streams and ``submit_many`` on the same
+    engine. Returns the phase's K1 launches (graph replays x launches a
+    graph) by part and its numbers."""
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    streams = preset == "quality"
+    model = rt.raft_for_serving(ServeConfig.preset(preset), corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    cfg = ServeConfig.preset(preset, buckets=(SERVE_BUCKET,), pool_capacity=0, max_batch=WR_MAX_BATCH,
+                             ladder=SERVE_LADDER, pipeline_depth=WR_DEPTH, warmup=True,
+                             stream_cache_size=16 if streams else 0, default_deadline_ms=120_000.0,
+                             ledger_sample_every=0)
+    pairs = [request_pair(100 + i)[:2] for i in range(SERVE_REQUESTS)]
+    targets = [SERVE_LADDER[i % len(SERVE_LADDER)] for i in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    engine = ServeEngine(model, cfg, device=device)
+    t0 = time.perf_counter()
+    engine.start()
+    boot_s = time.perf_counter() - t0
+    boot, counts = engine.stats()["boot"], engine.program_counts()
+    torch.cuda.synchronize()
+    boot_peak, held = torch.cuda.max_memory_allocated(device), torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    log(f"whole-request {preset}: boot to ready {boot_s:.3f} s ({json.dumps(boot)}), graphs per program family "
+        f"{counts}; peak device memory over the boot {boot_peak} B ({boot_peak / 2**30:.3f} GiB), held after it "
+        f"{held} B ({held / 2**30:.3f} GiB); card {card}")
+    seen = record_batches(engine)
+    ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    results = serve_requests(engine, pairs, targets, SERVE_THREADS)
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    captures, eager = capture_events() - ev0, read_counts()
+    k1_run = by_kernel(engine.graph_launches())["k1"] - k1_0
+    peak = torch.cuda.max_memory_allocated(device)  # over the run alone
+    lat = [r.latency_ms for r in results]
+    log(f"whole-request {preset}: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads in {wall:.3f} s = "
+        f"{SERVE_REQUESTS / wall:.3f} requests/s; latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+        f"{np.percentile(lat, 99):.3f} ms; {stats['batches']} batches, rungs "
+        f"{sorted(int(s[0].shape[0]) for s in seen)}, padding_waste {stats['padding_waste']:.4f}, inflight_peak "
+        f"{stats['inflight_peak']}, nonfinite_batches {stats['nonfinite_batches']}, retried_singles "
+        f"{stats['retried_singles']}; K1 {k1_run} in the run (graph replays x launches per graph), eager launches "
+        f"{eager}; captures during the run {captures}; peak device memory over the run {peak} B "
+        f"({peak / 2**30:.3f} GiB); card {card}")
+    # a batch runs at the largest of its members' targets (ladder rungs)
+    bad = [(r.rid, n, r.num_flow_updates) for r, n in zip(results, targets)
+           if r.num_flow_updates < n or r.flow.shape != IMAGE + (2,) or not np.isfinite(r.flow).all()]
+    if bad or captures or eager["k1"] or k1_run != sum(s[2] for s in seen):
+        raise AssertionError(f"whole-request {preset}: off target {bad}, {captures} captures after start(), "
+                             f"eager {eager}, K1 {k1_run} against {sum(s[2] for s in seen)} updates dispatched")
+    # each dispatched batch against the eager forward of its staged
+    # inputs, on this thread (which captured the graphs: cuDNN's choices
+    # are kept per thread)
+    with torch.inference_mode():
+        for p1, p2, iters, flow in seen:
+            want = model(p1.to(device).permute(0, 3, 1, 2), p2.to(device).permute(0, 3, 1, 2),
+                         num_flow_updates=iters, emit_all=False)
+            if not torch.equal(flow, want):
+                raise AssertionError(f"whole-request {preset}: a batch of {p1.shape[0]} at {iters} updates differs "
+                                     f"from its eager forward by {(flow - want).abs().max().item():.3e} px")
+    log(f"whole-request {preset}: all {len(seen)} dispatched batches bit for bit their eager forward")
+    del engine._run_batch  # the recording wrapper
+    idle = profiled_burst(engine, f"whole-request {preset}", pairs[:WR_MAX_BATCH], card)
+    out = {"requests_per_s": SERVE_REQUESTS / wall, "peak": peak, "boot_peak": boot_peak, "boot_s": boot_s, "idle": idle,
+           "k1": {"run": k1_run, "batches": len(seen), "rungs": sorted(int(s[0].shape[0]) for s in seen)}}
+    if streams:
+        est = rt.FlowEstimator(model, num_flow_updates=SERVE_LADDER[0], pad_mode="downstream", device=device)
+        mean_d, max_d = flow_gap([r.flow for r in results],
+                                 [est(*p, num_flow_updates=r.num_flow_updates) for p, r in zip(pairs, results)])
+        tol_mean, tol_max = SERVE_TOL[preset]
+        log(f"whole-request {preset}: |dflow| vs the graphed FlowEstimator (batch 1) mean {mean_d:.3e} px (tol "
+            f"{tol_mean:g}), max {max_d:.3e} px (tol {tol_max:g})")
+        if not (mean_d <= tol_mean and max_d <= tol_max):
+            raise AssertionError(f"whole-request {preset}: flows disagree with FlowEstimator")
+        out["k1"]["stream"] = engine_stream_check(engine, "whole-request", card)
+        submit_many_check(engine)
+    engine.stop()
+    return out
+
+
+def profiled_burst(engine, what, burst, card):
+    """A burst of requests at the ladder's top under torch.profiler: wall,
+    device busy, idle share and the top device ops (None when the profiler
+    records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_requests(engine, burst, [SERVE_LADDER[0]] * len(burst), len(burst))
+        torch.cuda.synchronize()
+        burst_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy(prof)
+    if busy is None:
+        log(f"{what}: profiled burst recorded no device activity; idle share not measured")
+        return None
+    by_name, busy_us, ops = busy
+    idle = 1 - busy_us / 1e3 / burst_ms
+    log(f"{what}: profiled burst of {len(burst)} requests at {SERVE_LADDER[0]} updates: wall {burst_ms:.3f} ms, "
+        f"device busy {busy_us / 1e3:.3f} ms, idle share {idle:.3f}, {ops} device ops; card {card}")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        log(f"{what} profile:   {us / 1e3:9.3f} ms  {n:6d}x  {name[:110]}")
+    return idle
+
+
+def engine_stream_check(engine, what, card, frames=None):
+    """A stream of ``STREAM_FRAMES`` moving frames through
+    ``engine.open_stream`` against pairwise ``submit`` of the same pairs on
+    the same engine (1e-3 / 5e-2 px mean / max), the encoder cache hit
+    rate, no capture; returns the stream's K1 launches."""
+    from raft_tpu_torch.graphs import capture_events
+
+    frames = frames or stream_frames(7)
+    ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+    s0 = engine.stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with engine.open_stream() as stream:
+        streamed = [stream.submit(f) for f in frames]
+    wall = time.perf_counter() - t0
+    k1 = by_kernel(engine.graph_launches())["k1"] - k1_0
+    eager, captures, s1 = read_counts(), capture_events() - ev0, engine.stats()
+    hits = s1["encode_cache_hits"] - s0["encode_cache_hits"]
+    misses = s1["encode_cache_misses"] - s0["encode_cache_misses"]
+    pairwise = [engine.submit(frames[t], frames[t + 1]).flow for t in range(len(frames) - 1)]
+    mean_d, max_d = flow_gap([r.flow for r in streamed[1:]], pairwise)
+    log(f"{what} stream: {len(frames)} frames in {wall:.3f} s ({[round(r.latency_ms, 3) for r in streamed]} ms), "
+        f"encoder cache hit rate {hits}/{hits + misses}; |dflow| vs pairwise submit mean {mean_d:.3e} px, max "
+        f"{max_d:.3e} px (tol {FLOW_MEAN_TOL:g} / {FLOW_MAX_TOL:g}); K1 {k1} (graph replays), eager {eager}; "
+        f"captures {captures}; card {card}")
+    if not (streamed[0].primed and all(not r.primed for r in streamed[1:]) and hits == len(frames) - 1
+            and misses == 1 and captures == 0 and not eager["k1"]
+            and mean_d <= FLOW_MEAN_TOL and max_d <= FLOW_MAX_TOL):
+        raise AssertionError(f"{what} stream: primes {[r.primed for r in streamed]}, hits {hits}, misses {misses}, "
+                             f"captures {captures}, eager {eager}, |dflow| {mean_d:.3e} / {max_d:.3e}")
+    return k1
+
+
+def submit_many_check(engine):
+    """One burst of ``SUBMIT_MANY_ITEMS`` items, two invalid (a batched
+    image, a NaN pixel): one handle per item, in order; the invalid ones
+    finished with InvalidInput, the rest served at their own target."""
+    pairs = [request_pair(200 + i)[:2] for i in range(SUBMIT_MANY_ITEMS)]
+    items = [dict(image1=a, image2=b, num_flow_updates=SERVE_LADDER[-1]) for a, b in pairs]
+    items[SUBMIT_MANY_BAD[0]]["image1"] = pairs[SUBMIT_MANY_BAD[0]][0][None]
+    nan = pairs[SUBMIT_MANY_BAD[1]][1].astype(np.float32)
+    nan[5, 7, 1] = np.nan
+    items[SUBMIT_MANY_BAD[1]]["image2"] = nan
+    t0 = time.perf_counter()
+    handles = engine.submit_many(items)
+    ok = all(h.wait(120) for h in handles)
+    wall = time.perf_counter() - t0
+    kinds = [type(h.error).__name__ if h.error is not None else "ok" for h in handles]
+    log(f"submit_many: {len(items)} items in one call, served in {wall:.3f} s; outcomes {kinds}")
+    want = ["InvalidInput" if i in SUBMIT_MANY_BAD else "ok" for i in range(len(items))]
+    if not ok or kinds != want or any(
+            h.result.num_flow_updates != SERVE_LADDER[-1] or not np.isfinite(h.result.flow).all()
+            for h in handles if h.error is None):
+        raise AssertionError(f"submit_many: outcomes {kinds}, expected {want}")
+
+
+def pool_stream_phase(device, card, weights):
+    """Streams in the iteration pool at 'quality' (capacity 8): stream
+    against pairwise; then a second pool with ``stream_warm_start`` and a
+    residual threshold from the first pool's mean residual at update 17
+    (the middle of the ladder's top, 32):
+    the mean updates to converge, cold (pairwise submits) against warm
+    (stream pairs seeded with the previous pair's forward-warped flow).
+    Returns the K1 launches of both pools' streams."""
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = rt.raft_for_serving(ServeConfig.preset("quality"), corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    base = dict(buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER, warmup=True,
+                default_deadline_ms=120_000.0, ledger_sample_every=0)
+    frames = stream_frames(7)
+    with ServeEngine(model, ServeConfig(**base), device=device) as engine:
+        log(f"pool stream: boot {engine.stats()['boot']}, graphs {engine.program_counts()}")
+        k1 = engine_stream_check(engine, "pool", card, frames)
+        resid = engine.stats()["convergence"]["resid_by_iter"]
+    thresh = float(resid[len(resid) // 2])
+    cfg = ServeConfig(stream_warm_start=True, pool_converge_thresh=thresh, pool_converge_streak=2, **base)
+    with ServeEngine(model, cfg, device=device) as engine:
+        cold = [engine.submit(frames[t], frames[t + 1]) for t in range(len(frames) - 1)]
+        k1_0 = by_kernel(engine.graph_launches())["k1"]
+        with engine.open_stream() as stream:
+            warm = [stream.submit(f) for f in frames]
+        k1_warm = by_kernel(engine.graph_launches())["k1"] - k1_0
+        stats = engine.stats()
+    seeded = [r for r in warm[2:]]
+    it_cold = [r.num_flow_updates for r in cold]
+    it_warm = [r.num_flow_updates for r in seeded]
+    mean_d, max_d = flow_gap([r.flow for r in seeded], [r.flow for r in cold[1:]])
+    log(f"pool warm start: threshold {thresh:.4e} px (mean residual at update {len(resid) // 2 + 1}, streak 2); "
+        f"updates to converge "
+        f"cold {it_cold} (mean {np.mean(it_cold):.3f}, exits {[r.exit_reason for r in cold]}), warm {it_warm} "
+        f"(mean {np.mean(it_warm):.3f}, exits {[r.exit_reason for r in seeded]}); the first stream pair cold "
+        f"{warm[1].num_flow_updates}; warm vs cold |dflow| mean {mean_d:.3e} px max {max_d:.3e} px; "
+        f"stream_warm_starts {stats['stream_warm_starts']}; K1 {k1_warm}; card {card}")
+    if not (all(r.warm_started for r in seeded) and not warm[1].warm_started
+            and stats["stream_warm_starts"] == len(seeded)):
+        raise AssertionError("pool warm start: the stream's pairs were not seeded as expected")
+    return k1 + k1_warm
+
+
+def flow_stream_phase(device, card, weights):
+    """``FlowStream`` over raft_large 'quality' at 32 updates: 4 frames by
+    graph replay, bit for bit the eager encode + iterate on the same
+    inputs; the graphs' K1 launches."""
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.eval.padder import InputPadder
+
+    model = rt.raft_large(corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    est = rt.FlowEstimator(model, num_flow_updates=UPDATES, device=device)
+    frames = stream_frames(8, n=4)
+    stream = est.open_stream()
+    t0 = time.perf_counter()
+    got = [stream(f) for f in frames]
+    wall = time.perf_counter() - t0
+    padder = InputPadder(est._normalize(frames[0]).shape, mode=est.pad_mode)
+    with torch.inference_mode():
+        enc = [model.encode_frame(est._to_device(padder.pad(est._normalize(f)))) for f in frames]
+        for t in range(1, len(frames)):
+            flow = model.iterate(enc[t - 1][0], enc[t][0], enc[t - 1][1], num_flow_updates=UPDATES, emit_all=False)
+            if not np.array_equal(got[t], padder.unpad(est._to_host(flow))[0]):
+                raise AssertionError(f"FlowStream: graphed pair {t} differs from the eager encode + iterate")
+    k1 = by_kernel(est.graph_launches())["k1"]
+    log(f"FlowStream: {len(frames)} frames (captures included) in {wall:.3f} s, graphs "
+        f"{sorted(k[0] for k in est.stream_programs())}; bit for bit the eager encode + iterate; K1 {k1}; card {card}")
+    if k1 != UPDATES * (len(frames) - 1):
+        raise AssertionError(f"FlowStream: K1 {k1} launches, expected {UPDATES * (len(frames) - 1)}")
+    return k1
+
+
+def golden_whole_request_phase(device):
+    """The golden fixture through the whole-request engine at 'quality'
+    and at 'edge', each pair padded as the Sintel protocol pads it: the
+    pairs one at a time (each its own batch, rung 1), then in one
+    ``submit_many`` burst (one batch of 3 at rung 4, its composition
+    fixed). Held to ``tests/test_epe_golden.py``'s bounds (1e-3, 3e-2 px):
+    both ways at 'quality'; at 'edge' one at a time. At 'edge' the burst
+    is logged, not held: the int8 scale is one a level over the batch,
+    and the zero pad row (a constant frame correlated with itself) sets
+    it for the real rows (ROADMAP R3, the reference's semantics), which
+    puts the burst within a few percent of the bound."""
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.data import Sintel
+    from raft_tpu_torch.eval.padder import InputPadder
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    expected = json.loads((FIXTURE / "expected.json").read_text())
+    ref = expected["reference"]["clean"]
+    ds = Sintel(str(FIXTURE), split="training", dstype="clean")
+    samples = [ds[i] for i in range(len(ds))]
+    padders = [InputPadder(s["image1"].shape, mode="sintel") for s in samples]
+    items = [dict(zip(("image1", "image2"), p.pad(s["image1"], s["image2"]))) for p, s in zip(padders, samples)]
+
+    def epe_of(results):
+        return np.concatenate([
+            np.linalg.norm(p.unpad(r.flow[None])[0] - s["flow"], axis=-1).reshape(-1)
+            for p, r, s in zip(padders, results, samples)
+        ]).mean()
+
+    launches = {}
+    for preset, tol in (("quality", EPE_TOL), ("edge", 3e-2)):
+        model = rt.raft_for_serving(ServeConfig.preset(preset), arch="raft_small",
+                                    checkpoint=str(FIXTURE / "weights.msgpack"), device=device, **FIXTURE_ARCH)
+        cfg = ServeConfig.preset(preset, buckets=((96, 136),), pool_capacity=0, max_batch=WR_MAX_BATCH,
+                                 ladder=(32,), default_deadline_ms=120_000.0)
+        with ServeEngine(model, cfg, device=device) as engine:
+            alone = [engine.submit(it["image1"], it["image2"]) for it in items]
+            handles = engine.submit_many(items)
+            if not all(h.wait(120) and h.error is None for h in handles):
+                raise AssertionError(f"golden through the whole-request engine: {[h.error for h in handles]}")
+            burst = [h.result for h in handles]
+            launches[preset] = by_kernel(engine.graph_launches())["k1"]
+            batches = engine.stats()["batches"]
+        d_alone, d_burst = abs(epe_of(alone) - ref), abs(epe_of(burst) - ref)
+        log(f"golden EPE through the whole-request engine ({preset}, 32 updates, reference {ref:.7f}, tol {tol:g}): "
+            f"{len(samples)} pairs one at a time |d| {d_alone:.3e}; in one burst (one batch of {len(samples)} at rung "
+            f"{engine._rung(len(samples))}) |d| {d_burst:.3e}{'' if preset == 'quality' else ' (not held: R3)'}; "
+            f"{batches} batches; K1 {launches[preset]}")
+        held = [d_alone] + ([d_burst] if preset == "quality" else [])
+        if not all(d < tol for d in held) or any(r.num_flow_updates != 32 for r in alone + burst):
+            raise AssertionError(f"golden EPE through the whole-request engine at {preset} misses the reference")
+    return launches
 
 
 # The training phase: the chairs stage of raft_large at full width (batch 8,
@@ -1980,6 +2354,11 @@ def main() -> int:
     k1_serve_q, _ = serving_phase(device, card, "quality", weights)
     k1_serve_t, _ = serving_phase(device, card, "throughput", weights)
     golden_serving_phase(device)
+    wr_edge = whole_request_phase(device, card, "edge", weights)
+    wr_quality = whole_request_phase(device, card, "quality", weights)
+    k1_golden_wr = golden_whole_request_phase(device)
+    k1_pool_stream = pool_stream_phase(device, card, weights)
+    k1_flow_stream = flow_stream_phase(device, card, weights)
     train_phase(device, card)
     fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
     fused_training_checks(device, card)
@@ -2008,6 +2387,13 @@ def main() -> int:
               lookup_bounds["k1"], fp32_fma_bound_ms=lookup_bounds["k1_fma"][0], hmma=hmma1, **k1_batch8["k1"],
               serving_path=f"ServeEngine 'quality' at fused, raft_large, {SERVE_REQUESTS} requests (graph replays)",
               serving_launches=k1_serve_q,
+              whole_request_path=f"ServeEngine 'quality', pool_capacity=0, raft_large, {SERVE_REQUESTS} requests in "
+                                 f"{wr_quality['k1']['batches']} batches of {wr_quality['k1']['rungs']} "
+                                 f"(graph replays)",
+              whole_request_launches=wr_quality["k1"]["run"],
+              stream_path=f"open_stream, {STREAM_FRAMES} frames, in the whole-request engine and the pool (cold, then "
+                          f"warm-started), and FlowStream, 4 frames (graph replays)",
+              stream_launches=wr_quality["k1"]["stream"] + k1_pool_stream + k1_flow_stream,
               training_path=f"Trainer, raft_large chairs stage at fused fp32 (b=8, 368x496, 12 updates, window 2), "
                             f"{TRAIN_STEPS} steps", training_launches=fused_launches["k1"],
               bench_train_k1_launches_per_step=bench_train_k1[
@@ -2027,7 +2413,11 @@ def main() -> int:
               **k1_train["k1_bf16_bf16"]),
         entry("xtap_project (K1), int8 levels, 3xTF32 product", lookup_src, k1_src, golden_launches["edge"],
               "validate, golden fixture at 'edge' (clean)", lowp_err["k1_int8"], lowp_times["k1_int8"],
-              lowp_bounds["k1_int8"]),
+              lowp_bounds["k1_int8"], **k1_batch8["k1_int8"],
+              whole_request_path=f"ServeEngine.preset('edge', pool_capacity=0), raft_large, {SERVE_REQUESTS} requests "
+                                 f"in {wr_edge['k1']['batches']} batches of {wr_edge['k1']['rungs']} (graph replays); "
+                                 f"the golden fixture through it",
+              whole_request_launches=wr_edge["k1"]["run"] + k1_golden_wr["edge"]),
         entry("xtap_project (K1), int8 levels, bf16 product", lookup_src, k1_src, 0,
               "no preset runs it (int8 storage with bf16 convs); kernels phase only", lowp_err["k1_int8_bf16"],
               lowp_times["k1_int8_bf16"], lowp_bounds["k1_int8_bf16"]),

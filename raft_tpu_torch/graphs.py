@@ -47,7 +47,7 @@ import torch
 
 from raft_tpu_torch.device import cudnn_benchmark
 
-__all__ = ["GraphProgram", "capture_events", "count_launch"]
+__all__ = ["GraphProgram", "capture_events", "count_launch", "rows_like"]
 
 # captures are process-wide state in CUDA: one at a time, and one count
 _capture_lock = threading.Lock()
@@ -76,6 +76,16 @@ def count_launch(wrapper) -> None:
             record[wrapper.__name__] = record.get(wrapper.__name__, 0) + 1
     else:
         wrapper.launches += 1
+
+
+def rows_like(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Zeros of ``n`` rows shaped, typed and laid out (channels-last or
+    not) like the rows of the 4-d ``t``: static buffers that take an
+    encoder's outputs keep their layout, so a graph and an eager call see
+    the same strides."""
+    last = not t.is_contiguous() and t.is_contiguous(memory_format=torch.channels_last)
+    fmt = torch.channels_last if last else torch.contiguous_format
+    return torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device, memory_format=fmt).zero_()
 
 
 class GraphProgram:

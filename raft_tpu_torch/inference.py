@@ -8,7 +8,9 @@ resolution as numpy ``(H, W, 2)`` / ``(B, H, W, 2)``. On the card each
 (padded shape, ``num_flow_updates``) is captured once as a CUDA graph and
 replayed (:mod:`raft_tpu_torch.graphs`), as the JAX estimator compiles one
 program per shape and iteration count. :class:`FlowStream` encodes each
-frame of a video once and reuses it for the next pair (eagerly).
+frame of a video once and reuses it for the next pair, replaying one graph
+per padded shape for the encode and one per (shape, iterations) for the
+refinement.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.eval.padder import InputPadder
-from raft_tpu_torch.graphs import GraphProgram
+from raft_tpu_torch.graphs import GraphProgram, rows_like
 
 __all__ = ["FlowEstimator", "FlowStream", "flow_program", "run_flow"]
 
@@ -83,6 +85,9 @@ class FlowEstimator:
         self._cache_info: Dict[Tuple[int, ...], int] = {}
         # (padded NHWC shape, iterations) -> program (flow_program)
         self._programs: Dict[Tuple, GraphProgram] = {}
+        # FlowStream's programs: ("encode", shape) and ("iterate", shape,
+        # iterations) -> (program, its static input buffers)
+        self._stream_programs: Dict[Tuple, Tuple[GraphProgram, Tuple]] = {}
 
     def cache_info(self) -> Dict[Tuple[int, ...], int]:
         """Per-padded-shape call counts (a snapshot; thread-safe)."""
@@ -94,11 +99,18 @@ class FlowEstimator:
         with self._lock:
             return {k: prog for k, prog in self._programs.items() if prog.captured}
 
+    def stream_programs(self) -> Dict[Tuple, GraphProgram]:
+        """Its streams' captured graphs, by ``("encode", shape)`` and
+        ``("iterate", shape, iterations)``."""
+        with self._lock:
+            return {k: prog for k, (prog, _) in self._stream_programs.items() if prog.captured}
+
     def graph_launches(self) -> Dict[str, int]:
-        """Kernel launches made by replaying this estimator's graphs, by
-        kernel wrapper's name (the wrappers count only eager launches)."""
+        """Kernel launches made by replaying this estimator's graphs (its
+        streams' too), by kernel wrapper's name (the wrappers count only
+        eager launches)."""
         total: Dict[str, int] = {}
-        for prog in self.programs().values():
+        for prog in [*self.programs().values(), *self.stream_programs().values()]:
             for k, n in prog.replayed_launches().items():
                 total[k] = total.get(k, 0) + n
         return total
@@ -232,13 +244,60 @@ class FlowEstimator:
         """Start a video-stream session with encode-once feature caching."""
         return FlowStream(self)
 
+    def _stream_program(self, key: Tuple, make):
+        """A stream program, made on first use by ``make() -> (static
+        buffers, fn)``; call with the lock held."""
+        entry = self._stream_programs.get(key)
+        if entry is None:
+            static, fn = make()
+            prog = GraphProgram(fn, self.device, pool=self._pool, name=f"FlowStream {key}")
+            entry = self._stream_programs[key] = (prog, static)
+        return entry
+
+    def _encode(self, p: np.ndarray):
+        """(feature map, raw context output) of a padded NHWC frame batch,
+        copied out of the graph's outputs (which its next replay
+        overwrites); eager on the CPU."""
+        x = self._to_device(p)
+        if self.device.type != "cuda":
+            return self.model.encode_frame(x)
+
+        def make():
+            # the eager path's layout: NHWC memory viewed as NCHW
+            buf = torch.empty(p.shape, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
+            return (buf,), lambda: self.model.encode_frame(buf)
+
+        prog, (buf,) = self._stream_program(("encode", p.shape), make)
+        buf.copy_(x)
+        return tuple(t.clone() for t in prog())
+
+    def _iterate(self, shape: Tuple[int, ...], fmap1, fmap2, context_out) -> torch.Tensor:
+        """The flow ``(B, 2, H, W)`` of encoded frames; the graph's
+        feature buffers take the encoder outputs' layout."""
+        iters = self.num_flow_updates
+        if self.device.type != "cuda":
+            return self.model.iterate(fmap1, fmap2, context_out, num_flow_updates=iters, emit_all=False)
+
+        def make():
+            n = fmap1.shape[0]
+            static = (rows_like(fmap1, n), rows_like(fmap2, n), rows_like(context_out, n))
+            return static, lambda: self.model.iterate(*static, num_flow_updates=iters, emit_all=False)
+
+        prog, static = self._stream_program(("iterate", shape, iters), make)
+        for buf, x in zip(static, (fmap1, fmap2, context_out)):
+            buf.copy_(x)
+        return prog()
+
 
 class FlowStream:
     """One video-stream session over a :class:`FlowEstimator`.
 
     Feed frames in order; each call returns the flow from the previous frame
     to this one, or ``None`` for the first frame. All frames share one
-    resolution. One stream, one caller thread.
+    resolution. One stream, one caller thread. On the card the encode and
+    the refinement each replay a graph of the estimator's (one per padded
+    shape, and per shape and iteration count), bit for bit the eager
+    calls; the cached maps stay on the card.
     """
 
     def __init__(self, estimator: FlowEstimator):
@@ -266,14 +325,11 @@ class FlowStream:
                 f"{self._shape}, got {img.shape} (open a new stream)"
             )
         p = self._padder.pad(img)
-        with torch.inference_mode():
-            fmap, ctx = est.model.encode_frame(est._to_device(p))
+        with torch.inference_mode(), est._lock:
+            fmap, ctx = est._encode(p)
             prev_fmap, prev_ctx = self._fmap, self._ctx
             self._fmap, self._ctx = fmap, ctx
             if prev_fmap is None:
                 return None
-            flow = est.model.iterate(
-                prev_fmap, fmap, prev_ctx, num_flow_updates=est.num_flow_updates, emit_all=False
-            )
-            flow = self._padder.unpad(est._to_host(flow))
+            flow = self._padder.unpad(est._to_host(est._iterate(p.shape, prev_fmap, fmap, prev_ctx)))
         return flow[0] if np.asarray(frame).ndim == 3 else flow

@@ -1,17 +1,23 @@
-"""Serving: the precision presets (``ServeConfig.preset``) and the pool path
-of the serving engine, ``ServeEngine``, with its typed errors.
+"""Serving: the precision presets (``ServeConfig.preset``) and the serving
+engine, ``ServeEngine`` (the iteration pool, or the whole-request engine at
+``pool_capacity=0``, with streams), with its typed errors.
 
     from raft_tpu_torch.serve import ServeConfig, ServeEngine
     cfg = ServeConfig(buckets=((440, 1024),), warmup=True)
     with ServeEngine(raft_for_serving(ServeConfig.preset("quality")), cfg) as engine:
         result = engine.submit(image1, image2)   # ServeResult, (H, W, 2) flow
+        with engine.open_stream() as stream:     # encode-once video stream
+            results = [stream.submit(frame) for frame in frames]
+
+    # 'edge' (int8 pyramid) is served by the whole-request engine
+    cfg = ServeConfig.preset("edge", pool_capacity=0, buckets=((440, 1024),), warmup=True)
 
 Importing the package builds no kernel and needs no card; the engine runs
 on the card unless ``device='cpu'`` is passed.
 """
 
 from raft_tpu_torch.serve.config import PRESETS, ServeConfig
-from raft_tpu_torch.serve.engine import ServeEngine, ServeResult
+from raft_tpu_torch.serve.engine import ServeEngine, ServeResult, StreamSession
 from raft_tpu_torch.serve.errors import (
     DeadlineExceeded,
     Draining,
@@ -38,4 +44,5 @@ __all__ = [
     "ServeError",
     "ServeResult",
     "ShapeRejected",
+    "StreamSession",
 ]

@@ -1,5 +1,5 @@
 """Serving configuration: the named precision presets and every knob of the
-serving engine's pool path in one validated dataclass.
+serving engine in one validated dataclass.
 
 The port's copy of the JAX package's ``raft_tpu/serve/config.py`` (the
 port cannot import it: importing ``raft_tpu.serve`` loads jax), with the
@@ -21,10 +21,9 @@ what makes degradation under load a first-class mechanism). Buckets are
 
 Knobs whose path the port has not reached yet are still fields, validated
 as in the JAX package, and the engine raises ``NotImplementedError``
-naming them when they ask for that path: ``pool_capacity=0`` (the
-whole-request engine), ``stream_warm_start`` (streams),
-``unknown_shape='tiled'``, ``apply_timeout_s`` (the device watchdog),
-``trace_sample_rate > 0`` and ``qos_enabled``.
+naming them when they ask for that path: ``unknown_shape='tiled'``,
+``apply_timeout_s`` (the device watchdog), ``trace_sample_rate > 0`` and
+``qos_enabled``.
 """
 
 from __future__ import annotations
@@ -62,7 +61,10 @@ class ServeConfig:
             ``iterate_step`` per tick, and leave as soon as their own
             iteration target (the per-request ``num_flow_updates``, a
             degradation target, or a deadline-driven early exit) is met.
-            ``0`` is the JAX package's whole-request engine, not ported.
+            ``0`` is the whole-request engine: a formed batch runs the
+            whole forward at the next rung of ``batch_ladder`` (the one
+            engine that serves ``edge``: the int8 pyramid's scale is
+            batch-wide, so its rows cannot move between slots).
         pool_min_iters: floor on refinement iterations a pooled request
             runs before a deadline-driven or convergence exit may
             finalize it.
@@ -82,16 +84,17 @@ class ServeConfig:
             required before a slot counts as converged (must fit the
             residual history, ``<= ladder[0]``, when the feature is on).
         stream_warm_start: seed each stream pair with the previous
-            pair's forward-warped flow (streams are not ported yet).
+            pair's forward-warped 1/8-grid flow (pool engine only).
         max_batch: how many queued requests are encoded and admitted per
             tick; with ``pool_capacity`` it bounds the admission ladder.
         batch_ladder: ascending padded batch sizes; must start at 1 and
             end at ``max_batch``. ``None`` derives the powers-of-two
             ladder ``(1, 2, 4, ..., max_batch)``.
-        pipeline_depth: bound on dispatched-but-unfetched pool ticks
-            (1 = strictly synchronous).
-        stream_cache_size: LRU bound on cached stream sessions (used only
-            by ``open_stream``, not ported yet).
+        pipeline_depth: bound on dispatched-but-unfetched pool ticks or
+            whole-request batches (1 = strictly synchronous).
+        stream_cache_size: LRU bound on cached stream sessions
+            (``open_stream``); ``0`` disables stream serving and its
+            programs.
         max_wait_ms: how long the batch thread waits for stragglers after
             the first request of a batch arrives (capped by that request's
             own deadline slack).

@@ -1,7 +1,6 @@
-"""Fault-isolated serving engine for RAFT optical flow: the pool path.
+"""Fault-isolated serving engine for RAFT optical flow.
 
-The port of the JAX package's ``raft_tpu/serve/engine.py``, its default
-path: ``submit`` through the resident GRU-iteration pool. One worker
+The port of the JAX package's ``raft_tpu/serve/engine.py``. One worker
 thread owns the device; callers interact only through a bounded
 deadline-aware queue and never touch the card (every host-to-device copy
 of a request happens on the worker). The ladder of defenses, outermost
@@ -18,22 +17,49 @@ first:
   3. **shed** — the queue is bounded; excess load fails fast with a
      retryable :class:`~raft_tpu_torch.serve.errors.Overloaded`.
   4. **degrade** — under sustained pressure the controller steps the
-     iteration target down the anytime ladder; in the pool a level is a
-     per-request target fixed at admission.
-  5. **quarantine** — slots are isolated by construction (inference is
-     per sample end to end), so a request whose flow comes back
-     non-finite fails alone with
-     :class:`~raft_tpu_torch.serve.errors.PoisonedInput` while its
-     neighbours finish.
+     iteration target down the anytime ladder; every response reports
+     the level it was served at.
+  5. **isolate** — a request whose flow comes back non-finite fails
+     alone with :class:`~raft_tpu_torch.serve.errors.PoisonedInput`
+     while its neighbours finish; the worker survives any per-dispatch
+     failure.
 
-The dispatch unit is one GRU iteration across a fixed slot array
-(:mod:`raft_tpu_torch.serve.pool`): each loop retires slots whose
-requests are done (target reached, converged, deadline-driven early exit
-or expired), admits queued requests into freed slots, and advances every
-occupied pool by ONE ``step``. Up to ``pipeline_depth`` ticks stay
-dispatched but unfetched; the pacing token (the packed converged mask)
-is copied to pinned host memory behind each tick and read when the window
-is full.
+Two engines share this front end:
+
+  * **Resident iteration pool** (``pool_capacity > 0``, the default;
+    :mod:`raft_tpu_torch.serve.pool`): the dispatch unit is one GRU
+    iteration across a fixed slot array. Each loop retires slots whose
+    requests are done (target reached, converged, deadline-driven early
+    exit or expired), admits queued requests into freed slots, and
+    advances every occupied pool by ONE ``step``. Up to
+    ``pipeline_depth`` ticks stay dispatched but unfetched; the pacing
+    token (the packed converged mask) is copied to pinned host memory
+    behind each tick and read when the window is full. Slots are
+    isolated by construction (inference is per sample), so a poisoned
+    slot fails alone.
+  * **Whole-request engine** (``pool_capacity=0``): a formed batch is
+    zero-padded to the next rung of ``config.batch_ladder`` and runs the
+    whole forward as one program (the set is closed: ``buckets x
+    batch ladder x iteration ladder``). The worker keeps up to
+    ``pipeline_depth`` batches dispatched but unfetched, staging batch
+    N+1 in rotating pinned host buffers while batch N computes; a
+    buffer is rewritten only once an event shows its copy done, and each
+    batch's flow is copied to pinned memory right behind its replay. The
+    window drains first when load is shed or the queue is past the
+    degradation high-watermark. A batch that comes back non-finite is
+    retried as singles, so exactly the poisoned request is quarantined.
+    This engine serves ``edge``: the int8 pyramid's scale is one a level
+    over the whole batch, so its rows cannot move between pool slots.
+
+**Streams** (:meth:`ServeEngine.open_stream`) encode each video frame
+once and reuse frame t's feature and context maps as pair (t, t+1)'s
+first-frame inputs (``RAFT.encode_frame``, then ``RAFT.iterate`` in the
+whole-request engine or ``begin_features`` in the pool). The cached maps
+stay on the card. Sessions are LRU-bounded (``stream_cache_size``); a
+dropped, expired or poisoned frame invalidates its session, so the next
+frame primes again (``flow=None``). With ``stream_warm_start`` (pool
+only) the previous pair's 1/8-grid flow, forward-warped, seeds the next
+pair's refinement.
 
 On the card every program of the closed set is a CUDA graph
 (:mod:`raft_tpu_torch.serve.aot`), captured at ``start()`` with
@@ -42,14 +68,14 @@ failed capture raises and nothing falls back to eager execution. On the
 CPU (``device='cpu'``) the same programs run eagerly.
 
 Not ported yet (the engine raises ``NotImplementedError`` naming the
-knob): the whole-request engine (``pool_capacity=0``), streams
-(``open_stream``, ``stream_warm_start``), ``submit_many``, tiling
-(``unknown_shape='tiled'``), QoS, tracing, the device-deadline watchdog
-(``apply_timeout_s``).
+knob): tiling (``unknown_shape='tiled'``), QoS, tracing, the
+device-deadline watchdog (``apply_timeout_s``), and ``submit_many``'s
+``trace_ctx``/``priority``/``tenant``/``shadow``/tiler item keys.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import math
@@ -61,9 +87,11 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.device import resolve_device
+from raft_tpu_torch.graphs import rows_like
 from raft_tpu_torch.inference import FlowEstimator
 from raft_tpu_torch.obs import RESIDUAL_BUCKETS, DeviceTimeLedger, MetricsRegistry
 from raft_tpu_torch.serve import aot
+from raft_tpu_torch.serve.batch import BatchPrograms
 from raft_tpu_torch.serve.bucketing import BucketRouter, TokenBucket
 from raft_tpu_torch.serve.config import ServeConfig
 from raft_tpu_torch.serve.degradation import DegradationController
@@ -82,22 +110,37 @@ from raft_tpu_torch.serve.pool import (
     BucketPool,
     PoolPrograms,
     _SlotMeta,
+    forward_warp_flow,
     unpack_converged,
     zero_state,
 )
 from raft_tpu_torch.serve.queue import MicroBatchQueue, Request
 
-__all__ = ["ServeEngine", "ServeResult"]
+__all__ = ["ServeEngine", "ServeResult", "StreamSession"]
 
 _COUNTERS = (
     "submitted", "completed", "shed", "shed_slow_path", "rejected",
-    "invalid", "expired", "quarantined", "batches", "slow_path",
-    "worker_errors", "inflight_peak", "pool_ticks", "pool_admitted",
+    "invalid", "expired", "quarantined", "retried_singles",
+    "nonfinite_batches", "batches", "slow_path", "worker_errors",
+    "padded_rows", "dispatched_rows", "encode_cache_hits",
+    "encode_cache_misses", "stream_primes", "stream_invalidations",
+    "stream_evictions", "inflight_peak", "pool_ticks", "pool_admitted",
     "pool_resets", "idle_slot_iters", "dispatched_slot_iters",
     "early_exit_iters_saved", "early_exits_deadline",
     "early_exits_converged", "early_exit_iters_saved_deadline",
-    "early_exit_iters_saved_converged", "drained",
+    "early_exit_iters_saved_converged", "stream_warm_starts", "drained",
 )
+
+# submit_many item keys of paths the port has not reached, with the
+# ROADMAP item that brings each
+_UNPORTED_ITEM_KEYS = {
+    "trace_ctx": "queue 1 item 3f (request tracing)",
+    "priority": "queue 1 item 3e (QoS enforcement)",
+    "tenant": "queue 1 item 3e (QoS enforcement)",
+    "shadow": "queue 1 item 4 (rollout mirroring)",
+    "p1": "queue 1 item 3d (the tiler's fan-out items)",
+    "skip_quota": "queue 1 item 3d (the tiler's fan-out items)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,13 +149,19 @@ class ServeResult:
 
     ``num_flow_updates``/``level`` report the degradation state the
     request actually ran at (``degraded`` is their boolean shadow).
-    ``exit_reason`` says why refinement stopped where it did: ``'target'``
-    (the request's own iteration target), ``'deadline'`` (finalized early
-    because the deadline would have expired first) or ``'converged'``
-    (the flow-update residual stayed below ``pool_converge_thresh``).
+    ``flow`` is ``None`` exactly when ``primed`` is True: the stream frame
+    opened (or re-opened, after an invalidation) a pair and there was
+    nothing to pair it with yet. ``exit_reason`` says why refinement
+    stopped where it did: ``'target'`` (the request's own iteration
+    target), ``'deadline'`` (finalized early because the deadline would
+    have expired first) or ``'converged'`` (the flow-update residual
+    stayed below ``pool_converge_thresh``). ``retried_single``: served
+    by the singles retry of a batch that came back non-finite;
+    ``warm_started``: the pool seeded its refinement with an
+    ``init_flow``.
     """
 
-    flow: np.ndarray                 # (H, W, 2) float32, caller resolution
+    flow: Optional[np.ndarray]       # (H, W, 2) float32, caller resolution
     rid: int
     bucket: Tuple[int, int]
     num_flow_updates: int
@@ -120,7 +169,10 @@ class ServeResult:
     degraded: bool
     latency_ms: float
     slow_path: bool = False
+    retried_single: bool = False
+    primed: bool = False
     exit_reason: str = "target"
+    warm_started: bool = False
 
     @property
     def early_exit(self) -> bool:
@@ -132,8 +184,6 @@ def _check_ported(cfg: ServeConfig) -> None:
     """Refuse the knobs whose path the port has not reached: never run an
     approximation of it."""
     todo = [
-        (cfg.pool_capacity == 0, "pool_capacity=0 (the whole-request batch engine)"),
-        (cfg.stream_warm_start, "stream_warm_start (stream serving)"),
         (cfg.unknown_shape == "tiled", "unknown_shape='tiled' (the tiler)"),
         (cfg.apply_timeout_s is not None, "apply_timeout_s (the device-deadline watchdog)"),
         (cfg.trace_sample_rate > 0, "trace_sample_rate > 0 (request tracing)"),
@@ -145,9 +195,10 @@ def _check_ported(cfg: ServeConfig) -> None:
 
 
 class _Token:
-    """A tick's pacing token on its way to the host: the packed converged
-    mask, copied into pinned memory behind the tick (an event marks the
-    copy's end), or the mask itself on the CPU."""
+    """A dispatch's result on its way to the host: a pool tick's packed
+    converged mask or a batch's flow, copied into pinned memory behind
+    the dispatch that made it (an event marks the copy's end), or the
+    result itself on the CPU."""
 
     __slots__ = ("host", "event")
 
@@ -159,6 +210,124 @@ class _Token:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy().copy()
+
+
+class _StreamState:
+    """Worker-side cache entry for one stream session (LRU-bounded): the
+    last frame's feature and context maps, on the engine's device."""
+
+    __slots__ = ("sid", "bucket", "hw", "fmap", "ctx", "busy", "flow8")
+
+    def __init__(self, sid: int, bucket: Tuple[int, int], hw: Tuple[int, int]):
+        self.sid = sid
+        self.bucket = bucket
+        self.hw = hw
+        self.fmap: Optional[torch.Tensor] = None  # (1, Cf, h/8, w/8)
+        self.ctx: Optional[torch.Tensor] = None   # (1, Cc, h/8, w/8)
+        self.busy = False                         # one in-flight frame per stream
+        # warm start: the previous pair's final 1/8-grid flow (host), cached
+        # beside the frame maps and invalidated with them: a stream never
+        # warm-starts across a gap
+        self.flow8: Optional[np.ndarray] = None   # (h/8, w/8, 2)
+
+
+class StreamSession:
+    """Caller-facing handle for one served video stream.
+
+    Feed frames in order via :meth:`submit`; each returns a
+    :class:`ServeResult` whose ``flow`` is the flow from the previous
+    frame to this one, or ``None`` (``primed=True``) when this frame
+    opens a fresh pair. One outstanding frame per session (``submit``
+    blocks); open several sessions for concurrency.
+    """
+
+    def __init__(self, engine: "ServeEngine", stream_id: int):
+        self._engine = engine
+        self.stream_id = stream_id
+
+    def submit(self, frame, *, deadline_ms: Optional[float] = None,
+               num_flow_updates: Optional[int] = None) -> ServeResult:
+        return self._engine.submit_frame(
+            self.stream_id, frame, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates
+        )
+
+    def close(self) -> None:
+        self._engine.close_stream(self.stream_id)
+
+    def __enter__(self) -> "StreamSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched-but-unfetched batch in the whole-request window."""
+
+    live: List[Request]
+    iters: int
+    level: int
+    t0: float
+    token: _Token
+    kind: str                                   # 'pair' | 'stream'
+    # stream only: per-request (fmap1, fmap2, ctx, init_flow) rows for the
+    # singles retry (init_flow unused by the whole-request iterate)
+    retry_rows: Optional[List[Tuple[Any, Any, Any, Any]]] = None
+
+
+class _StagingPool:
+    """Rotating preallocated host buffers, keyed by (role, bucket).
+
+    ``slots`` buffers a key, pinned for the card. Rows are written in
+    place and pad rows zeroed, replacing a per-batch ``np.zeros`` +
+    ``np.concatenate``. The host runs ahead of the device, so a buffer is
+    rewritten only once the copy that read it has finished: :meth:`mark`
+    records one event, after the dispatches that read the buffers filled
+    since the last mark, and a refill waits for it.
+    """
+
+    def __init__(self, slots: int, pin: bool):
+        self._slots = max(2, int(slots))
+        self._pin = pin
+        self._rings: Dict[Any, List[list]] = {}
+        self._idx: Dict[Any, int] = {}
+        self._unmarked: List[list] = []
+
+    def fill(self, key, shape, rows: List[np.ndarray], rung: int) -> torch.Tensor:
+        """Copy ``rows`` (each ``(1, ...)``) in, zero the pad tail, and
+        return the ``rung``-row slice of a rotating ``shape`` buffer."""
+        shape = tuple(shape)
+        ring = self._rings.get(key)
+        if ring is None or tuple(ring[0][0].shape) != shape:
+            ring = [[torch.zeros(shape, dtype=torch.float32, pin_memory=self._pin), None]
+                    for _ in range(self._slots)]
+            self._rings[key] = ring
+            self._idx[key] = 0
+        i = self._idx[key]
+        self._idx[key] = (i + 1) % len(ring)
+        slot = ring[i]
+        if slot[1] is not None:
+            slot[1].synchronize()  # the copy that last read this buffer
+            slot[1] = None
+        buf = slot[0].numpy()
+        for j, row in enumerate(rows):
+            buf[j] = row[0]
+        if rung > len(rows):
+            buf[len(rows):rung] = 0.0
+        self._unmarked.append(slot)
+        return slot[0][:rung]
+
+    def mark(self) -> None:
+        """Every buffer filled since the last mark has been read by the
+        work enqueued so far on the current stream: record that."""
+        event = None
+        if self._pin:
+            event = torch.cuda.Event()
+            event.record()
+        for slot in self._unmarked:
+            slot[1] = event
+        self._unmarked.clear()
 
 
 class ServeEngine:
@@ -197,22 +366,40 @@ class ServeEngine:
         # the slow path's whole-request forward: one graph per (natural
         # shape, iterations), captured and replayed on the worker
         self._apply = FlowEstimator(self.model, num_flow_updates=cfg.ladder[0], device=self.device)
+        # the whole-request engine's batch ladder (and the encode rungs of
+        # its streams), pinned staging, and its programs; the iteration
+        # pool uses the programs' encode for stream and seeded admissions
+        self._batch_ladder: Tuple[int, ...] = cfg.resolved_batch_ladder()
+        self._max_batch = cfg.max_batch
+        self._staging = _StagingPool(cfg.pipeline_depth + 1, pin=self.device.type == "cuda")
+        self._batch_progs = BatchPrograms(self.model, self.device)
+        # rings of pinned host buffers for results on their way to the host
+        self._host_rings: Dict[Any, List[torch.Tensor]] = {}
         self._pools: Dict[Tuple[int, int], BucketPool] = {}
         self._pool_cap = cfg.pool_capacity
-        self._admit_ladder: Tuple[int, ...] = cfg.resolved_admit_ladder()
-        self._admit_cap = self._admit_ladder[-1]
+        self._admit_ladder: Tuple[int, ...] = ()
+        self._admit_cap = 0
         # residual-history length = the full-quality iteration target, so
         # any admitted request's whole trajectory fits the rolling window
         self._resid_len = cfg.ladder[0]
         self._conv_thresh = float(cfg.pool_converge_thresh or 0.0)
-        self._pool_progs = PoolPrograms(self.model, self.device, resid_len=self._resid_len)
-        self._pool_progs.set_knobs(
-            self._conv_thresh,
-            min(cfg.pool_converge_streak, self._resid_len),
-            min(max(cfg.pool_min_iters, 1), self._resid_len),
-        )
-        # per bucket: a ring of pinned host buffers for the pacing tokens
-        self._token_rings: Dict[Tuple[int, int], List[Any]] = {}
+        # warm start is a host-side admission decision of the pool
+        self._warm_start = bool(cfg.stream_warm_start and cfg.pool_capacity > 0)
+        self._pool_progs: Optional[PoolPrograms] = None
+        if cfg.pool_capacity > 0:
+            self._admit_ladder = cfg.resolved_admit_ladder()
+            self._admit_cap = self._admit_ladder[-1]
+            self._pool_progs = PoolPrograms(self.model, self.device, resid_len=self._resid_len)
+            self._pool_progs.set_knobs(
+                self._conv_thresh,
+                min(cfg.pool_converge_streak, self._resid_len),
+                min(max(cfg.pool_min_iters, 1), self._resid_len),
+            )
+        # stream sessions (encode-once feature cache), LRU order
+        self._streams_on = cfg.stream_cache_size > 0
+        self._streams: "collections.OrderedDict[int, _StreamState]" = collections.OrderedDict()
+        self._streams_lock = threading.Lock()
+        self._next_sid = 0
         self._lock = threading.Lock()
         self.metrics = MetricsRegistry("serve")
         self._counters = self.metrics.counter_group("counters", _COUNTERS)
@@ -242,6 +429,9 @@ class ServeEngine:
         self._quarantined_rids: List[int] = []
         self._stop = threading.Event()
         self._draining = threading.Event()
+        # dispatched-but-unfetched batches (whole-request worker); written
+        # only by the worker, read by drain()'s quiesce poll
+        self._inflight_n = 0
         self._ready = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -266,7 +456,8 @@ class ServeEngine:
         ev0 = aot.capture_events()
         if self.config.warmup:
             self._warmup()
-        self._thread = threading.Thread(target=self._worker_pool, name="raft-serve-worker", daemon=True)
+        worker = self._worker_pool if self._pool_progs is not None else self._worker
+        self._thread = threading.Thread(target=worker, name="raft-serve-worker", daemon=True)
         self._thread.start()
         self._ready.set()
         self._boot["boot_to_ready_ms"] = (time.monotonic() - t0) * 1e3
@@ -289,12 +480,13 @@ class ServeEngine:
     def drain(self, *, timeout: Optional[float] = 30.0) -> bool:
         """Quiesce without dropping accepted work.
 
-        Three phases, in order: stop admitting (``submit`` raises the
-        retryable :class:`~raft_tpu_torch.serve.errors.Draining`); fail
-        queued requests with the same ``Draining``; let the pool retire
-        every resident at its own target. Returns True once quiesced
-        within ``timeout`` seconds (``None`` waits forever), False on
-        timeout. Idempotent."""
+        Three phases, in order: stop admitting (``submit`` and
+        ``submit_frame`` raise the retryable
+        :class:`~raft_tpu_torch.serve.errors.Draining`); fail queued
+        requests with the same ``Draining``; let dispatched batches
+        complete and the pool retire every resident at its own target.
+        Returns True once quiesced within ``timeout`` seconds (``None``
+        waits forever), False on timeout. Idempotent."""
         self._draining.set()
         retry_ms = self.config.drain_retry_after_ms
         for req in self._queue.drain():
@@ -305,6 +497,8 @@ class ServeEngine:
                 )
             ):
                 self._count("drained")
+                if req.kind == "stream":
+                    self._invalidate_stream(req.stream_id)
         deadline = None if timeout is None else time.monotonic() + timeout
         while not self._quiesced():
             if not (self._thread is not None and self._thread.is_alive()):
@@ -315,11 +509,13 @@ class ServeEngine:
         return True
 
     def _quiesced(self) -> bool:
-        """Nothing queued, no batch popped but not yet admitted, no pool
-        residents."""
+        """Nothing queued, no batch popped but not yet dispatched, nothing
+        dispatched but unfetched, no pool residents."""
         if self._queue.depth() or self._queue.forming():
             return False
-        return all(p.occupied_count() == 0 for p in self._pools.values())
+        if self._pool_progs is not None:
+            return all(p.occupied_count() == 0 for p in self._pools.values())
+        return self._inflight_n == 0
 
     def close(self, graceful: bool = False, *, timeout: Optional[float] = 30.0) -> None:
         """Stop the engine; ``graceful=True`` drains first."""
@@ -335,27 +531,52 @@ class ServeEngine:
 
     def _warmup(self) -> None:
         """Capture the worker's whole program set before the worker starts
-        (:func:`raft_tpu_torch.serve.aot.warm_engine`), then run one
-        admission -> step -> retirement chain per bucket as a smoke check
-        that the captured set replays."""
+        (:func:`raft_tpu_torch.serve.aot.warm_engine`), then run one tiny
+        execution per program family and bucket as a smoke check that the
+        captured set replays."""
         with torch.inference_mode(), self._on_device():
             self._boot.update(aot.warm_engine(self))
-            self._smoke_pool()
+            if self._pool_progs is not None:
+                self._smoke_pool()
+            else:
+                self._smoke()
+
+    def _smoke(self) -> None:
+        """The whole-request families at the smallest rung and the ladder
+        floor, per bucket."""
+        iters, r = self.config.ladder[-1], self._batch_ladder[0]
+        for bucket in self._router.buckets:
+            z = np.zeros((r,) + tuple(bucket) + (3,), np.float32)
+            _host_flow(self._run_batch(z, z, iters))
+            self._boot["smoke_runs"] += 1
+            if self._streams_on:
+                fm, cx = self._run_encode(z)
+                zf, zc = rows_like(fm, r), rows_like(cx, r)
+                _host_flow(self._run_iterate(zf, zf, zc, iters))
+                self._boot["smoke_runs"] += 1
 
     def _smoke_pool(self) -> None:
+        """One admission -> step -> retirement chain per bucket at the
+        smallest admission rung, and a stream admission when streams are
+        on."""
         r = self._admit_ladder[0]
+        idx, mask = np.zeros((r,), np.int64), np.asarray([True] + [False] * (r - 1))
         for bucket in self._router.buckets:
             bh, bw = bucket
             pool = self._pool_for(bucket)
             z = torch.zeros((r, 3, bh, bw), dtype=torch.float32)
             rows = self._run_pool_begin(z, z)
-            self._pool_insert(pool.state, rows, np.zeros((r,), np.int64), np.asarray([True] + [False] * (r - 1)))
+            self._pool_insert(pool.state, rows, idx, mask)
             self._run_pool_step(pool).fetch()
-            c1, hid, _ = self._pool_gather(
-                pool.state["coords1"], pool.state["hidden"], pool.state["resid_hist"], np.zeros((r,), np.int64)
-            )
+            c1, hid, _ = self._pool_gather(pool.state["coords1"], pool.state["hidden"], pool.state["resid_hist"], idx)
             self._run_pool_final(c1, hid).cpu()
             self._boot["smoke_runs"] += 1
+            if self._streams_on:
+                fm, cx = self._run_encode(np.zeros((r, bh, bw, 3), np.float32))
+                zf, zc = rows_like(fm, r), rows_like(cx, r)
+                zi = torch.zeros((r, 2, bh // 8, bw // 8), dtype=torch.float32)
+                self._pool_insert(pool.state, self._run_pool_begin_features(zf, zf, zc, zi), idx, mask)
+                self._boot["smoke_runs"] += 1
 
     def _on_device(self):
         """The worker's device context (the card's index), or nothing on
@@ -367,14 +588,24 @@ class ServeEngine:
     # -- public API --------------------------------------------------------
 
     def submit(self, image1, image2, *, deadline_ms: Optional[float] = None,
-               num_flow_updates: Optional[int] = None) -> ServeResult:
+               num_flow_updates: Optional[int] = None, init_flow=None) -> ServeResult:
         """Serve one raw [0, 255] ``(H, W, 3)`` pair; returns :class:`ServeResult`.
 
         ``num_flow_updates`` caps this request's refinement iterations
         (validated against the full-quality ``ladder[0]``); the pool
-        honors it exactly. Blocks the calling thread until the result,
-        the deadline, or a typed :class:`~raft_tpu_torch.serve.errors.
-        ServeError`."""
+        honors it exactly, the whole-request engine at ladder-rung
+        granularity (a batch runs at the largest of its members' rungs,
+        so nobody's quality is cut below their ask).
+
+        ``init_flow`` is a best-effort warm-start hint: an ``(h, w, 2)``
+        flow on the caller's 1/8 refinement grid (1/8-grid pixels) that
+        seeds this pair's refinement. Honored only where the engine can
+        seed (:attr:`supports_init_flow`: the pool with streams on),
+        otherwise ignored: a seed changes convergence speed, never the
+        fixed point.
+
+        Blocks the calling thread until the result, the deadline, or a
+        typed :class:`~raft_tpu_torch.serve.errors.ServeError`."""
         deadline_ms = self._check_live(deadline_ms)
         iters = self._validate_iters(num_flow_updates)
         p1, p2, hw = self._admit(image1, image2)
@@ -387,13 +618,187 @@ class ServeEngine:
             rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
             iters=iters,
         )
+        if init_flow is not None:
+            req.init8 = self._prepare_init_flow(init_flow, bucket)
+            req.warm = req.init8 is not None
         return self._enqueue_and_wait(req, deadline_ms)
 
-    def open_stream(self):
-        """Stream serving is not ported yet."""
-        raise NotImplementedError(
-            "ServeConfig stream_cache_size / open_stream (stream serving) is not ported to raft_tpu_torch yet"
-        )
+    def submit_many(self, items: List[Dict[str, Any]]) -> List[Request]:
+        """Coalesced pairwise admission: validate and admit a burst,
+        enqueueing every admissible request under ONE queue lock
+        (:meth:`MicroBatchQueue.put_many`).
+
+        Each item is a dict: ``image1``, ``image2``, optional
+        ``deadline_ms`` / ``num_flow_updates``, and an optional
+        ``on_done`` callable invoked with the request handle on
+        completion. Returns one :class:`Request` handle per item, in
+        order (``wait``, then ``result`` or ``error``). An item that fails
+        validation, admission or the queue's shed comes back already
+        finished, carrying its typed error; the rest of the burst is
+        unaffected. Un-bucketed shapes take the slow path inline, as
+        :meth:`submit` would (this call blocks until they are served).
+
+        The JAX package's ``trace_ctx``, ``priority``/``tenant``,
+        ``shadow`` and tiler (``p1``/``p2``/``hw``/``skip_quota``) item
+        keys are not ported: an item carrying one raises
+        ``NotImplementedError`` before anything is admitted.
+        """
+        for it in items:
+            for key, item in _UNPORTED_ITEM_KEYS.items():
+                if key in it:
+                    raise NotImplementedError(
+                        f"submit_many item key {key!r} is not ported to raft_tpu_torch yet (ROADMAP {item})"
+                    )
+        prepared: List[Request] = []
+        handles: List[Request] = []
+        for it in items:
+            cb = it.get("on_done")
+            try:
+                deadline_ms = self._check_live(it.get("deadline_ms"))
+                iters = self._validate_iters(it.get("num_flow_updates"))
+                p1, p2, hw = self._admit(it["image1"], it["image2"])
+            except Exception as e:
+                handles.append(self._finished_handle(error=e, on_done=cb))
+                continue
+            bucket = self._router.route(*hw)
+            rid = self._new_rid()
+            deadline = time.monotonic() + deadline_ms / 1e3
+            if bucket is None:
+                # rare (un-bucketed shape): served now, through the slow path
+                req = Request(rid, hw, None, None, hw, deadline, iters=iters)
+                if cb is not None:
+                    req.add_done_callback(cb)
+                try:
+                    req.finish(result=self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters))
+                except Exception as e:
+                    req.finish(error=e)
+                handles.append(req)
+                continue
+            req = Request(
+                rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
+                iters=iters,
+            )
+            if cb is not None:
+                req.add_done_callback(cb)
+            prepared.append(req)
+            handles.append(req)
+        if prepared:
+            outcomes = self._queue.put_many(prepared, retry_after_ms=self._retry_after_ms())
+            for req, err in zip(prepared, outcomes):
+                if err is None:
+                    continue
+                if isinstance(err, Overloaded):
+                    self._count("shed")
+                req.finish(error=err)
+        return handles
+
+    def _finished_handle(self, *, error, on_done=None) -> Request:
+        """A pre-failed handle for a ``submit_many`` item that never
+        reached the queue."""
+        req = Request(-1, (0, 0), None, None, (0, 0), time.monotonic())
+        if on_done is not None:
+            req.add_done_callback(on_done)
+        req.finish(error=error)
+        return req
+
+    def open_stream(self) -> StreamSession:
+        """Start a stream session: encode-once feature caching per frame.
+
+        Consecutive frames of a video share a frame per pair; the session
+        caches each frame's feature and context maps (on the card) so pair
+        (t, t+1) pays the encoder only for frame t+1; ``stats()`` reports
+        the hit rate as ``encoder_cache_hit_rate``. Sessions are
+        LRU-bounded (``config.stream_cache_size``); an evicted or
+        invalidated session primes again (``flow=None`` for that frame).
+        """
+        if not self._streams_on:
+            raise InvalidInput("stream serving is disabled (stream_cache_size=0)")
+        with self._streams_lock:
+            sid = self._next_sid
+            self._next_sid += 1
+        return StreamSession(self, sid)
+
+    def submit_frame(self, stream_id: int, frame, *, deadline_ms: Optional[float] = None,
+                     num_flow_updates: Optional[int] = None) -> ServeResult:
+        """Advance stream ``stream_id`` by one frame.
+
+        Returns flow(previous frame -> this frame) at the caller's
+        resolution, or a ``primed=True`` result (``flow=None``) when this
+        frame opens a fresh pair (first frame, or first after an
+        invalidation or eviction). One outstanding frame per stream.
+        """
+        if not self._streams_on:
+            raise InvalidInput("stream serving is disabled (stream_cache_size=0)")
+        deadline_ms = self._check_live(deadline_ms)
+        iters = self._validate_iters(num_flow_updates)
+        p, hw = self._admit_frame(frame)
+        bucket = self._router.route(*hw)
+        if bucket is None:
+            self._count("rejected")
+            raise ShapeRejected(
+                f"no bucket admits stream frame shape {hw} (buckets: "
+                f"{list(self._router.buckets)}); streams have no slow path "
+                f"— resize or reconfigure"
+            )
+        with self._streams_lock:
+            st = self._streams.get(stream_id)
+            if st is None:
+                st = _StreamState(stream_id, bucket, hw)
+                self._streams[stream_id] = st
+                self._evict_streams_locked()
+            self._streams.move_to_end(stream_id)
+            if st.busy:
+                raise InvalidInput(
+                    f"stream {stream_id} already has a frame in flight; "
+                    f"streams are strictly ordered — submit sequentially"
+                )
+            if st.bucket != bucket or st.hw != hw:
+                # resolution change mid-stream: prime again rather than
+                # pair frames across different buckets
+                st.fmap = st.ctx = st.flow8 = None
+                st.bucket, st.hw = bucket, hw
+            st.busy = True
+        try:
+            rid = self._new_rid()
+            deadline = time.monotonic() + deadline_ms / 1e3
+            req = Request(
+                rid, bucket, None, self._router.pad_to(p, bucket), hw, deadline, kind="stream",
+                stream_id=stream_id, iters=iters,
+            )
+            return self._enqueue_and_wait(req, deadline_ms)
+        finally:
+            with self._streams_lock:
+                st.busy = False
+
+    def close_stream(self, stream_id: int) -> None:
+        """Drop a stream session and its cached maps."""
+        with self._streams_lock:
+            self._streams.pop(stream_id, None)
+
+    @property
+    def supports_init_flow(self) -> bool:
+        """Whether pair submits can honor an ``init_flow`` seed: seeded
+        admission runs ``encode`` + ``begin_features``, so both the
+        iteration pool and stream serving must be on."""
+        return self._pool_progs is not None and self._streams_on
+
+    def _prepare_init_flow(self, init_flow, bucket) -> Optional[np.ndarray]:
+        """Validate and pad a caller-grid ``(h8, w8, 2)`` seed to the
+        bucket's 1/8 grid (``(1, bh/8, bw/8, 2)``, zeros beyond the
+        caller's extent: a zero seed is the cold start). ``None`` when
+        this engine cannot seed; a malformed seed raises ``InvalidInput``."""
+        if not self.supports_init_flow:
+            return None
+        arr = np.asarray(init_flow, np.float32)
+        if arr.ndim != 3 or arr.shape[-1] != 2:
+            raise InvalidInput(f"init_flow must be (h/8, w/8, 2), got {arr.shape}")
+        if not np.all(np.isfinite(arr)):
+            raise InvalidInput("init_flow contains non-finite values")
+        bh8, bw8 = bucket[0] // 8, bucket[1] // 8
+        out = np.zeros((1, bh8, bw8, 2), np.float32)
+        h, w = min(arr.shape[0], bh8), min(arr.shape[1], bw8)
+        out[0, :h, :w] = arr[:h, :w]
+        return out
 
     def health(self) -> dict:
         """Liveness/readiness for an external supervisor or LB probe."""
@@ -412,7 +817,8 @@ class ServeEngine:
 
     def stats(self) -> dict:
         """Serving counters + degradation + per-bucket latency quantiles +
-        pool occupancy, convergence, device-time ledger, captured-program
+        hot-path efficiency (padding waste, encoder cache hit rate), pool
+        occupancy, convergence, device-time ledger, captured-program
         counts and the kernel launches the graphs' replays made."""
         with self._lock:
             counters = dict(self._counters)
@@ -430,18 +836,27 @@ class ServeEngine:
             r_cnt = self._resid_iter_cnt.copy()
         counters["queue_depth"] = self._queue.depth()
         disp_si = counters["dispatched_slot_iters"]
-        # idle-slot-iterations / dispatched-slot-iterations: the fraction
-        # of dispatched refinement work that advanced nobody
-        padding_waste = counters["idle_slot_iters"] / disp_si if disp_si else 0.0
+        if self._pool_progs is not None:
+            # idle-slot-iterations / dispatched-slot-iterations: the
+            # fraction of dispatched refinement work that advanced nobody
+            padding_waste = counters["idle_slot_iters"] / disp_si if disp_si else 0.0
+        else:
+            # padded rows / dispatched rows of the whole-request batches
+            rows = counters["dispatched_rows"]
+            padding_waste = counters["padded_rows"] / rows if rows else 0.0
+        hits, misses = counters["encode_cache_hits"], counters["encode_cache_misses"]
         pools = list(self._pools.values())
         return {
             **counters,
             "padding_waste": padding_waste,
+            "encoder_cache_hit_rate": hits / (hits + misses) if hits + misses else None,
+            "batch_ladder": list(self._batch_ladder),
             "boot": dict(self._boot),
             "ledger": self.ledger.breakdown(),
             "convergence": {
                 "threshold": self.config.pool_converge_thresh,
                 "streak": self.config.pool_converge_streak,
+                "warm_start": self._warm_start,
                 "n": self._resid_final.count,
                 "final_residual_p50": self._resid_final.quantile(0.50),
                 "final_residual_p99": self._resid_final.quantile(0.99),
@@ -451,7 +866,7 @@ class ServeEngine:
                 "capacity": self._pool_cap,
                 "occupied": sum(p.occupied_count() for p in pools),
                 "ticks": counters["pool_ticks"],
-                "occupancy": 1.0 - padding_waste if disp_si else 0.0,
+                "occupancy": 1.0 - counters["idle_slot_iters"] / disp_si if disp_si else 0.0,
                 "ttfd_p50_ms": float(np.percentile(ttfd, 50)) if ttfd else None,
                 "tick_ms_ewma": float(np.mean([p.tick_ewma_ms for p in pools])) if pools else None,
             },
@@ -469,10 +884,14 @@ class ServeEngine:
 
     def program_counts(self) -> Dict[str, int]:
         """Captured-program count per program family (-1 on the CPU, where
-        nothing is captured). After ``warmup=True`` these stay constant
+        nothing is captured): ``pairwise`` counts the whole-request graphs
+        and the slow path's. After ``warmup=True`` these stay constant
         under any admitted traffic: the worker never captures."""
-        counts = {"pairwise": len(self._apply.programs()) if self.device.type == "cuda" else -1}
-        counts.update(self._pool_progs.counts())
+        counts = self._batch_progs.counts()
+        if self.device.type == "cuda":
+            counts["pairwise"] += len(self._apply.programs())
+        if self._pool_progs is not None:
+            counts.update(self._pool_progs.counts())
         return counts
 
     def graph_launches(self) -> Dict[str, int]:
@@ -480,7 +899,10 @@ class ServeEngine:
         (replays x launches per graph; the wrappers count eager launches
         only)."""
         total = dict(self._apply.graph_launches())
-        for prog in self._pool_progs.graphs().values():
+        progs = list(self._batch_progs.graphs().values())
+        if self._pool_progs is not None:
+            progs += list(self._pool_progs.graphs().values())
+        for prog in progs:
             for k, n in prog.replayed_launches().items():
                 total[k] = total.get(k, 0) + n
         return total
@@ -542,6 +964,39 @@ class ServeEngine:
             raise InvalidInput(str(e)) from e
         return p1, p2, (int(a1.shape[0]), int(a1.shape[1]))
 
+    def _admit_frame(self, frame):
+        """Validate one raw stream frame; returns normalized (1,H,W,3) + (H, W)."""
+        a = np.asarray(frame)
+        if a.ndim != 3:
+            raise InvalidInput(f"stream frames are single (H, W, 3) images, got {a.shape}")
+        try:
+            p = FlowEstimator._normalize(a)
+        except ValueError as e:
+            self._count("invalid")
+            raise InvalidInput(str(e)) from e
+        return p, (int(a.shape[0]), int(a.shape[1]))
+
+    def _iter_rung(self, n: Optional[int]) -> int:
+        """The whole-request engine's granularity for a per-request
+        iteration cap: the largest ladder entry <= n (floor at the ladder's
+        last entry: the program set stays closed)."""
+        if n is None:
+            return self.config.ladder[0]
+        for it in self.config.ladder:          # strictly descending
+            if it <= n:
+                return it
+        return self.config.ladder[-1]
+
+    def _honor_iters(self, live: List[Request], ctrl_iters: int) -> int:
+        """A whole-request batch runs at the largest of its members' rungs
+        capped by the degradation target; the iterations that saves count
+        as ``early_exit_iters_saved``."""
+        iters = min(ctrl_iters, max(self._iter_rung(r.iters) for r in live))
+        if iters < ctrl_iters:
+            with self._lock:
+                self._counters["early_exit_iters_saved"] += (ctrl_iters - iters) * len(live)
+        return iters
+
     def _enqueue_and_wait(self, req: Request, deadline_ms: float) -> ServeResult:
         try:
             self._queue.put(req, retry_after_ms=self._retry_after_ms())
@@ -596,6 +1051,198 @@ class ServeEngine:
         self._count("slow_path")
         self._finish_ok(req, flow, iters)
 
+    # -- the whole-request worker ---------------------------------------
+
+    def _worker(self) -> None:
+        """The batch thread (``pool_capacity=0``): survives any per-batch
+        failure by contract.
+
+        Runs a bounded dispatch pipeline: up to ``pipeline_depth`` batches
+        are dispatched but unfetched at once, so batch N+1 is assembled,
+        staged and dispatched while batch N computes. Completion order is
+        dispatch order; a full window, an idle queue, shedding or a queue
+        past the degradation high-watermark drain the oldest batch first
+        (under flood the window must not extend residence). A slow-path
+        request comes alone and runs whole, in turn.
+        """
+        cfg = self.config
+        inflight: "collections.deque[_Inflight]" = collections.deque()
+        last_sheds = self._shed_count()
+
+        def complete_oldest() -> None:
+            inf = inflight.popleft()
+            try:
+                self._complete(inf)
+            except Exception as e:  # isolation: fail the batch, not the worker
+                self._count("worker_errors")
+                err = ServeError(f"batch execution failed: {e!r}")
+                for r in inf.live:
+                    r.finish(error=err)
+            finally:
+                self._inflight_n = len(inflight)
+
+        def cap(bucket, kind):
+            return 1 if kind == "slow" else self._max_batch
+
+        with torch.inference_mode(), self._on_device():
+            while not self._stop.is_set():
+                sheds = self._shed_count()
+                shedding, last_sheds = sheds > last_sheds, sheds
+                if inflight and (
+                    len(inflight) >= cfg.pipeline_depth
+                    or self._queue.depth() == 0
+                    or shedding
+                    or self._queue.depth() >= cfg.high_watermark * self._queue.capacity
+                ):
+                    complete_oldest()
+                    continue
+                batch: List[Request] = []
+                try:
+                    batch = self._queue.next_batch(
+                        self._max_batch, cfg.max_wait_ms / 1e3, poll=0.0 if inflight else 0.05, cap=cap
+                    )
+                    live = self._filter_live(batch)
+                    if live and live[0].kind == "slow":
+                        self._run_slow(live[0])
+                    elif live:
+                        inf = self._dispatch_stream(live) if live[0].kind == "stream" else self._dispatch_pair(live)
+                        if inf is not None:
+                            inflight.append(inf)
+                            self._inflight_n = len(inflight)
+                            with self._lock:
+                                self._counters["inflight_peak"] = max(self._counters["inflight_peak"], len(inflight))
+                except Exception as e:  # isolation: fail the batch, not the worker
+                    self._count("worker_errors")
+                    err = ServeError(f"batch execution failed: {e!r}")
+                    for r in batch:
+                        r.finish(error=err)
+                finally:
+                    if batch:
+                        # ack only once the batch is visible downstream (in
+                        # the window, or its requests finished), so drain()'s
+                        # quiesce check never races the pop
+                        self._queue.task_done()
+            # drain the pipeline, then anything admitted during shutdown
+            while inflight:
+                complete_oldest()
+        for r in self._queue.close():
+            r.finish(error=EngineStopped("engine stopping"))
+
+    def _rung(self, k: int) -> int:
+        """Smallest batch-ladder rung >= k (k <= max_batch by formation)."""
+        for b in self._batch_ladder:
+            if b >= k:
+                return b
+        return self._batch_ladder[-1]
+
+    def _note_padding(self, rung: int, k: int) -> None:
+        with self._lock:
+            self._counters["dispatched_rows"] += rung
+            self._counters["padded_rows"] += rung - k
+
+    def _dispatch_pair(self, live: List[Request]) -> _Inflight:
+        """Stage a pair batch at its rung and dispatch its whole forward;
+        the flow starts for pinned memory behind the replay."""
+        bucket = live[0].bucket
+        iters, level = self._observe(live)
+        iters = self._honor_iters(live, iters)
+        rung = self._rung(len(live))
+        shape = (self._max_batch,) + tuple(bucket) + (3,)
+        p1 = self._staging.fill(("p1", bucket), shape, [r.p1 for r in live], rung)
+        p2 = self._staging.fill(("p2", bucket), shape, [r.p2 for r in live], rung)
+        self._note_padding(rung, len(live))
+        t0 = time.monotonic()
+        flow = self._run_batch(p1, p2, iters)
+        self._staging.mark()
+        return _Inflight(live, iters, level, t0, self._to_host(flow, ("flow", bucket), self._max_batch), "pair")
+
+    def _dispatch_stream(self, live: List[Request]) -> Optional[_Inflight]:
+        """Stream batch: encode the new frames (one program per rung),
+        transact each session's feature cache, then dispatch the iterate
+        stage for the requests that had a cached previous frame.
+
+        The encode stage is waited for (its per-row finite check decides
+        what the cache keeps); the iterate stage, 12-32 refinements, is
+        what pipelines against the next batch.
+        """
+        bucket = live[0].bucket
+        iters, level = self._observe(live)
+        iters = self._honor_iters(live, iters)
+        rung = self._rung(len(live))
+        shape = (self._max_batch,) + tuple(bucket) + (3,)
+        frames = self._staging.fill(("frames", bucket), shape, [r.p2 for r in live], rung)
+        self._note_padding(rung, len(live))
+        t0 = time.monotonic()
+        fmap, ctx = self._run_encode(frames)
+        self._staging.mark()
+        flow_reqs, rows = self._stream_transact(live, fmap, ctx, iters, level)
+        if not flow_reqs:
+            return None
+        rung2 = self._rung(len(flow_reqs))
+        f1, f2, cx = (_stack_rows([rr[k] for rr in rows], rung2) for k in range(3))
+        self._note_padding(rung2, len(flow_reqs))
+        flow = self._run_iterate(f1, f2, cx, iters)
+        return _Inflight(flow_reqs, iters, level, t0, self._to_host(flow, ("flow", bucket), self._max_batch), "stream",
+                         retry_rows=rows)
+
+    def _complete(self, inf: _Inflight) -> None:
+        """Fetch one in-flight batch's flow and finish its requests."""
+        flow = inf.token.fetch().transpose(0, 2, 3, 1)
+        batch_ms = (time.monotonic() - inf.t0) * 1e3
+        with self._lock:
+            self._counters["batches"] += 1
+            self._batch_ms_ewma += 0.2 * (batch_ms - self._batch_ms_ewma)
+        flows = [self._request_flow(r, flow[i]) for i, r in enumerate(inf.live)]
+        if all(np.isfinite(f).all() for f in flows):
+            for r, f in zip(inf.live, flows):
+                self._finish_ok(r, f, inf.iters, level=inf.level)
+        else:
+            # non-finite output: retry the batch as singles so exactly the
+            # poisoned request is quarantined
+            self._count("nonfinite_batches")
+            if inf.kind == "stream":
+                self._retry_singles_stream(inf)
+            else:
+                self._retry_singles(inf.live, inf.iters, inf.level)
+
+    def _retry_singles(self, live: List[Request], iters: int, level: int) -> None:
+        for r in live:
+            if r.done:
+                continue
+            try:
+                f = self._request_flow(r, _host_flow(self._run_batch(r.p1, r.p2, iters))[0])
+            except Exception as e:
+                r.finish(error=ServeError(f"single retry failed: {e!r}"))
+                self._count("worker_errors")
+                continue
+            if np.isfinite(f).all():
+                self._count("retried_singles")
+                self._finish_ok(r, f, iters, level=level, retried=True)
+            else:
+                self._quarantine(r)
+
+    def _retry_singles_stream(self, inf: _Inflight) -> None:
+        """The singles retry of a stream batch, from its saved feature
+        rows. A frame that is non-finite even alone is quarantined AND its
+        session invalidated: a stream that just failed a frame primes
+        again rather than pair across the failure."""
+        for r, (f1, f2, cx, _init) in zip(inf.live, inf.retry_rows or []):
+            if r.done:
+                continue
+            try:
+                f = self._request_flow(r, _host_flow(self._run_iterate(f1, f2, cx, inf.iters))[0])
+            except Exception as e:
+                r.finish(error=ServeError(f"single retry failed: {e!r}"))
+                self._count("worker_errors")
+                self._invalidate_stream(r.stream_id)
+                continue
+            if np.isfinite(f).all():
+                self._count("retried_singles")
+                self._finish_ok(r, f, inf.iters, level=inf.level, retried=True)
+            else:
+                self._quarantine(r)
+                self._invalidate_stream(r.stream_id)
+
     # -- the pool worker -------------------------------------------------
 
     def _pool_for(self, bucket: Tuple[int, int]) -> BucketPool:
@@ -606,12 +1253,6 @@ class ServeEngine:
         if pool is None:
             state = zero_state(self._pool_progs, self._pool_cap, bucket)
             self._pool_progs.capture_step(state)
-            if self.device.type == "cuda":
-                token_bytes = -(-self._pool_cap // 8)
-                self._token_rings[bucket] = [
-                    torch.empty((token_bytes,), dtype=torch.uint8, pin_memory=True)
-                    for _ in range(self.config.pipeline_depth + 1)
-                ]
             pool = self._pools[bucket] = BucketPool(bucket, self._pool_cap, state)
         return pool
 
@@ -697,13 +1338,17 @@ class ServeEngine:
         rung = self._rung_admit(len(due))
         idx = np.asarray([i for i, _, _ in due] + [due[0][0]] * (rung - len(due)), np.int64)
         c1, hid, res = self._pool_gather(pool.state["coords1"], pool.state["hidden"], pool.state["resid_hist"], idx)
-        flows = self._run_pool_final(c1, hid).permute(0, 2, 3, 1).float().cpu().numpy()
+        flows = _host_flow(self._run_pool_final(c1, hid))
         resids = res.cpu().numpy()
+        # with warm start on, the retiring streams' final 1/8-grid coords
+        # ride the fetch the finalize already pays
+        fetch_c1 = self._warm_start and any(m.req.kind == "stream" for _, m, _ in due)
+        c1_rows = c1.cpu().numpy() if fetch_c1 else None
         with self._lock:
             self._counters["batches"] += 1
         for pos, (i, meta, reason) in enumerate(due):
             r = meta.req
-            f = flows[pos]
+            f = self._request_flow(r, flows[pos])
             # a converged slot froze at converged_done iterations: later
             # ticks changed nothing and were accounted as idle
             eff = meta.converged_done if meta.converged else meta.done
@@ -729,9 +1374,13 @@ class ServeEngine:
                         self._resid_iter_cnt[i0:eff] += 1
                 if k:
                     self._resid_final.observe(float(traj[-1]))
-                self._finish_ok(r, f, eff, level=meta.level, exit_reason=reason)
+                if c1_rows is not None and r.kind == "stream":
+                    self._store_stream_flow(r.stream_id, c1_rows[pos])
+                self._finish_ok(r, f, eff, level=meta.level, exit_reason=reason, warm_started=meta.warm)
             else:
                 self._quarantine(r)
+                if r.kind == "stream":
+                    self._invalidate_stream(r.stream_id)
             pool.release(i)
 
     def _pool_admit(self) -> None:
@@ -759,24 +1408,32 @@ class ServeEngine:
             elif live:
                 pool = self._pool_for(live[0].bucket)
                 ctrl_iters, level = self._observe(live)
-                self._pool_admit_pairs(pool, live, ctrl_iters, level)
+                if live[0].kind == "stream":
+                    self._pool_admit_stream(pool, live, ctrl_iters, level)
+                else:
+                    self._pool_admit_pairs(pool, live, ctrl_iters, level)
         except Exception as e:  # isolation: fail the admission, not the worker
             self._count("worker_errors")
             err = ServeError(f"pool admission failed: {e!r}")
             for r in live:
-                r.finish(error=err)
+                if r.finish(error=err) and r.kind == "stream":
+                    self._invalidate_stream(r.stream_id)
         finally:
             # ack only once the cohort is visible downstream, so drain()'s
             # quiesce check never races the pop
             self._queue.task_done()
 
     def _filter_live(self, batch: List[Request]) -> List[Request]:
-        """Fail queue-expired requests."""
+        """Fail queue-expired requests; invalidate streams with a dropped
+        frame (pairing across the gap would be flow between
+        non-consecutive frames)."""
         live: List[Request] = []
         for r in batch:
             if r.done or r.remaining <= 0:
                 if r.finish(error=DeadlineExceeded(f"request {r.rid} expired in queue")):
                     self._count("expired")
+                if r.kind == "stream":
+                    self._invalidate_stream(r.stream_id)
             else:
                 live.append(r)
         return live
@@ -789,6 +1446,15 @@ class ServeEngine:
         return iters, self._controller.level
 
     def _pool_admit_pairs(self, pool: BucketPool, live: List[Request], ctrl_iters: int, level: int) -> None:
+        seeded = [r for r in live if r.init8 is not None]
+        if seeded:
+            # seeded pairs admit through encode + begin_features, the one
+            # admission that takes an init_flow; the rest of the cohort
+            # keeps the one-dispatch begin_pair below
+            self._pool_admit_pairs_seeded(pool, seeded, ctrl_iters, level)
+            live = [r for r in live if r.init8 is None]
+            if not live:
+                return
         bh, bw = pool.bucket
         rung = self._rung_admit(len(live))
         pad = [np.zeros((1, bh, bw, 3), np.float32)] * (rung - len(live))
@@ -796,6 +1462,45 @@ class ServeEngine:
         p2 = np.concatenate([r.p2 for r in live] + pad)
         rows = self._run_pool_begin(_nchw(p1), _nchw(p2))
         self._pool_insert_live(pool, rows, live, ctrl_iters, level)
+
+    def _pool_admit_pairs_seeded(self, pool: BucketPool, live: List[Request], ctrl_iters: int, level: int) -> None:
+        """Admit seeded pairs: encode both frames, then initialize the
+        slots from the features with the ``init_flow`` seed. Every program
+        is one the stream path captured at the same rungs; pad lanes
+        carry encode(0) rows that the insert mask discards."""
+        rung = self._rung_admit(len(live))
+        shape = (self._admit_cap,) + tuple(pool.bucket) + (3,)
+        p1 = self._staging.fill(("pool_p1", pool.bucket), shape, [r.p1 for r in live], rung)
+        p2 = self._staging.fill(("pool_p2", pool.bucket), shape, [r.p2 for r in live], rung)
+        # one encode graph serves both frames: keep the first's outputs
+        # before the second replay overwrites them
+        f1, c1 = (t.clone() for t in self._run_encode(p1))
+        f2, _ = self._run_encode(p2)
+        ishape = (self._admit_cap, 2) + tuple(f1.shape[2:])
+        init = self._staging.fill(("pool_init", pool.bucket), ishape, [_nchw_rows(r.init8) for r in live], rung)
+        rows = self._run_pool_begin_features(f1, f2, c1, init)
+        self._staging.mark()
+        self._pool_insert_live(pool, rows, live, ctrl_iters, level)
+
+    def _pool_admit_stream(self, pool: BucketPool, live: List[Request], ctrl_iters: int, level: int) -> None:
+        """Stream frames into the pool: encode the new frames, transact
+        the sessions' caches, and admit the pairs that had a cached
+        previous frame from features (warm-started when on)."""
+        rung = self._rung_admit(len(live))
+        shape = (self._admit_cap,) + tuple(pool.bucket) + (3,)
+        frames = self._staging.fill(("pool_frames", pool.bucket), shape, [r.p2 for r in live], rung)
+        fmap, ctx = self._run_encode(frames)
+        self._staging.mark()
+        flow_reqs, rows = self._stream_transact(live, fmap, ctx, ctrl_iters, level)
+        if not flow_reqs:
+            return
+        rung2 = self._rung_admit(len(flow_reqs))
+        f1, f2, cx = (_stack_rows([rr[k] for rr in rows], rung2) for k in range(3))
+        ishape = (self._admit_cap, 2) + tuple(f1.shape[2:])
+        init = self._staging.fill(("pool_init", pool.bucket), ishape, [_nchw_rows(rr[3]) for rr in rows], rung2)
+        state_rows = self._run_pool_begin_features(f1, f2, cx, init)
+        self._staging.mark()
+        self._pool_insert_live(pool, state_rows, flow_reqs, ctrl_iters, level)
 
     def _pool_insert_live(self, pool: BucketPool, rows, live: List[Request], ctrl_iters: int, level: int) -> None:
         """Write each admitted request's rows into a free slot. The
@@ -809,7 +1514,8 @@ class ServeEngine:
         self._pool_insert(pool.state, rows, idx, mask)
         for i, r in zip(slots, live):
             requested = r.iters if r.iters is not None else self.config.ladder[0]
-            pool.slots[i] = _SlotMeta(req=r, target=max(1, min(requested, ctrl_iters)), level=level, admitted_t=now)
+            pool.slots[i] = _SlotMeta(req=r, target=max(1, min(requested, ctrl_iters)), level=level, admitted_t=now,
+                                      warm=r.warm)
             with self._lock:
                 self._counters["pool_admitted"] += 1
                 self._ttfd.append((now - r.t_submit) * 1e3)
@@ -862,6 +1568,58 @@ class ServeEngine:
 
     # -- dispatch seams ----------------------------------------------------
 
+    def _to_host(self, t: torch.Tensor, key, rows: int = 0) -> _Token:
+        """``t`` on its way to the host: copied, behind the work that makes
+        it, into the next buffer of a ring of ``pipeline_depth + 1`` pinned
+        buffers (one ring per ``key``, each buffer room for ``rows`` rows),
+        an event marking the copy's end; ``t`` itself on the CPU. A worker
+        keeps at most ``pipeline_depth`` results unfetched, so a buffer
+        comes round again only after its result was read."""
+        if self.device.type != "cuda":
+            return _Token(t)
+        n = max(rows, t.shape[0])
+        ring = self._host_rings.get(key)
+        if ring is None or ring[0].shape[0] < n or ring[0].shape[1:] != t.shape[1:]:
+            ring = self._host_rings[key] = [
+                torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype, pin_memory=True)
+                for _ in range(self.config.pipeline_depth + 1)
+            ]
+        ring.append(ring.pop(0))
+        host = ring[-1][: t.shape[0]]
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _Token(host, event)
+
+    def _run_batch(self, p1, p2, iters: int) -> torch.Tensor:
+        """One padded pair batch's whole forward (host NHWC ``(rung, bh,
+        bw, 3)`` images): its ``(rung, 2, bh, bw)`` flow on the device,
+        valid until the program's next replay."""
+        key = ("pairwise", p1.shape[0], p1.shape[1], p1.shape[2], int(iters))
+        return self.ledger.run(key, lambda: self._batch_progs.run_pairwise(p1, p2, iters))
+
+    def _run_encode(self, frames):
+        """One frame-encode batch (host NHWC): (feature map, raw context)
+        on the device, valid until the program's next replay."""
+        key = ("encode", frames.shape[0], frames.shape[1], frames.shape[2])
+        return self.ledger.run(key, lambda: self._batch_progs.run_encode(frames))
+
+    def _run_iterate(self, f1, f2, ctx, iters: int) -> torch.Tensor:
+        """One refinement batch from encoded frames (device tensors)."""
+        key = ("iterate", f1.shape[0], f1.shape[2], f1.shape[3], int(iters))
+        return self.ledger.run(key, lambda: self._batch_progs.run_iterate(f1, f2, ctx, iters))
+
+    def _run_pool_begin_features(self, f1, f2, ctx, init_flow):
+        """One pool admission from encoded frames, with the warm-start
+        seed ``init_flow`` ``(r, 2, h8, w8)`` (zeros: the cold start)."""
+        key = ("pool_begin_features", f1.shape[0], f1.shape[2], f1.shape[3])
+        return self.ledger.run(key, lambda: self._pool_progs.run_begin_features(f1, f2, ctx, init_flow))
+
+    def _request_flow(self, req: Request, flow: np.ndarray) -> np.ndarray:
+        """Per-request output hook (a seam: tests poison a request's flow
+        here, through the batch pass and its singles retry alike)."""
+        return flow
+
     def _run_pool_begin(self, p1: torch.Tensor, p2: torch.Tensor):
         """One pool admission (pair encode + state init) from host NCHW
         images; the copy to the card happens here, on the worker."""
@@ -874,19 +1632,9 @@ class ServeEngine:
         c = pool.state["coords1"]
         key = ("pool_step", c.shape[0], c.shape[2], c.shape[3])
 
-        def run():
-            token = self._pool_progs.run_step(pool.state)
-            if self.device.type != "cuda":
-                return _Token(token)
-            ring = self._token_rings[pool.bucket]
-            ring.append(ring.pop(0))
-            host = ring[-1]
-            host.copy_(token, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            return _Token(host, event)
-
-        return self.ledger.run(key, run)
+        return self.ledger.run(
+            key, lambda: self._to_host(self._pool_progs.run_step(pool.state), ("token", pool.bucket))
+        )
 
     def _run_pool_final(self, coords1, hidden) -> torch.Tensor:
         """The final upsample of retiring slots' carry."""
@@ -905,6 +1653,95 @@ class ServeEngine:
         key = ("pool_gather", len(idx), coords1.shape[2], coords1.shape[3])
         return self.ledger.run(key, lambda: PoolPrograms.gather(coords1, hidden, resid_hist, idx))
 
+    # -- the stream session cache ----------------------------------------
+
+    def _stream_transact(self, live: List[Request], fmap: torch.Tensor, ctx: torch.Tensor, iters: int,
+                         level: int):
+        """Transact each session's feature cache against an encode batch
+        (shared by both engines). Primes finish at once; returns the
+        requests that had a cached previous frame and their (prev fmap,
+        new fmap, prev context, init_flow) rows for the refinement stage,
+        the maps ``(1, C, h8, w8)`` on the device.
+
+        ``init_flow`` (host ``(1, h8, w8, 2)``) is the warm-start seed: the
+        previous pair's cached final flow forward-warped by itself, or
+        zeros (the cold start, bit for bit) when warm start is off, the
+        session has no flow yet, or the whole-request engine serves (its
+        iterate takes no seed)."""
+        n = len(live)
+        finite = (torch.isfinite(fmap[:n]).flatten(1).all(1) & torch.isfinite(ctx[:n]).flatten(1).all(1)).tolist()
+        h8, w8 = int(fmap.shape[2]), int(fmap.shape[3])
+        zero_flow = np.zeros((1, h8, w8, 2), np.float32)
+        flow_reqs: List[Request] = []
+        rows: List[Tuple[Any, Any, Any, np.ndarray]] = []
+        with self._streams_lock:
+            for i, r in enumerate(live):
+                st = self._streams.get(r.stream_id)
+                if st is None:
+                    st = _StreamState(r.stream_id, r.bucket, r.orig_hw)
+                    self._streams[r.stream_id] = st
+                    self._evict_streams_locked()
+                self._streams.move_to_end(r.stream_id)
+                if not finite[i]:
+                    # an encoder-poisoned frame: never cache it, never pair it
+                    st.fmap = st.ctx = st.flow8 = None
+                    self._quarantine(r)
+                    continue
+                # copies out of the encode program's outputs, which its
+                # next replay overwrites
+                fm_new, cx_new = fmap[i:i + 1].clone(), ctx[i:i + 1].clone()
+                prev_fm, prev_cx, prev_flow = st.fmap, st.ctx, st.flow8
+                st.fmap, st.ctx = fm_new, cx_new
+                st.flow8 = None  # consumed (or stale); refreshed at retirement
+                if prev_fm is None:
+                    self._count("encode_cache_misses")
+                    self._count("stream_primes")
+                    self._finish_ok(r, None, iters, level=level, primed=True)
+                else:
+                    self._count("encode_cache_hits")
+                    init = zero_flow
+                    if self._warm_start and prev_flow is not None:
+                        init = forward_warp_flow(prev_flow)[None]
+                        r.warm = True
+                        self._count("stream_warm_starts")
+                    flow_reqs.append(r)
+                    rows.append((prev_fm, fm_new, prev_cx, init))
+        return flow_reqs, rows
+
+    def _store_stream_flow(self, stream_id: Optional[int], c1_row: np.ndarray) -> None:
+        """Cache a retiring stream pair's final 1/8-grid flow (``coords1``
+        ``(2, h8, w8)`` less the grid) on its session for the next
+        admission's warm start; skipped when the session is gone or was
+        invalidated meanwhile (a stream never warm-starts across a gap)."""
+        if stream_id is None:
+            return
+        c1 = np.moveaxis(np.asarray(c1_row, np.float32), 0, -1)   # (h8, w8, 2), (x, y)
+        h8, w8 = c1.shape[:2]
+        ys, xs = np.meshgrid(np.arange(h8, dtype=np.float32), np.arange(w8, dtype=np.float32), indexing="ij")
+        flow8 = c1 - np.stack([xs, ys], axis=-1)
+        with self._streams_lock:
+            st = self._streams.get(stream_id)
+            if st is not None and st.fmap is not None:
+                st.flow8 = flow8
+
+    def _invalidate_stream(self, stream_id: Optional[int]) -> None:
+        if stream_id is None:
+            return
+        with self._streams_lock:
+            st = self._streams.get(stream_id)
+            if st is not None and (st.fmap is not None or st.ctx is not None):
+                st.fmap = st.ctx = st.flow8 = None
+                self._count("stream_invalidations")
+
+    def _evict_streams_locked(self) -> None:
+        """LRU-evict cached sessions beyond the bound (never a busy one)."""
+        excess = len(self._streams) - self.config.stream_cache_size
+        if excess <= 0:
+            return
+        for sid in [s for s, st in self._streams.items() if not st.busy][:excess]:
+            del self._streams[sid]
+            self._count("stream_evictions")
+
     # -- completion and accounting ---------------------------------------
 
     def _quarantine(self, r: Request) -> None:
@@ -919,12 +1756,13 @@ class ServeEngine:
             self._quarantined_rids.append(r.rid)
             del self._quarantined_rids[:-100]
 
-    def _finish_ok(self, r: Request, flow: np.ndarray, iters: int, *, level: Optional[int] = None,
-                   exit_reason: str = "target") -> ServeResult:
+    def _finish_ok(self, r: Request, flow: Optional[np.ndarray], iters: int, *, level: Optional[int] = None,
+                   retried: bool = False, primed: bool = False, exit_reason: str = "target",
+                   warm_started: bool = False) -> ServeResult:
         level = self._controller.level if level is None else level
         latency_ms = (time.monotonic() - r.t_submit) * 1e3
         result = ServeResult(
-            flow=self._router.crop(flow, r.orig_hw),
+            flow=None if flow is None else self._router.crop(flow, r.orig_hw),
             rid=r.rid,
             bucket=r.bucket,
             num_flow_updates=iters,
@@ -932,7 +1770,10 @@ class ServeEngine:
             degraded=level > 0,
             latency_ms=latency_ms,
             slow_path=r.slow_path,
+            retried_single=retried,
+            primed=primed,
             exit_reason=exit_reason,
+            warm_started=warm_started,
         )
 
         def _account(r_: Request) -> None:
@@ -951,6 +1792,10 @@ class ServeEngine:
         with self._lock:
             self._counters[key] += 1
 
+    def _shed_count(self) -> int:
+        with self._lock:
+            return self._counters["shed"]
+
     def _p99(self, bucket) -> Optional[float]:
         with self._lock:
             v = self._latency.get(bucket)
@@ -959,18 +1804,37 @@ class ServeEngine:
             return float(np.percentile(v, 99))
 
     def _retry_after_ms(self) -> float:
-        """A shed caller's backoff hint: a queued request needs roughly
-        (depth / capacity) cohorts of full-target iterations, each one
-        tick (the EWMA tracks tick time)."""
+        """A shed caller's backoff hint. In the pool a queued request
+        needs roughly (depth / capacity) cohorts of full-target
+        iterations, each one tick (the EWMA tracks tick time); in the
+        whole-request engine (depth / max_batch) batches (the EWMA tracks
+        batch time)."""
         with self._lock:
             ewma = self._batch_ms_ewma
-        cohorts = math.ceil(max(1, self._queue.depth()) / self._pool_cap)
-        return max(1.0, cohorts * self.config.ladder[0] * ewma)
+        depth = max(1, self._queue.depth())
+        if self._pool_progs is not None:
+            return max(1.0, math.ceil(depth / self._pool_cap) * self.config.ladder[0] * ewma)
+        return max(1.0, math.ceil(depth / self._max_batch) * ewma)
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:
     """Host ``(B, H, W, 3)`` -> host ``(B, 3, H, W)``, contiguous."""
     return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2).contiguous()
+
+
+def _nchw_rows(x: np.ndarray) -> np.ndarray:
+    """A host ``(1, h, w, C)`` row as ``(1, C, h, w)``."""
+    return np.moveaxis(x, -1, 1)
+
+
+def _host_flow(flow: torch.Tensor) -> np.ndarray:
+    """A device ``(B, 2, H, W)`` flow, now, as host ``(B, H, W, 2)``."""
+    return flow.permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def _stack_rows(rows: List[torch.Tensor], rung: int) -> torch.Tensor:
+    """Device rows ``(1, ...)`` stacked and zero-padded to ``rung`` rows."""
+    return torch.cat(rows + [torch.zeros_like(rows[0])] * (rung - len(rows)))
 
 
 def _nearest_bucket(hw: Tuple[int, int], buckets) -> Optional[Tuple[int, int]]:

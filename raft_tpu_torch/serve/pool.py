@@ -15,6 +15,9 @@ programs; :mod:`raft_tpu_torch.graphs`):
 
   * ``begin_pair`` — admission encode + state init, one graph per
     admission rung (``ServeConfig.resolved_admit_ladder``);
+  * ``begin_features`` — state init from already-encoded frames (stream
+    pairs, seeded pairs) with a warm-start ``init_flow`` input, one graph
+    per admission rung; zeros reproduce the cold start bit for bit;
   * ``step`` — ONE refinement iteration across all ``capacity`` slots
     (one graph per bucket), writing the pool state in place;
   * ``final`` — the final convex upsample of retiring slots, one graph
@@ -59,12 +62,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.graphs import GraphProgram
+from raft_tpu_torch.graphs import GraphProgram, rows_like
 from raft_tpu_torch.models.corr import QuantizedPyramid
 
 __all__ = [
     "PoolPrograms", "BucketPool", "zero_state", "unpack_converged",
-    "RESID_HISTORY", "RESID_SENTINEL",
+    "forward_warp_flow", "RESID_HISTORY", "RESID_SENTINEL",
 ]
 
 # Default length of the rolling per-slot residual history. The engine
@@ -84,6 +87,37 @@ def unpack_converged(packed, capacity: int):
     """Host-side inverse of the step program's packed pacing token: the
     per-slot converged bool vector for ``capacity`` slots."""
     return np.unpackbits(np.asarray(packed, np.uint8))[:capacity].astype(bool)
+
+
+def forward_warp_flow(flow: np.ndarray) -> np.ndarray:
+    """Forward-warp a 1/8-grid flow field by itself (host numpy; the JAX
+    package's ``forward_warp_flow``).
+
+    The video warm start: flow(t-1 -> t) predicts where each cell lands
+    in frame t, so the same vector is the prior for where that content
+    moves next. Each source cell's flow is splatted to its rounded target
+    cell; holes stay zero (the cold start); on a collision the larger
+    magnitude wins.
+
+    Args:
+        flow: ``(h8, w8, 2)`` float32, (x, y) pixels of the 1/8 grid.
+
+    Returns:
+        ``(h8, w8, 2)`` float32 warped field.
+    """
+    flow = np.asarray(flow, np.float32)
+    h, w = flow.shape[:2]
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    xt = np.rint(xs + flow[..., 0]).astype(np.int64)
+    yt = np.rint(ys + flow[..., 1]).astype(np.int64)
+    valid = (xt >= 0) & (xt < w) & (yt >= 0) & (yt < h)
+    vecs = flow[valid]
+    # ascending magnitude: numpy fancy assignment keeps the LAST write per
+    # duplicate target, so the largest motion wins
+    order = np.argsort(np.sqrt((vecs ** 2).sum(-1)), kind="stable")
+    out = np.zeros_like(flow)
+    out[yt[valid][order], xt[valid][order]] = vecs[order]
+    return out
 
 
 def packbits(bits: torch.Tensor) -> torch.Tensor:
@@ -118,6 +152,7 @@ class _SlotMeta:
     level: int               # degradation level it was admitted at
     done: int = 0            # iterate_step dispatches applied so far
     admitted_t: float = 0.0  # time.monotonic() at admission
+    warm: bool = False       # refinement seeded with a warm-start init_flow
     # set when a fetched pacing token reports this slot's flow converged
     # on device; the device froze the slot from the tick AFTER detection,
     # so `converged_done` is the iteration count the frozen flow reflects
@@ -159,18 +194,26 @@ class PoolPrograms:
         """Admission rows: ``RAFT.begin_pair`` of ``(r, 3, bh, bw)``
         images plus a sentinel-seeded residual history and a cleared
         converged bit."""
-        rows = self.model.begin_pair(image1, image2)
+        return self._with_hist(self.model.begin_pair(image1, image2))
+
+    def begin_features(self, fmap1, fmap2, context_out, init_flow):
+        """Admission rows from encoded frames: ``RAFT.begin_refinement``
+        with ``init_flow`` ``(r, 2, h8, w8)`` (1/8-grid pixels) seeding
+        ``coords1``; zeros are the cold start, bit for bit."""
+        return self._with_hist(self.model.begin_refinement(fmap1, fmap2, context_out, init_flow=init_flow))
+
+    def _with_hist(self, rows):
         if isinstance(rows["pyramid"], QuantizedPyramid):
             raise NotImplementedError(
                 "corr_dtype='int8' in the iteration pool: the int8 pyramid "
                 "has one scale a level over the whole batch, so its rows "
-                "cannot move between slots; serve 'edge' later"
+                "cannot move between slots; serve 'edge' through the "
+                "whole-request engine (pool_capacity=0)"
             )
-        b = rows["coords1"].shape[0]
-        rows["resid_hist"] = torch.full(
-            (b, self.resid_len), RESID_SENTINEL, dtype=torch.float32, device=image1.device
-        )
-        rows["converged"] = torch.zeros((b,), dtype=torch.bool, device=image1.device)
+        c = rows["coords1"]
+        rows["resid_hist"] = torch.full((c.shape[0], self.resid_len), RESID_SENTINEL, dtype=torch.float32,
+                                        device=c.device)
+        rows["converged"] = torch.zeros((c.shape[0],), dtype=torch.bool, device=c.device)
         return rows
 
     def step(self, state, thresh, streak, min_iters) -> torch.Tensor:
@@ -284,6 +327,32 @@ class PoolPrograms:
         x2.copy_(image2)
         return prog()
 
+    def capture_begin_features(self, rung: int, fmap: torch.Tensor, context: torch.Tensor):
+        """The ``begin_features`` program of ``rung`` rows, its feature
+        buffers shaped and laid out like the rows of ``fmap`` and
+        ``context`` (an encoder's outputs), captured now on the card."""
+        _, _, h8, w8 = fmap.shape
+
+        def make():
+            f1, f2, cx = rows_like(fmap, rung), rows_like(fmap, rung), rows_like(context, rung)
+            init = torch.zeros((rung, 2, h8, w8), dtype=torch.float32, device=self.device)
+            return (f1, f2, cx, init), lambda: self.begin_features(f1, f2, cx, init)
+
+        prog, static = self._program(("pool_begin_features", rung, h8, w8), make)
+        prog.capture()
+        return prog, static
+
+    def run_begin_features(self, fmap1, fmap2, context_out, init_flow):
+        """Admission rows from ``(r, C, h8, w8)`` encoded frames and an
+        ``(r, 2, h8, w8)`` seed (device or host; copied here): the captured
+        program's outputs on the card, the eager body on the CPU."""
+        if self.device.type != "cuda":
+            return self.begin_features(fmap1, fmap2, context_out, init_flow.to(self.device))
+        prog, static = self.capture_begin_features(fmap1.shape[0], fmap1, context_out)
+        for buf, x in zip(static, (fmap1, fmap2, context_out, init_flow)):
+            buf.copy_(x, non_blocking=True)
+        return prog()
+
     def capture_step(self, state):
         """The capacity-wide ``step`` program over ``state``, captured now
         on the card. One graph per state: its leaves are the graph's
@@ -337,9 +406,10 @@ class PoolPrograms:
         """Captured-program count per pool program (-1 where there are no
         graphs: on the CPU). ``insert`` and ``gather`` run eagerly and
         capture nothing."""
+        names = ("pool_begin_pair", "pool_begin_features", "pool_step", "pool_final", "pool_insert", "pool_gather")
         if self.device.type != "cuda":
-            return {k: -1 for k in ("pool_begin_pair", "pool_step", "pool_final", "pool_insert", "pool_gather")}
-        counts = {"pool_begin_pair": 0, "pool_step": 0, "pool_final": 0, "pool_insert": 0, "pool_gather": 0}
+            return {k: -1 for k in names}
+        counts = dict.fromkeys(names, 0)
         for key in self.graphs():
             counts[key[0]] += 1
         return counts

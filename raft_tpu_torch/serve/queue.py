@@ -1,7 +1,6 @@
 """Deadline-aware micro-batching queue: bounded, shedding, EDF-seeded.
 
-The port's copy of the JAX package's ``raft_tpu/serve/queue.py`` (without
-``put_many``, which serves ``submit_many``, not ported yet).
+The port's copy of the JAX package's ``raft_tpu/serve/queue.py``.
 
 The queue is the engine's backpressure boundary. It is *bounded* —
 ``put`` on a full queue raises a retryable
@@ -43,7 +42,7 @@ class Request:
 
     __slots__ = (
         "rid", "bucket", "p1", "p2", "orig_hw", "deadline", "t_submit",
-        "slow_path", "kind", "iters", "priority", "rank",
+        "slow_path", "kind", "stream_id", "iters", "warm", "init8", "priority", "rank",
         "_event", "_lock", "_done", "_callbacks", "result", "error",
     )
 
@@ -58,21 +57,25 @@ class Request:
         *,
         slow_path: bool = False,
         kind: str = "pair",
+        stream_id: Optional[int] = None,
         iters: Optional[int] = None,
         priority: str = "standard",
     ):
         self.rid = rid
         self.bucket = bucket
         self.p1 = p1          # (1, bh, bw, 3) float32, normalized + padded
-        self.p2 = p2
+        self.p2 = p2          # stream requests carry only p2 (the new frame)
         self.orig_hw = orig_hw
         self.deadline = deadline            # time.monotonic() timestamp
         self.t_submit = time.monotonic()
         self.slow_path = slow_path
-        self.kind = kind                    # 'pair', or 'slow' (the engine's slow path); streams wait
+        self.kind = kind                    # 'pair' | 'stream' | 'slow' (the engine's slow path)
+        self.stream_id = stream_id
         self.iters = iters    # per-request num_flow_updates cap (None = full)
         self.priority = priority            # QoS class
         self.rank = rank_of(priority)       # 0 = interactive ... 2 = batch
+        self.warm = False     # admitted with a warm-start seed
+        self.init8 = None     # (1, bh/8, bw/8, 2) init_flow seed (pair requests only)
         self._event = threading.Event()
         self._lock = threading.Lock()
         self._done = False
@@ -152,6 +155,7 @@ class MicroBatchQueue:
         self._cond = threading.Condition()
         self._closed = False
         self._forming = 0   # batches popped but not yet task_done()-acked
+        self.put_many_calls = 0
 
     def depth(self) -> int:
         with self._cond:
@@ -228,6 +232,48 @@ class MicroBatchQueue:
                     preempted.append(victim)
             self._q.append(req)
             self._cond.notify()
+
+    def put_many(
+        self,
+        reqs: List[Request],
+        *,
+        retry_after_ms: float = 50.0,
+        preempted: Optional[List[Request]] = None,
+    ) -> List[Optional[BaseException]]:
+        """Admit a burst under ONE lock acquisition (``submit_many``).
+
+        Per-request semantics are exactly :meth:`put`'s, reported per item
+        instead of raised: ``None`` for each admitted request and the
+        typed error (``Overloaded`` for the overflow, ``EngineStopped``
+        after close) for each refused one, so one full queue slot never
+        fails the whole burst. With QoS on, displaced lower-class victims
+        land in ``preempted`` as in :meth:`put`.
+        """
+        out: List[Optional[BaseException]] = []
+        with self._cond:
+            self.put_many_calls += 1
+            for req in reqs:
+                if self._closed:
+                    out.append(EngineStopped("serve engine is stopped"))
+                elif len(self._q) >= self.capacity:
+                    victim = self._preempt_victim_locked(req) if self._qos else None
+                    if victim is None:
+                        out.append(Overloaded(
+                            f"queue at capacity ({self.capacity}); retry in "
+                            f"~{retry_after_ms:.0f}ms",
+                            retry_after_ms=retry_after_ms,
+                        ))
+                    else:
+                        self._q.remove(victim)
+                        if preempted is not None:
+                            preempted.append(victim)
+                        self._q.append(req)
+                        out.append(None)
+                else:
+                    self._q.append(req)
+                    out.append(None)
+            self._cond.notify_all()
+        return out
 
     def next_batch(
         self,

@@ -572,8 +572,8 @@ TINY_SERVE = dict(
 )
 
 
-def _tiny_serving_model(device):
-    model = rt.build_raft(rt.RAFT_SMALL.replace(**TINY_SERVE), device=device, seed=3)
+def _tiny_serving_model(device, **over):
+    model = rt.build_raft(rt.RAFT_SMALL.replace(**TINY_SERVE, **over), device=device, seed=3)
     with torch.no_grad():
         model.update_block.flow_head.conv2.weight.mul_(0.05)
     return model
@@ -771,6 +771,97 @@ def test_slow_path_on_the_worker_beside_the_pool(cuda_device):
         with torch.inference_mode():
             want = model(x1, x2, num_flow_updates=n, emit_all=False)[0].permute(1, 2, 0).cpu().numpy()
         np.testing.assert_allclose(r.flow, want[: a.shape[0], : a.shape[1]], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("corr_dtype", [None, "int8"], ids=["fp32", "int8"])
+def test_whole_request_graphs_match_eager_bitwise(cuda_device, corr_dtype):
+    """The whole-request engine's pairwise graph at every batch rung (1, 2,
+    4), replayed from a warmed engine, is bit for bit the model's eager
+    forward on the same staged inputs (NHWC storage viewed NCHW), on the
+    thread that captured it; K1 runs once an update inside each graph. At
+    int8 the scale is batch-wide, so the reference is the same batch."""
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = _tiny_serving_model(cuda_device, corr_dtype=corr_dtype)
+    cfg = ServeConfig(buckets=((48, 64),), ladder=(3,), max_batch=4, pool_capacity=0, warmup=True,
+                      stream_cache_size=0, default_deadline_ms=60000.0)
+    rng = np.random.default_rng(17)
+    with ServeEngine(model, cfg, device=cuda_device) as engine, torch.inference_mode():
+        for rung in (1, 2, 4):
+            p1, p2 = (torch.from_numpy(rng.uniform(-1, 1, (rung, 48, 64, 3)).astype(np.float32)) for _ in range(2))
+            got = engine._run_batch(p1, p2, 3).clone()
+            want = model(p1.to(cuda_device).permute(0, 3, 1, 2), p2.to(cuda_device).permute(0, 3, 1, 2),
+                         num_flow_updates=3, emit_all=False)
+            assert torch.equal(got, want), rung
+        graphs = engine._batch_progs.graphs()
+    assert sorted(k[1] for k in graphs) == [1, 2, 4]
+    assert all(g.launches == {"lookup_project_fused": 3} for g in graphs.values())
+
+
+def test_flow_stream_graph_matches_eager_bitwise(cuda_device):
+    """``FlowStream`` replays its encode and iterate graphs (one each here)
+    bit for bit the eager calls on the same inputs, with no capture after
+    the first pair."""
+    from raft_tpu_torch.eval.padder import InputPadder
+    from raft_tpu_torch.graphs import capture_events
+
+    model = _tiny_serving_model(cuda_device)
+    est = rt.FlowEstimator(model, num_flow_updates=3, device=cuda_device)
+    rng = np.random.default_rng(18)
+    frames = [rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(4)]
+    stream = est.open_stream()
+    assert stream(frames[0]) is None
+    got = [stream(frames[1])]
+    before = capture_events()
+    got += [stream(f) for f in frames[2:]]
+    assert capture_events() == before
+    padder = InputPadder(est._normalize(frames[0]).shape, mode=est.pad_mode)
+    with torch.inference_mode():
+        enc = [model.encode_frame(est._to_device(padder.pad(est._normalize(f)))) for f in frames]
+        for t in range(1, 4):
+            flow = model.iterate(enc[t - 1][0], enc[t][0], enc[t - 1][1], num_flow_updates=3, emit_all=False)
+            np.testing.assert_array_equal(got[t - 1], padder.unpad(est._to_host(flow))[0])
+    assert set(k[0] for k in est.stream_programs()) == {"encode", "iterate"}
+    assert est.graph_launches() == {"lookup_project_fused": 9}
+
+
+@pytest.mark.parametrize("pool_capacity", [0, 2], ids=["whole_request", "pool"])
+def test_no_capture_after_start_with_streams(cuda_device, pool_capacity):
+    """With streams on and ``warmup=True`` every program is captured in
+    ``start()``: pairs at every batch size, stream frames, a seeded pair
+    and the iteration ladder's both rungs capture nothing after it, and
+    every flow is finite."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = _tiny_serving_model(cuda_device)
+    cfg = ServeConfig(buckets=((48, 64),), ladder=(3, 2), max_batch=2, pool_capacity=pool_capacity, warmup=True,
+                      stream_warm_start=pool_capacity > 0, default_deadline_ms=60000.0)
+    rng = np.random.default_rng(19)
+
+    def img():
+        return rng.integers(0, 255, (45, 60, 3), dtype=np.uint8)
+
+    with ServeEngine(model, cfg, device=cuda_device) as engine:
+        before, counts = capture_events(), engine.program_counts()
+        results = []
+        for n in (1, 2, 1, 2):
+            with ThreadPoolExecutor(n) as ex:
+                results += list(ex.map(lambda it: engine.submit(img(), img(), num_flow_updates=it), [3, 2][:n]))
+        with engine.open_stream() as stream:
+            results += [stream.submit(img()) for _ in range(4)]
+        results.append(engine.submit(img(), img(), init_flow=np.full((6, 8, 2), 0.5, np.float32)))
+        assert capture_events() == before and engine.program_counts() == counts
+        stats = engine.stats()
+    assert all(r.primed or np.isfinite(r.flow).all() for r in results)
+    assert stats["encode_cache_hits"] == 3 and stats["completed"] == len(results)
+    if pool_capacity:
+        assert results[-1].warm_started and stats["stream_warm_starts"] == 2
+        assert counts["pool_begin_features"] == counts["encode"] == 2
+    else:
+        assert counts["pairwise"] == 2 * 2 and counts["encode"] == 2 and counts["iterate"] == 2 * 2
 
 
 # -- training on the card ------------------------------------------------------

@@ -501,8 +501,6 @@ class TestLadder:
     @pytest.mark.parametrize(
         "kw",
         [
-            dict(pool_capacity=0),
-            dict(stream_warm_start=True),
             dict(unknown_shape="tiled"),
             dict(apply_timeout_s=1.0),
             dict(trace_sample_rate=0.5),
@@ -513,9 +511,26 @@ class TestLadder:
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeEngine(tiny[2], _config(**kw), device="cpu")
 
-    def test_open_stream_not_ported(self, engine):
-        with pytest.raises(NotImplementedError, match="open_stream"):
-            engine.open_stream()
+    @pytest.mark.parametrize("key", ["trace_ctx", "priority", "tenant", "shadow", "p1", "skip_quota"])
+    def test_unported_submit_many_keys_raise(self, engine, key):
+        """An item key of a path the port has not reached (tracing, QoS,
+        rollout mirroring, the tiler's fan-out) is refused before anything
+        of the burst is admitted."""
+        rng = np.random.default_rng(14)
+        before = engine.stats()["submitted"]
+        items = [dict(image1=_image(rng), image2=_image(rng)), dict(image1=_image(rng), image2=_image(rng))]
+        items[1][key] = None
+        with pytest.raises(NotImplementedError, match=f"{key!r} is not ported.*ROADMAP"):
+            engine.submit_many(items)
+        assert engine.stats()["submitted"] == before
+
+    def test_open_stream_works(self, engine):
+        """The pool engine serves a stream: a prime, then flow."""
+        rng = np.random.default_rng(15)
+        with engine.open_stream() as stream:
+            first, second = stream.submit(_image(rng)), stream.submit(_image(rng))
+        assert first.primed and first.flow is None
+        assert not second.primed and second.flow.shape == HW + (2,) and np.isfinite(second.flow).all()
 
     def test_slow_path_serves_off_bucket_shape(self, tiny, no_onednn):
         """Under unknown_shape='slow_path' an off-bucket request is served
