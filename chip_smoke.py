@@ -100,7 +100,24 @@ Phases, each of which raises on failure (exit code 1):
      in the pool at 'quality' against pairwise, then with
      ``stream_warm_start`` and a residual threshold (updates to converge,
      warm against cold); ``FlowStream`` graphed bit for bit eager;
- 12. training: ``Trainer`` at raft_large's chairs stage, full width (batch
+ 12. tiling and QoS: ``unknown_shape='tiled'`` at 'quality' in the pool
+     and the whole-request engine (bucket 440x1024, warmed), 9 requests
+     of 375x1242, 720x1280 and 1080x1920 (2, 4 and 6 tiles) from 4
+     threads, then one of each alone: each tiled with the planner's
+     count, finite, at its own shape; one ``put_many`` acquisition a
+     request; no capture after ``start()``; the flows against the port's
+     blend of the graphed FlowEstimator's flows on the same padded tiles
+     (1e-3 / 5e-2 px); requests/s, p50/p99, blend ms, K1 launches. The
+     golden tiled gate (the fixture through 96x128 in 2 tiles against
+     96x136 whole, ``pool_capacity=0``: tiled - whole EPE <= 0.05 px on
+     every sample at 'quality', logged at 'edge'). A QoS flood (queue 8,
+     a rate-limited, a concurrency-capped and an unlimited tenant, 48
+     requests from 12 threads: 12 interactive, 24 standard, 12 batch) in
+     the pool at 'quality' and the whole-request engine at 'edge': every
+     request served or refused typed or expired, every preemption of a
+     strictly lower class, no batch-class request over an interactive
+     one's updates at a level above 0, no capture after ``start()``;
+ 13. training: ``Trainer`` at raft_large's chairs stage, full width (batch
      8, crop 368x496, 12 updates, dense fp32), on a synthetic FlyingChairs
      tree of 24 pairs at 384x512: 8 steps, a checkpoint every 4, a
      boundary every 2 (finite losses), preempted after step 4 and resumed
@@ -116,7 +133,7 @@ Phases, each of which raises on failure (exit code 1):
      control); each remat policy at the train bench's shape (fused fp32:
      pairs/s, peak memory, K1 24 launches a step, 12 under 'corr'); the
      TF32 flags are checked unchanged;
- 13. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+ 14. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -932,11 +949,11 @@ def inorm_phase(device):
     return {"fp32": err32, "bf16_rel": err16}, t, launches
 
 
-def request_pair(seed: int):
-    """A raw uint8 IMAGE-sized pair, smooth random texture and its shifted
+def request_pair(seed: int, hw=IMAGE):
+    """A raw uint8 ``hw``-sized pair, smooth random texture and its shifted
     copy, and the shift's flow (u, v) from the first image to the second."""
     rng = np.random.default_rng(seed)
-    h, w = IMAGE
+    h, w = hw
     coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, h // 8 + 2, w // 8 + 2)).astype(np.float32))
     tex = torch.nn.functional.interpolate(coarse, size=(h + 16, w + 16), mode="bicubic", align_corners=False)
     tex = tex[0].permute(1, 2, 0).clamp(0, 255).numpy().astype(np.uint8)
@@ -1862,6 +1879,301 @@ def golden_whole_request_phase(device):
     return launches
 
 
+# Tiled serving: off-bucket frames (KITTI, 720p, 1080p) through the
+# 440x1024 bucket's captured programs as blended tiles, in both engines at
+# 'quality'; QoS under a flood in the pool at 'quality' and the
+# whole-request engine at 'edge'.
+TILED_SHAPES = ((375, 1242), (720, 1280), (1080, 1920))
+TILED_PER_SHAPE, TILED_THREADS = 3, 4
+QOS_QUOTAS = (("tenant-a", 20.0, 4.0, 0), ("tenant-b", 0.0, 0.0, 2))
+QOS_TENANTS = ("tenant-a", "tenant-b", "tenant-c")  # tenant-c has no quota
+QOS_CLASSES = ("interactive",) * 3 + ("standard",) * 6 + ("batch",) * 3  # one a thread: 12 threads
+QOS_ROUNDS, QOS_QUEUE = 4, 8
+
+
+def tiled_phase(device, card, weights):
+    """``ServeEngine`` at 'quality' with ``unknown_shape='tiled'``, in the
+    pool (capacity 8) and the whole-request engine (max_batch 8), warmed:
+    9 requests of 375x1242, 720x1280 and 1080x1920 from 4 threads, then
+    one of each shape alone. Each
+    result finite, at its own shape, tiled with the planner's tile count;
+    no capture after ``start()``; one ``put_many`` acquisition a request;
+    each flow against the port's blend of the graphed FlowEstimator's
+    flows on the same padded tiles (the pool's bounds). Returns each
+    engine's K1 launches (graph replays x launches a graph), one request
+    of each shape alone included."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine, blend_tiles
+    from raft_tpu_torch.serve.bucketing import BucketRouter
+
+    model = rt.raft_for_serving(ServeConfig.preset("quality"), corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    shapes = [TILED_SHAPES[i % len(TILED_SHAPES)] for i in range(TILED_PER_SHAPE * len(TILED_SHAPES))]
+    pairs = [request_pair(300 + i, hw)[:2] for i, hw in enumerate(shapes)]
+    est = rt.FlowEstimator(model, num_flow_updates=SERVE_LADDER[0], pad_mode="downstream", device=device)
+    wants, launches = {}, {}
+    for kind, extra in (("pool", dict(pool_capacity=SERVE_CAPACITY)),
+                        ("whole-request", dict(pool_capacity=0, pipeline_depth=WR_DEPTH))):
+        cfg = ServeConfig.preset("quality", buckets=(SERVE_BUCKET,), max_batch=WR_MAX_BATCH, ladder=SERVE_LADDER,
+                                 unknown_shape="tiled", warmup=True, stream_cache_size=0,
+                                 default_deadline_ms=120_000.0, ledger_sample_every=0, **extra)
+        engine = ServeEngine(model, cfg, device=device)
+        t0 = time.perf_counter()
+        engine.start()
+        boot_s = time.perf_counter() - t0
+        counts = engine.program_counts()
+        ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+        calls0 = engine._queue.put_many_calls
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(TILED_THREADS) as ex:
+            results = list(ex.map(lambda p: engine.submit(*p), pairs))
+        wall = time.perf_counter() - t0
+        # then one request of each shape alone: its latency and its blend
+        alone = {}
+        for hw in TILED_SHAPES:
+            r = engine.submit(*pairs[shapes.index(hw)])
+            if not (r.tiled and r.flow.shape == hw + (2,) and np.isfinite(r.flow).all()):
+                raise AssertionError(f"tiled {kind}: a {hw} request alone came back {r.tiled}, {r.flow.shape}")
+            alone[f"{hw[0]}x{hw[1]}"] = (round(r.latency_ms, 3), round(engine._tiler_blend_ms[-1], 3))
+        n_req = len(pairs) + len(TILED_SHAPES)
+        captures, eager = capture_events() - ev0, read_counts()
+        k1_run = by_kernel(engine.graph_launches())["k1"] - k1_0
+        calls = engine._queue.put_many_calls - calls0
+        stats = engine.stats()
+        tiler = stats["tiler"]
+        plans = [engine._tiler.plan(hw) for hw in shapes]
+        engine.stop()
+        lat = [r.latency_ms for r in results]
+        by_shape = {f"{h}x{w}": round(float(np.median([r.latency_ms for r, s in zip(results, shapes) if s == (h, w)])),
+                                      3) for h, w in TILED_SHAPES}
+        log(f"tiled {kind} quality: boot {boot_s:.3f} s, graphs {counts}; {len(pairs)} requests "
+            f"({', '.join(f'{h}x{w}: {engine._tiler.plan((h, w)).n_tiles} tiles' for h, w in TILED_SHAPES)}) from "
+            f"{TILED_THREADS} threads in {wall:.3f} s = {len(pairs) / wall:.3f} requests/s; latency p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms, median by shape {by_shape}; then "
+            f"one of each alone (latency ms, of it blend ms) {alone}; over all {n_req} requests blend ms p50 {tiler['blend_ms']['p50_ms']:.3f} p99 {tiler['blend_ms']['p99_ms']:.3f}; waste "
+            f"{tiler['waste_frac']:.4f}; tiles {tiler['tiles_submitted']}, retried {tiler['tiles_retried']}, "
+            f"put_many acquisitions {calls} (admission_acquisitions {tiler['admission_acquisitions']}); "
+            f"batches {stats['batches']}; K1 {k1_run} in the run (graph replays x launches per graph), eager "
+            f"{eager}; captures after start() {captures}, program counts {engine.program_counts()}; card {card}")
+        bad = [(r.rid, hw, r.tiled, r.tiles, p.n_tiles, r.num_flow_updates) for r, hw, p in zip(results, shapes, plans)
+               if not (r.tiled and r.tiles == p.n_tiles and r.flow.shape == hw + (2,) and np.isfinite(r.flow).all()
+                       and r.num_flow_updates == SERVE_LADDER[0])]
+        if bad or captures or engine.program_counts() != counts or eager["k1"] or not k1_run:
+            raise AssertionError(f"tiled {kind}: bad results {bad}, {captures} captures after start(), eager "
+                                 f"{eager}, K1 {k1_run}")
+        if calls != n_req + tiler["tiles_retried"] or tiler["admission_acquisitions"] != n_req:
+            raise AssertionError(f"tiled {kind}: {calls} put_many acquisitions for {n_req} requests and "
+                                 f"{tiler['tiles_retried']} retried tiles")
+        # the reference: the graphed FlowEstimator on each padded tile
+        # (batch 1), cropped back and blended by the port's blend
+        for i, ((im1, im2), plan) in enumerate(zip(pairs, plans)):
+            if i not in wants:
+                flows = []
+                for t in plan.tiles:
+                    a, b = (BucketRouter.pad_to(im[t.y0:t.y0 + t.h, t.x0:t.x0 + t.w], SERVE_BUCKET)
+                            for im in (im1, im2))
+                    flows.append(est(a, b)[:t.h, :t.w])
+                wants[i] = blend_tiles(plan, engine._tiler.weights(plan), flows)
+        mean_d, max_d = flow_gap([r.flow for r in results], [wants[i] for i in range(len(pairs))])
+        tol_mean, tol_max = SERVE_TOL["quality"]
+        log(f"tiled {kind} quality: |dflow| vs the blend of the graphed FlowEstimator's tiles (batch 1) mean "
+            f"{mean_d:.3e} px (tol {tol_mean:g}), max {max_d:.3e} px (tol {tol_max:g})")
+        if not (mean_d <= tol_mean and max_d <= tol_max):
+            raise AssertionError(f"tiled {kind}: flows disagree with the blended FlowEstimator tiles")
+        launches[kind] = {"k1": k1_run, "requests": n_req, "tiles": tiler["tiles_submitted"],
+                          "requests_per_s": len(pairs) / wall}
+    return launches
+
+
+def golden_tiled_phase(device):
+    """The JAX package's tiled golden gate (``tests/test_serve_zzzzz_tiler.py``
+    ``TestGoldenParity``) on the card: the fixture's trained weights, each
+    92x132 pair served whole in bucket 96x136 and tiled in bucket 96x128
+    (two column tiles), whole-request engine, max_batch 1, 32 updates.
+    At 'quality' the tiled EPE may exceed the whole frame's by at most
+    0.05 px on every sample, and differ by at most 1 px either way; at
+    'edge' the deltas are logged, not held (ROADMAP R3). Returns K1's
+    launches by preset."""
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.data import Sintel
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    ds = Sintel(str(FIXTURE), split="training", dstype="clean")
+    samples = [ds[i] for i in range(len(ds))]
+
+    def epe(res, s):
+        return float(np.linalg.norm(res.flow - s["flow"], axis=-1)[s["valid"]].mean())
+
+    launches = {}
+    for preset in ("quality", "edge"):
+        model = rt.raft_for_serving(ServeConfig.preset(preset), arch="raft_small",
+                                    checkpoint=str(FIXTURE / "weights.msgpack"), device=device, **FIXTURE_ARCH)
+        base = dict(ladder=(32,), max_batch=1, pool_capacity=0, queue_capacity=4, max_wait_ms=2.0,
+                    default_deadline_ms=300_000.0, stream_cache_size=0)
+        full_cfg = ServeConfig.preset(preset, buckets=((96, 136),), **base)
+        tiled_cfg = ServeConfig.preset(preset, buckets=((96, 128),), unknown_shape="tiled", **base)
+        reset_counts()
+        with ServeEngine(model, full_cfg, device=device) as full, ServeEngine(model, tiled_cfg, device=device) as tiled:
+            pairs = [(full.submit(s["image1"], s["image2"]), tiled.submit(s["image1"], s["image2"])) for s in samples]
+            launches[preset] = sum(by_kernel(e.graph_launches())["k1"] for e in (full, tiled))
+        eager = read_counts()
+        deltas = [epe(rt_, s) - epe(rf, s) for (rf, rt_), s in zip(pairs, samples)]
+        shape_ok = all(not rf.tiled and rt_.tiled and rt_.tiles == 2 and np.isfinite(rt_.flow).all()
+                       and rt_.num_flow_updates == 32 for rf, rt_ in pairs)
+        log(f"golden tiled parity ({preset}, {len(samples)} pairs of 92x132, 96x136 whole vs 96x128 tiled in 2 tiles, "
+            f"32 updates): EPE whole {[round(epe(rf, s), 5) for (rf, _), s in zip(pairs, samples)]}, tiled - whole "
+            f"{[round(d, 5) for d in deltas]} (gate <= 0.05 each, |d| <= 1.0{'' if preset == 'quality' else '; not held: R3'}); "
+            f"K1 {launches[preset]} (graph replays x launches per graph), eager {eager}")
+        if not shape_ok:
+            raise AssertionError(f"golden tiled parity {preset}: results not tiled in 2 or not finite")
+        if preset == "quality" and not (max(deltas) <= 0.05 and max(abs(d) for d in deltas) <= 1.0):
+            raise AssertionError(f"golden tiled parity: tiled EPE - whole EPE {deltas} misses the gate")
+    return launches
+
+
+def qos_flood_phase(device, card, preset, weights):
+    """A QoS flood: ``qos_enabled``, queue capacity 8, tenant quotas
+    (tenant-a 20 requests/s with a burst of 4, tenant-b 2 in flight,
+    tenant-c unlimited), warmed; 48 requests of 436x1024 from 12 threads
+    (12 interactive, 24 standard, 12 batch), in the pool at 'quality' or
+    the whole-request engine at 'edge'. Holds: every request served, or
+    refused typed (``Overloaded``, ``QuotaExceeded``) or expired, and
+    nothing else; every preemption displaced a strictly lower class; at a
+    degradation level above 0 a batch-class request never ran more
+    updates than an interactive one at the same level; no capture after
+    ``start()``. Returns the run's K1 launches."""
+    import threading
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import DeadlineExceeded, Overloaded, QuotaExceeded, ServeConfig, ServeEngine
+
+    pool = preset == "quality"
+    model = rt.raft_for_serving(ServeConfig.preset(preset), corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    cfg = ServeConfig.preset(preset, buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY if pool else 0,
+                             max_batch=WR_MAX_BATCH, ladder=SERVE_LADDER, pipeline_depth=WR_DEPTH, warmup=True,
+                             stream_cache_size=0, ledger_sample_every=0, qos_enabled=True, queue_capacity=QOS_QUEUE,
+                             qos_tenant_quotas=QOS_QUOTAS, default_deadline_ms=5000.0)
+    kind = f"{'pool' if pool else 'whole-request'} {preset}"
+    engine = ServeEngine(model, cfg, device=device)
+    t0 = time.perf_counter()
+    engine.start()
+    boot_s = time.perf_counter() - t0
+    counts = engine.program_counts()
+    ladder = engine._controller.ladder
+    # what the engine decided, recorded at its seams: (level, class rank,
+    # updates) per admitted request, and (victim rank, arrival rank) per
+    # preemption
+    decisions, preemptions, lock = [], [], threading.Lock()
+    if pool:
+        insert = engine._pool_insert_live
+
+        def pool_insert_live(p, rows, live, ctrl_iters, level):
+            insert(p, rows, live, ctrl_iters, level)
+            metas = {id(m.req): m for _, m in p.occupied()}
+            with lock:
+                decisions.extend((level, r.rank, metas[id(r)].target) for r in live)
+
+        engine._pool_insert_live = pool_insert_live
+    else:
+        levels = engine._qos_levels
+
+        def qos_levels(live, iters, level):
+            out = levels(live, iters, level)
+            with lock:
+                decisions.extend((level, r.rank, out[0]) for r in live)
+            return out
+
+        engine._qos_levels = qos_levels
+    preempted = engine._qos_preempted
+
+    def qos_preempted(victims, by):
+        with lock:
+            preemptions.extend((v.rank, by.rank) for v in victims)
+        preempted(victims, by)
+
+    engine._qos_preempted = qos_preempted
+    pairs = [request_pair(400 + i)[:2] for i in range(len(QOS_CLASSES))]
+    tally = {c: {"completed": 0, "overloaded": 0, "quota": 0, "expired": 0, "latency": []} for c in set(QOS_CLASSES)}
+    failures = []
+
+    def client(i):
+        cls = QOS_CLASSES[i]
+        for k in range(QOS_ROUNDS):
+            tenant = QOS_TENANTS[(i + k) % len(QOS_TENANTS)]
+            t = time.perf_counter()
+            try:
+                engine.submit(*pairs[i], priority=cls, tenant=tenant)
+                key = "completed"
+            except QuotaExceeded:
+                key = "quota"
+            except Overloaded:
+                key = "overloaded"
+            except DeadlineExceeded:
+                key = "expired"
+            except Exception as e:  # noqa: BLE001 - any other outcome is a loss
+                with lock:
+                    failures.append((cls, repr(e)))
+                continue
+            with lock:
+                tally[cls][key] += 1
+                if key == "completed":
+                    tally[cls]["latency"].append((time.perf_counter() - t) * 1e3)
+
+    ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(QOS_CLASSES))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300.0)
+    wall = time.perf_counter() - t0
+    hung = any(t.is_alive() for t in threads)
+    captures, eager = capture_events() - ev0, read_counts()
+    k1_run = by_kernel(engine.graph_launches())["k1"] - k1_0
+    stats = engine.stats()
+    engine.stop()
+    n = len(QOS_CLASSES) * QOS_ROUNDS
+    answered = sum(v[k] for v in tally.values() for k in ("completed", "overloaded", "quota", "expired"))
+    summary = {}
+    for c in ("interactive", "standard", "batch"):
+        lat = tally[c].pop("latency")
+        summary[c] = dict(tally[c], p50_ms=float(np.percentile(lat, 50)) if lat else None,
+                          p99_ms=float(np.percentile(lat, 99)) if lat else None)
+    under = [d for d in decisions if d[0] > 0]
+    inversions = []
+    for lvl in sorted({d[0] for d in under}):
+        inter = [u for l, r, u in under if l == lvl and r == 0]
+        low = [u for l, r, u in under if l == lvl and r == 2]
+        if inter and low and max(low) > min(inter):
+            inversions.append((lvl, max(low), min(inter)))
+    bad_preempt = [p for p in preemptions if p[0] <= p[1]]
+    log(f"qos flood {kind}: boot {boot_s:.3f} s, graphs {counts}; {n} requests from {len(QOS_CLASSES)} threads in "
+        f"{wall:.3f} s ({sum(v['completed'] for v in tally.values())} served, "
+        f"{n / wall:.3f} submits/s); by class {json.dumps(summary)}; engine qos "
+        f"{json.dumps(stats['qos'])}; preemptions {len(preemptions)} (victim, arrival ranks "
+        f"{sorted(set(preemptions))}); admissions {len(decisions)}, {len(under)} at a level above 0 "
+        f"(levels {sorted({d[0] for d in under})}; by class {[sum(1 for d in under if d[1] == r) for r in range(3)]}); "
+        f"degradation {json.dumps(stats['degradation'])}; K1 {k1_run} in the run, eager {eager}; captures after "
+        f"start() {captures}; card {card}")
+    if hung or failures or answered != n:
+        raise AssertionError(f"qos flood {kind}: {answered} of {n} answered, hung {hung}, failures {failures}")
+    if bad_preempt or inversions:
+        raise AssertionError(f"qos flood {kind}: preemptions of a class not below the arrival's {bad_preempt}; "
+                             f"batch over interactive at a level {inversions}")
+    if captures or engine.program_counts() != counts or eager["k1"] or not k1_run:
+        raise AssertionError(f"qos flood {kind}: {captures} captures after start(), eager {eager}, K1 {k1_run}")
+    if any(u not in ladder for _, _, u in decisions):
+        raise AssertionError(f"qos flood {kind}: an update count off the ladder {ladder}")
+    return k1_run
+
+
 # The training phase: the chairs stage of raft_large at full width (batch 8,
 # crop 368x496, 12 updates, dense fp32, no remat), on a synthetic
 # FlyingChairs tree written from a seed
@@ -2359,6 +2671,10 @@ def main() -> int:
     k1_golden_wr = golden_whole_request_phase(device)
     k1_pool_stream = pool_stream_phase(device, card, weights)
     k1_flow_stream = flow_stream_phase(device, card, weights)
+    k1_tiled = tiled_phase(device, card, weights)
+    k1_golden_tiled = golden_tiled_phase(device)
+    k1_qos_quality = qos_flood_phase(device, card, "quality", weights)
+    k1_qos_edge = qos_flood_phase(device, card, "edge", weights)
     train_phase(device, card)
     fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
     fused_training_checks(device, card)
@@ -2394,6 +2710,13 @@ def main() -> int:
               stream_path=f"open_stream, {STREAM_FRAMES} frames, in the whole-request engine and the pool (cold, then "
                           f"warm-started), and FlowStream, 4 frames (graph replays)",
               stream_launches=wr_quality["k1"]["stream"] + k1_pool_stream + k1_flow_stream,
+              tiled_path=f"ServeEngine 'quality', unknown_shape='tiled', {k1_tiled['pool']['requests']} requests of "
+                         f"375x1242, 720x1280 and 1080x1920 as {k1_tiled['pool']['tiles']} 440x1024 tiles, in the "
+                         f"pool and at pool_capacity=0 (graph replays)",
+              tiled_launches=k1_tiled["pool"]["k1"] + k1_tiled["whole-request"]["k1"],
+              qos_path=f"ServeEngine 'quality', qos_enabled, pool capacity 8, queue 8, a flood of "
+                       f"{len(QOS_CLASSES) * QOS_ROUNDS} requests from {len(QOS_CLASSES)} threads (graph replays)",
+              qos_launches=k1_qos_quality,
               training_path=f"Trainer, raft_large chairs stage at fused fp32 (b=8, 368x496, 12 updates, window 2), "
                             f"{TRAIN_STEPS} steps", training_launches=fused_launches["k1"],
               bench_train_k1_launches_per_step=bench_train_k1[
@@ -2417,7 +2740,12 @@ def main() -> int:
               whole_request_path=f"ServeEngine.preset('edge', pool_capacity=0), raft_large, {SERVE_REQUESTS} requests "
                                  f"in {wr_edge['k1']['batches']} batches of {wr_edge['k1']['rungs']} (graph replays); "
                                  f"the golden fixture through it",
-              whole_request_launches=wr_edge["k1"]["run"] + k1_golden_wr["edge"]),
+              whole_request_launches=wr_edge["k1"]["run"] + k1_golden_wr["edge"],
+              qos_path=f"ServeEngine.preset('edge', pool_capacity=0), qos_enabled, queue 8, a flood of "
+                       f"{len(QOS_CLASSES) * QOS_ROUNDS} requests from {len(QOS_CLASSES)} threads (graph replays)",
+              qos_launches=k1_qos_edge,
+              golden_tiled_path="the golden fixture at 'edge', 96x136 whole and 96x128 tiled, pool_capacity=0",
+              golden_tiled_launches=k1_golden_tiled["edge"]),
         entry("xtap_project (K1), int8 levels, bf16 product", lookup_src, k1_src, 0,
               "no preset runs it (int8 storage with bf16 convs); kernels phase only", lowp_err["k1_int8_bf16"],
               lowp_times["k1_int8_bf16"], lowp_bounds["k1_int8_bf16"]),

@@ -21,9 +21,8 @@ what makes degradation under load a first-class mechanism). Buckets are
 
 Knobs whose path the port has not reached yet are still fields, validated
 as in the JAX package, and the engine raises ``NotImplementedError``
-naming them when they ask for that path: ``unknown_shape='tiled'``,
-``apply_timeout_s`` (the device watchdog), ``trace_sample_rate > 0`` and
-``qos_enabled``.
+naming them when they ask for that path: ``apply_timeout_s`` (the device
+watchdog) and ``trace_sample_rate > 0``.
 """
 
 from __future__ import annotations
@@ -115,9 +114,19 @@ class ServeConfig:
             ShapeRejected`; ``'slow_path'`` queues them rate-limited for
             the worker, which runs each whole between pool ticks (a novel
             shape costs one graph capture there, kept for the engine's
-            life); ``'tiled'`` is not ported.
+            life); ``'tiled'`` fans the pair into bucket-shaped tiles
+            (:mod:`raft_tpu_torch.serve.tiler`) served through the
+            captured set, no new capture, and blends the per-tile flows
+            on the host (results carry ``tiled=True``).
         slow_path_per_s / slow_path_burst: sustained slow-path admission
             rate (token bucket) and its burst.
+        tile_overlap_px: per-seam overlap floor for the tile planner;
+            must be >= the 8 px 1/8-grid receptive margin.
+        tile_pad_penalty: cost-model weight on the replicate-padded
+            fraction of dispatched tile pixels (0 = tile count only).
+        tile_max_tiles: upper bound on tiles per request; a shape whose
+            cheapest plan exceeds it is ``ShapeRejected`` even under
+            ``'tiled'``.
         apply_timeout_s: device-execution deadline per dispatch (the JAX
             package's watchdog; not ported).
         warmup: capture the worker's whole program set inside
@@ -134,7 +143,28 @@ class ServeConfig:
             execution of each program family is timed
             (:mod:`raft_tpu_torch.obs.ledger`); 0 disables.
         latency_window: per-bucket ring-buffer size for p50/p99 tracking.
-        qos_enabled: multi-tenant QoS enforcement (not ported).
+        qos_enabled: multi-tenant QoS enforcement. Off (default) the
+            serve path is the priority-blind engine: priority/tenant ride
+            along as accounting only. On, admission charges per-tenant
+            quotas (``qos_tenant_quotas``), a full queue sheds lowest-
+            class-first (an interactive arrival preempts a queued batch
+            request; the victim gets a retryable ``Overloaded``), batch
+            formation seeds highest-class-first with the ``qos_aging_ms``
+            starvation guard, and degradation and the pool's
+            deadline-forecast retirement brown out low classes first.
+        qos_default_priority: class assumed when a request carries none
+            (``'interactive'`` | ``'standard'`` | ``'batch'``).
+        qos_default_tenant: tenant assumed when a request carries none.
+        qos_tenant_quotas: per-tenant admission quotas, a tuple of
+            ``(tenant, rate_rps, burst, max_concurrent)`` rows.
+            ``rate_rps <= 0`` disables the rate arm, ``max_concurrent <=
+            0`` the concurrency arm; an unlisted tenant is unlimited. An
+            over-quota request is refused with the retryable
+            :class:`~raft_tpu_torch.serve.errors.QuotaExceeded` before the
+            queue ever sees it.
+        qos_aging_ms: starvation guard — a queued request older than
+            this competes at interactive rank: it can no longer be
+            preempted and it seeds batches first.
     """
 
     buckets: Tuple[Tuple[int, int], ...] = ((440, 1024),)
@@ -160,6 +190,9 @@ class ServeConfig:
     unknown_shape: str = "reject"
     slow_path_per_s: float = 1.0
     slow_path_burst: int = 2
+    tile_overlap_px: int = 16
+    tile_pad_penalty: float = 1.0
+    tile_max_tiles: int = 64
     apply_timeout_s: Optional[float] = None
     warmup: bool = False
     precision: Optional[str] = None
@@ -171,6 +204,10 @@ class ServeConfig:
     ledger_sample_every: int = 0
     latency_window: int = 256
     qos_enabled: bool = False
+    qos_default_priority: str = "standard"
+    qos_default_tenant: str = "default"
+    qos_tenant_quotas: Tuple[Tuple[str, float, float, int], ...] = ()
+    qos_aging_ms: float = 500.0
 
     @classmethod
     def preset(cls, name: str = "throughput", **overrides) -> "ServeConfig":
@@ -309,6 +346,22 @@ class ServeConfig:
                 f"unknown_shape must be 'reject', 'slow_path', or "
                 f"'tiled', got {self.unknown_shape!r}"
             )
+        # tiler knobs: validated even under 'reject', so a config later
+        # flipped to 'tiled' cannot carry a latent bad plan
+        if self.tile_overlap_px < 8:
+            raise ValueError(
+                f"tile_overlap_px must be >= 8 (the 1/8-grid receptive "
+                f"margin), got {self.tile_overlap_px}"
+            )
+        if self.tile_pad_penalty < 0:
+            raise ValueError(
+                f"tile_pad_penalty must be >= 0, got "
+                f"{self.tile_pad_penalty}"
+            )
+        if self.tile_max_tiles < 1:
+            raise ValueError(
+                f"tile_max_tiles must be >= 1, got {self.tile_max_tiles}"
+            )
         if not (0.0 <= self.low_watermark <= self.high_watermark <= 1.0):
             raise ValueError(
                 f"need 0 <= low_watermark <= high_watermark <= 1, got "
@@ -356,3 +409,42 @@ class ServeConfig:
                 "corr_dtype='int8' requires corr_impl='fused' (the "
                 "quantized pyramid lives in the fused lookup kernel)"
             )
+        # QoS: validated even when disabled, so a config that will later
+        # be flipped on cannot carry a latent bad quota table
+        _qos_classes = ("interactive", "standard", "batch")
+        if self.qos_default_priority not in _qos_classes:
+            raise ValueError(
+                f"qos_default_priority must be one of {_qos_classes}, got "
+                f"{self.qos_default_priority!r}"
+            )
+        if not self.qos_default_tenant:
+            raise ValueError("qos_default_tenant must be a non-empty string")
+        if self.qos_aging_ms <= 0:
+            raise ValueError(
+                f"qos_aging_ms must be positive, got {self.qos_aging_ms}"
+            )
+        seen_tenants = set()
+        for row in self.qos_tenant_quotas:
+            if len(row) != 4:
+                raise ValueError(
+                    f"each qos_tenant_quotas row must be (tenant, rate_rps, "
+                    f"burst, max_concurrent), got {row!r}"
+                )
+            tenant, rate_rps, burst, max_conc = row
+            if not tenant or not isinstance(tenant, str):
+                raise ValueError(
+                    f"quota tenant must be a non-empty string, got {tenant!r}"
+                )
+            if tenant in seen_tenants:
+                raise ValueError(f"duplicate quota row for tenant {tenant!r}")
+            seen_tenants.add(tenant)
+            if rate_rps > 0 and burst < 1:
+                raise ValueError(
+                    f"quota burst must be >= 1 when rate_rps > 0, got "
+                    f"{burst!r} for tenant {tenant!r}"
+                )
+            if int(max_conc) != max_conc:
+                raise ValueError(
+                    f"quota max_concurrent must be an int, got {max_conc!r} "
+                    f"for tenant {tenant!r}"
+                )

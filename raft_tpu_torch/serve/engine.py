@@ -67,10 +67,25 @@ On the card every program of the closed set is a CUDA graph
 failed capture raises and nothing falls back to eager execution. On the
 CPU (``device='cpu'``) the same programs run eagerly.
 
+**Tiling** (:meth:`ServeEngine.submit_tiled`; automatic under
+``unknown_shape='tiled'``): an off-bucket pair is planned into
+bucket-shaped tiles (:mod:`raft_tpu_torch.serve.tiler`), both images are
+sliced at the same offsets, the tiles ride ONE ``put_many`` acquisition
+through either engine's captured programs (no capture for a new shape),
+and their fetched flows are blended on the host.
+
+**QoS** (``qos_enabled``; :mod:`raft_tpu_torch.serve.qos`): every entry
+point takes ``priority``/``tenant``. On, a tenant's quota is charged once
+a request (a retryable ``QuotaExceeded`` on breach), a full queue
+preempts strictly lower classes (the victim finishes with a retryable
+``Overloaded``), and under degradation pressure lower classes brown out
+first, through ladder rungs only. Per-class accounting
+(``stats()['qos']``) runs either way.
+
 Not ported yet (the engine raises ``NotImplementedError`` naming the
-knob): tiling (``unknown_shape='tiled'``), QoS, tracing, the
-device-deadline watchdog (``apply_timeout_s``), and ``submit_many``'s
-``trace_ctx``/``priority``/``tenant``/``shadow``/tiler item keys.
+knob): tracing (``trace_sample_rate``), the device-deadline watchdog
+(``apply_timeout_s``), and ``submit_many``'s ``trace_ctx``/``shadow``
+item keys.
 """
 
 from __future__ import annotations
@@ -102,6 +117,7 @@ from raft_tpu_torch.serve.errors import (
     InvalidInput,
     Overloaded,
     PoisonedInput,
+    QuotaExceeded,
     ServeError,
     ShapeRejected,
 )
@@ -114,7 +130,9 @@ from raft_tpu_torch.serve.pool import (
     unpack_converged,
     zero_state,
 )
+from raft_tpu_torch.serve.qos import QosPolicy, QosStats, brownout_level, qos_stats_block, validate_priority
 from raft_tpu_torch.serve.queue import MicroBatchQueue, Request
+from raft_tpu_torch.serve.tiler import TilePlanner, blend_tiles, nearest_bucket
 
 __all__ = ["ServeEngine", "ServeResult", "StreamSession"]
 
@@ -135,11 +153,7 @@ _COUNTERS = (
 # ROADMAP item that brings each
 _UNPORTED_ITEM_KEYS = {
     "trace_ctx": "queue 1 item 3f (request tracing)",
-    "priority": "queue 1 item 3e (QoS enforcement)",
-    "tenant": "queue 1 item 3e (QoS enforcement)",
     "shadow": "queue 1 item 4 (rollout mirroring)",
-    "p1": "queue 1 item 3d (the tiler's fan-out items)",
-    "skip_quota": "queue 1 item 3d (the tiler's fan-out items)",
 }
 
 
@@ -158,7 +172,9 @@ class ServeResult:
     stayed below ``pool_converge_thresh``). ``retried_single``: served
     by the singles retry of a batch that came back non-finite;
     ``warm_started``: the pool seeded its refinement with an
-    ``init_flow``.
+    ``init_flow``. ``tiled``: served as ``tiles`` bucket-shaped tiles
+    blended on the host (``num_flow_updates``/``level`` then report the
+    most conservative tile: the fewest updates, the highest level).
     """
 
     flow: Optional[np.ndarray]       # (H, W, 2) float32, caller resolution
@@ -173,6 +189,8 @@ class ServeResult:
     primed: bool = False
     exit_reason: str = "target"
     warm_started: bool = False
+    tiled: bool = False
+    tiles: int = 0
 
     @property
     def early_exit(self) -> bool:
@@ -184,10 +202,8 @@ def _check_ported(cfg: ServeConfig) -> None:
     """Refuse the knobs whose path the port has not reached: never run an
     approximation of it."""
     todo = [
-        (cfg.unknown_shape == "tiled", "unknown_shape='tiled' (the tiler)"),
         (cfg.apply_timeout_s is not None, "apply_timeout_s (the device-deadline watchdog)"),
         (cfg.trace_sample_rate > 0, "trace_sample_rate > 0 (request tracing)"),
-        (cfg.qos_enabled, "qos_enabled (QoS enforcement)"),
     ]
     for asked, knob in todo:
         if asked:
@@ -245,10 +261,11 @@ class StreamSession:
         self._engine = engine
         self.stream_id = stream_id
 
-    def submit(self, frame, *, deadline_ms: Optional[float] = None,
-               num_flow_updates: Optional[int] = None) -> ServeResult:
+    def submit(self, frame, *, deadline_ms: Optional[float] = None, num_flow_updates: Optional[int] = None,
+               priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
         return self._engine.submit_frame(
-            self.stream_id, frame, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates
+            self.stream_id, frame, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
+            priority=priority, tenant=tenant,
         )
 
     def close(self) -> None:
@@ -353,7 +370,11 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self._router = BucketRouter(cfg.buckets)
-        self._queue = MicroBatchQueue(cfg.queue_capacity)
+        self._queue = MicroBatchQueue(cfg.queue_capacity, qos=cfg.qos_enabled, aging_ms=cfg.qos_aging_ms)
+        # per-class accounting always runs (a stable stats schema); the
+        # admission policy exists only when QoS is on
+        self._qos_stats = QosStats(cfg.latency_window)
+        self._qos_policy = QosPolicy(cfg.qos_tenant_quotas) if cfg.qos_enabled else None
         self._controller = DegradationController(
             cfg.ladder,
             slo_p99_ms=cfg.slo_p99_ms,
@@ -363,6 +384,17 @@ class ServeEngine:
             recover_after=cfg.recover_after,
         )
         self._slow_tokens = TokenBucket(cfg.slow_path_per_s, cfg.slow_path_burst)
+        # the tile planner holds no device state: submit_tiled works on
+        # any engine; unknown_shape='tiled' only routes submit() to it
+        self._tiler = TilePlanner(
+            cfg.buckets, overlap_px=cfg.tile_overlap_px, pad_penalty=cfg.tile_pad_penalty,
+            max_tiles=cfg.tile_max_tiles,
+        )
+        self._tiler_counters = dict.fromkeys(
+            ("requests", "completed", "failures", "tiles_submitted", "tiles_retried", "admission_acquisitions"), 0
+        )
+        self._tiler_blend_ms: List[float] = []
+        self._tiler_px = [0, 0]  # [useful canvas px, dispatched px]
         # the slow path's whole-request forward: one graph per (natural
         # shape, iterations), captured and replayed on the worker
         self._apply = FlowEstimator(self.model, num_flow_updates=cfg.ladder[0], device=self.device)
@@ -588,7 +620,8 @@ class ServeEngine:
     # -- public API --------------------------------------------------------
 
     def submit(self, image1, image2, *, deadline_ms: Optional[float] = None,
-               num_flow_updates: Optional[int] = None, init_flow=None) -> ServeResult:
+               num_flow_updates: Optional[int] = None, init_flow=None, priority: Optional[str] = None,
+               tenant: Optional[str] = None) -> ServeResult:
         """Serve one raw [0, 255] ``(H, W, 3)`` pair; returns :class:`ServeResult`.
 
         ``num_flow_updates`` caps this request's refinement iterations
@@ -604,24 +637,55 @@ class ServeEngine:
         otherwise ignored: a seed changes convergence speed, never the
         fixed point.
 
+        ``priority`` / ``tenant`` classify the request for QoS
+        (``'interactive'`` | ``'standard'`` | ``'batch'``; ``None`` takes
+        the config defaults). With ``qos_enabled`` the tenant's quota is
+        charged (a retryable
+        :class:`~raft_tpu_torch.serve.errors.QuotaExceeded` on breach)
+        and the class drives shedding and brownout; off, they are
+        accounting only.
+
+        Under ``unknown_shape='tiled'`` an off-bucket pair is served by
+        :meth:`submit_tiled` (``init_flow`` is dropped: a tile has no
+        seed of its own).
+
         Blocks the calling thread until the result, the deadline, or a
         typed :class:`~raft_tpu_torch.serve.errors.ServeError`."""
+        if self.config.unknown_shape == "tiled":
+            a1 = np.asarray(image1)
+            if a1.ndim == 3 and self._router.route(int(a1.shape[0]), int(a1.shape[1])) is None:
+                # fan out before any accounting, so the request is charged
+                # and counted once, by submit_tiled
+                return self.submit_tiled(image1, image2, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
+                                         priority=priority, tenant=tenant)
         deadline_ms = self._check_live(deadline_ms)
+        pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p1, p2, hw = self._admit(image1, image2)
+        rel = self._qos_charge(pr, ten)
         bucket = self._router.route(*hw)
         rid = self._new_rid()
+        self._qos_stats.count(pr, "submitted")
         deadline = time.monotonic() + deadline_ms / 1e3
-        if bucket is None:
-            return self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters)
-        req = Request(
-            rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
-            iters=iters,
-        )
-        if init_flow is not None:
-            req.init8 = self._prepare_init_flow(init_flow, bucket)
-            req.warm = req.init8 is not None
-        return self._enqueue_and_wait(req, deadline_ms)
+        try:
+            if bucket is None:
+                return self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, priority=pr, tenant=ten)
+            req = Request(
+                rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
+                iters=iters, priority=pr, tenant=ten,
+            )
+            if init_flow is not None:
+                req.init8 = self._prepare_init_flow(init_flow, bucket)
+                req.warm = req.init8 is not None
+            if rel is not None:
+                req.add_done_callback(rel)
+            return self._enqueue_and_wait(req, deadline_ms)
+        finally:
+            # the release is one-shot: the done callback covers the worker's
+            # completions, this call a shed (the request never finishes) and
+            # every error before the request existed
+            if rel is not None:
+                rel()
 
     def submit_many(self, items: List[Dict[str, Any]]) -> List[Request]:
         """Coalesced pairwise admission: validate and admit a burst,
@@ -629,20 +693,28 @@ class ServeEngine:
         (:meth:`MicroBatchQueue.put_many`).
 
         Each item is a dict: ``image1``, ``image2``, optional
-        ``deadline_ms`` / ``num_flow_updates``, and an optional
-        ``on_done`` callable invoked with the request handle on
-        completion. Returns one :class:`Request` handle per item, in
-        order (``wait``, then ``result`` or ``error``). An item that fails
-        validation, admission or the queue's shed comes back already
-        finished, carrying its typed error; the rest of the burst is
-        unaffected. Un-bucketed shapes take the slow path inline, as
-        :meth:`submit` would (this call blocks until they are served).
+        ``deadline_ms`` / ``num_flow_updates`` / ``priority`` / ``tenant``
+        (as in :meth:`submit`), and an optional ``on_done`` callable
+        invoked with the request handle on completion. Returns one
+        :class:`Request` handle per item, in order (``wait``, then
+        ``result`` or ``error``). An item that fails validation,
+        admission, its tenant's quota or the queue's shed comes back
+        already finished, carrying its typed error; the rest of the burst
+        is unaffected. Un-bucketed shapes take the slow path (or, under
+        ``unknown_shape='tiled'``, the tiler) inline, as :meth:`submit`
+        would (this call blocks until they are served).
 
-        The JAX package's ``trace_ctx``, ``priority``/``tenant``,
-        ``shadow`` and tiler (``p1``/``p2``/``hw``/``skip_quota``) item
-        keys are not ported: an item carrying one raises
+        The tiler's fan-out rides two internal item keys: ``p1``/``p2``/
+        ``hw`` (already-admitted ``(1, h, w, 3)`` slices, not admitted
+        again) and ``skip_quota`` (the tiled request was charged once for
+        all its tiles). The JAX package's ``trace_ctx`` and ``shadow``
+        item keys are not ported: an item carrying one raises
         ``NotImplementedError`` before anything is admitted.
         """
+        return self._submit_many(items)[0]
+
+    def _submit_many(self, items: List[Dict[str, Any]]) -> Tuple[List[Request], int]:
+        """:meth:`submit_many`, and the queue acquisitions it took (0 or 1)."""
         for it in items:
             for key, item in _UNPORTED_ITEM_KEYS.items():
                 if key in it:
@@ -655,42 +727,203 @@ class ServeEngine:
             cb = it.get("on_done")
             try:
                 deadline_ms = self._check_live(it.get("deadline_ms"))
+                pr, ten = self._qos_resolve(it.get("priority"), it.get("tenant"))
                 iters = self._validate_iters(it.get("num_flow_updates"))
-                p1, p2, hw = self._admit(it["image1"], it["image2"])
+                if "p1" in it:
+                    # a tile of a tiled request: its slices were admitted
+                    # with the request; admitting again would rescale them
+                    p1, p2 = it["p1"], it["p2"]
+                    hw = (int(it["hw"][0]), int(it["hw"][1]))
+                else:
+                    p1, p2, hw = self._admit(it["image1"], it["image2"])
+                rel = None if it.get("skip_quota") else self._qos_charge(pr, ten)
             except Exception as e:
                 handles.append(self._finished_handle(error=e, on_done=cb))
                 continue
             bucket = self._router.route(*hw)
             rid = self._new_rid()
+            self._qos_stats.count(pr, "submitted")
             deadline = time.monotonic() + deadline_ms / 1e3
             if bucket is None:
                 # rare (un-bucketed shape): served now, through the slow path
-                req = Request(rid, hw, None, None, hw, deadline, iters=iters)
+                # or the tiler
+                req = Request(rid, hw, None, None, hw, deadline, iters=iters, priority=pr, tenant=ten)
+                if rel is not None:
+                    req.add_done_callback(rel)
                 if cb is not None:
                     req.add_done_callback(cb)
                 try:
-                    req.finish(result=self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters))
+                    req.finish(result=self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, priority=pr,
+                                                        tenant=ten))
                 except Exception as e:
                     req.finish(error=e)
                 handles.append(req)
                 continue
             req = Request(
                 rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
-                iters=iters,
+                iters=iters, priority=pr, tenant=ten,
             )
+            if rel is not None:
+                req.add_done_callback(rel)
             if cb is not None:
                 req.add_done_callback(cb)
             prepared.append(req)
             handles.append(req)
-        if prepared:
-            outcomes = self._queue.put_many(prepared, retry_after_ms=self._retry_after_ms())
-            for req, err in zip(prepared, outcomes):
-                if err is None:
-                    continue
-                if isinstance(err, Overloaded):
-                    self._count("shed")
-                req.finish(error=err)
-        return handles
+        if not prepared:
+            return handles, 0
+        preempted: List[Request] = []
+        outcomes = self._queue.put_many(prepared, retry_after_ms=self._retry_after_ms(), preempted=preempted)
+        for req, err in zip(prepared, outcomes):
+            if err is None:
+                continue
+            if isinstance(err, Overloaded):
+                self._count("shed")
+                self._qos_stats.count(req.priority, "shed")
+            req.finish(error=err)
+        # the burst may displace queued lower-class work: each victim is
+        # finished with the typed retryable shed
+        self._qos_preempted(preempted, prepared[0])
+        return handles, 1
+
+    def submit_tiled(self, image1, image2, *, deadline_ms: Optional[float] = None,
+                     num_flow_updates: Optional[int] = None, priority: Optional[str] = None,
+                     tenant: Optional[str] = None) -> ServeResult:
+        """Serve an off-bucket pair as bucket-shaped tiles.
+
+        The :class:`~raft_tpu_torch.serve.tiler.TilePlanner` picks the
+        cheapest (bucket, overlap-stride) tiling of ``(H, W)``; both
+        images are sliced at the same offsets (views of the admitted
+        arrays) and pushed through :meth:`submit_many` under ONE
+        :meth:`MicroBatchQueue.put_many` acquisition, so a tiled request
+        costs admission one acquisition however many tiles it has. The
+        tiles run on the engine's captured programs (no capture for a new
+        shape); their fetched flows are blended on the host under
+        feathered linear-ramp weights cached per plan.
+
+        A tile that fails terminally fails the request with that tile's
+        typed error; a shed tile (retryable, with ``retry_after_ms``) is
+        retried inside the request's own deadline. The tenant's quota is
+        charged once for the request; its tiles inherit its class and
+        ride ``skip_quota`` items. An on-bucket shape falls through to
+        :meth:`submit`. Works whatever ``config.unknown_shape`` says;
+        ``'tiled'`` only makes :meth:`submit` route here.
+
+        Returns a :class:`ServeResult` with ``tiled=True`` and
+        ``tiles=N``; ``num_flow_updates``/``level``/``degraded`` report
+        the most conservative tile.
+        """
+        a1 = np.asarray(image1)
+        if a1.ndim == 3 and self._router.route(int(a1.shape[0]), int(a1.shape[1])) is not None:
+            return self.submit(image1, image2, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
+                               priority=priority, tenant=tenant)
+        t_sub = time.monotonic()
+        deadline_ms = self._check_live(deadline_ms)
+        pr, ten = self._qos_resolve(priority, tenant)
+        iters = self._validate_iters(num_flow_updates)
+        p1, p2, hw = self._admit(image1, image2)
+        rel = self._qos_charge(pr, ten)
+        # the request is an envelope: its tiles carry the engine's
+        # submitted/completed/shed accounting (they are real queue
+        # citizens), the ``tiler`` stats block counts the envelope, so
+        # its rid leaves the submitted counter alone
+        with self._lock:
+            rid = self._next_rid
+            self._next_rid += 1
+        deadline = time.monotonic() + deadline_ms / 1e3
+        try:
+            return self._run_tiled(rid, p1, p2, hw, deadline, iters, priority=pr, tenant=ten, t_sub=t_sub)
+        finally:
+            if rel is not None:
+                rel()
+
+    def _run_tiled(self, rid, p1, p2, hw, deadline, req_iters=None, *, priority=None, tenant=None,
+                   t_sub=None) -> ServeResult:
+        """The tiled fan-out: plan, slice, one ``put_many``, wait, blend.
+
+        ``p1``/``p2`` are admitted ``(1, H, W, 3)`` arrays; the tile
+        slices are views into them. Each tile's flow is cropped back to
+        the tile by its own completion and reaches the blend as a host
+        array of its own, fetched before any later replay of its program.
+        """
+        t0 = t_sub if t_sub is not None else time.monotonic()
+        try:
+            plan = self._tiler.plan(hw)
+        except ShapeRejected:
+            self._count("rejected")
+            with self._lock:
+                self._tiler_counters["failures"] += 1
+            raise
+        with self._lock:
+            self._tiler_counters["requests"] += 1
+            self._tiler_px[0] += plan.hw[0] * plan.hw[1]
+            self._tiler_px[1] += plan.dispatched_px
+        items: List[Dict[str, Any]] = [
+            {
+                "p1": p1[:, t.y0:t.y0 + t.h, t.x0:t.x0 + t.w],
+                "p2": p2[:, t.y0:t.y0 + t.h, t.x0:t.x0 + t.w],
+                "hw": (t.h, t.w),
+                "deadline_ms": max(1.0, (deadline - time.monotonic()) * 1e3),
+                "num_flow_updates": req_iters,
+                "priority": priority,
+                "tenant": tenant,
+                "skip_quota": True,
+            }
+            for t in plan.tiles
+        ]
+        # the one-acquisition property: the whole fan-out rides a single
+        # put_many (retries below take their own, counted as tiles_retried)
+        handles, acq = self._submit_many(items)
+        with self._lock:
+            self._tiler_counters["tiles_submitted"] += len(items)
+            self._tiler_counters["admission_acquisitions"] += acq
+        try:
+            results: List[ServeResult] = []
+            for i, h in enumerate(handles):
+                while True:
+                    if not h.wait(max(0.0, deadline - time.monotonic()) + 0.05):
+                        h.finish(error=DeadlineExceeded(
+                            f"tiled request {rid} missed its deadline waiting on tile {i + 1}/{len(handles)}"
+                        ))
+                    if h.error is None:
+                        break
+                    err = h.error
+                    retry_ms = getattr(err, "retry_after_ms", None)
+                    if retry_ms is not None and deadline - time.monotonic() > retry_ms / 1e3:
+                        # a shed tile: back off and retry inside the
+                        # request's own deadline; a terminal tile error
+                        # fails the whole request, typed
+                        time.sleep(retry_ms / 1e3)
+                        with self._lock:
+                            self._tiler_counters["tiles_retried"] += 1
+                        it = dict(items[i], deadline_ms=max(1.0, (deadline - time.monotonic()) * 1e3))
+                        h = self._submit_many([it])[0][0]
+                        continue
+                    raise err
+                results.append(h.result)
+            t_blend = time.monotonic()
+            flow = blend_tiles(plan, self._tiler.weights(plan), [r.flow for r in results])
+            now = time.monotonic()
+            with self._lock:
+                self._tiler_counters["completed"] += 1
+                self._tiler_blend_ms.append((now - t_blend) * 1e3)
+                del self._tiler_blend_ms[: -self.config.latency_window]
+            reasons = {r.exit_reason for r in results}
+            return ServeResult(
+                flow=flow,
+                rid=rid,
+                bucket=plan.bucket,
+                num_flow_updates=min(r.num_flow_updates for r in results),
+                level=max(r.level for r in results),
+                degraded=any(r.degraded for r in results),
+                latency_ms=(now - t0) * 1e3,
+                exit_reason=reasons.pop() if len(reasons) == 1 else "target",
+                tiled=True,
+                tiles=plan.n_tiles,
+            )
+        except BaseException:
+            with self._lock:
+                self._tiler_counters["failures"] += 1
+            raise
 
     def _finished_handle(self, *, error, on_done=None) -> Request:
         """A pre-failed handle for a ``submit_many`` item that never
@@ -719,17 +952,21 @@ class ServeEngine:
         return StreamSession(self, sid)
 
     def submit_frame(self, stream_id: int, frame, *, deadline_ms: Optional[float] = None,
-                     num_flow_updates: Optional[int] = None) -> ServeResult:
+                     num_flow_updates: Optional[int] = None, priority: Optional[str] = None,
+                     tenant: Optional[str] = None) -> ServeResult:
         """Advance stream ``stream_id`` by one frame.
 
         Returns flow(previous frame -> this frame) at the caller's
         resolution, or a ``primed=True`` result (``flow=None``) when this
         frame opens a fresh pair (first frame, or first after an
         invalidation or eviction). One outstanding frame per stream.
+        ``priority`` / ``tenant`` classify the frame for QoS, as in
+        :meth:`submit`.
         """
         if not self._streams_on:
             raise InvalidInput("stream serving is disabled (stream_cache_size=0)")
         deadline_ms = self._check_live(deadline_ms)
+        pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p, hw = self._admit_frame(frame)
         bucket = self._router.route(*hw)
@@ -758,15 +995,22 @@ class ServeEngine:
                 st.fmap = st.ctx = st.flow8 = None
                 st.bucket, st.hw = bucket, hw
             st.busy = True
+        rel = None
         try:
+            rel = self._qos_charge(pr, ten)
             rid = self._new_rid()
+            self._qos_stats.count(pr, "submitted")
             deadline = time.monotonic() + deadline_ms / 1e3
             req = Request(
                 rid, bucket, None, self._router.pad_to(p, bucket), hw, deadline, kind="stream",
-                stream_id=stream_id, iters=iters,
+                stream_id=stream_id, iters=iters, priority=pr, tenant=ten,
             )
+            if rel is not None:
+                req.add_done_callback(rel)
             return self._enqueue_and_wait(req, deadline_ms)
         finally:
+            if rel is not None:
+                rel()  # one-shot: covers the shed path (the request unfinished)
             with self._streams_lock:
                 st.busy = False
 
@@ -875,6 +1119,34 @@ class ServeEngine:
             "degradation": self._controller.snapshot(),
             "latency": latency,
             "quarantined_rids": quarantined,
+            # per-class counters and latency, per-tenant quota state;
+            # "enabled" says whether enforcement is on
+            "qos": qos_stats_block(self.config.qos_enabled, self.config.qos_aging_ms, self._qos_stats,
+                                   self._qos_policy),
+            "tiler": self._tiler_block(),
+        }
+
+    def _tiler_block(self) -> dict:
+        """The ``stats()['tiler']`` block: the tiled requests' envelope
+        accounting (their tiles count in the engine's own counters)."""
+        with self._lock:
+            c = dict(self._tiler_counters)
+            blend = list(self._tiler_blend_ms)
+            useful, dispatched = self._tiler_px
+        return {
+            "enabled": self.config.unknown_shape == "tiled",
+            "overlap_px": self.config.tile_overlap_px,
+            "plans_built": self._tiler.plans_built,
+            "plan_cache_hits": self._tiler.plan_cache_hits,
+            **c,
+            # traffic-weighted dispatched-pixel overhead over every tiled
+            # request served (None until the first)
+            "waste_frac": 1.0 - useful / dispatched if dispatched else None,
+            "blend_ms": {
+                "n": len(blend),
+                "p50_ms": float(np.percentile(blend, 50)) if blend else None,
+                "p99_ms": float(np.percentile(blend, 99)) if blend else None,
+            },
         }
 
     def device_time_breakdown(self) -> Dict[str, Any]:
@@ -998,34 +1270,47 @@ class ServeEngine:
         return iters
 
     def _enqueue_and_wait(self, req: Request, deadline_ms: float) -> ServeResult:
+        preempted: List[Request] = []
         try:
-            self._queue.put(req, retry_after_ms=self._retry_after_ms())
+            self._queue.put(req, retry_after_ms=self._retry_after_ms(), preempted=preempted)
         except Overloaded:
             self._count("shed")
+            self._qos_stats.count(req.priority, "shed")
             raise
+        self._qos_preempted(preempted, req)
         if not req.wait(max(0.0, req.remaining) + 0.05):
             # worker still busy past our deadline: fail caller-side (set-once
             # means a simultaneous worker finish wins harmlessly)
-            req.finish(error=DeadlineExceeded(f"request {req.rid} missed its {deadline_ms:.0f}ms deadline"))
+            if req.finish(error=DeadlineExceeded(f"request {req.rid} missed its {deadline_ms:.0f}ms deadline")):
+                self._qos_stats.count(req.priority, "expired")
             self._count("expired")
         if req.error is not None:
             raise req.error
         return req.result
 
-    def _submit_slow(self, rid, p1, p2, hw, deadline, deadline_ms, req_iters=None) -> ServeResult:
-        """Un-bucketed shape: reject, or queue it rate-limited for the
-        worker, which runs it alone (:meth:`_run_slow`)."""
+    def _submit_slow(self, rid, p1, p2, hw, deadline, deadline_ms, req_iters=None, *, priority="standard",
+                     tenant="default") -> ServeResult:
+        """Un-bucketed shape: reject, tile, or queue it rate-limited for
+        the worker, which runs it alone (:meth:`_run_slow`)."""
         if self.config.unknown_shape == "reject":
             self._count("rejected")
             buckets = tuple(self._router.buckets)
             raise ShapeRejected(
                 f"no bucket admits shape {hw} (buckets: {list(buckets)}); "
-                f"resize, reconfigure, or set unknown_shape='slow_path'",
+                f"resize, reconfigure, or set unknown_shape='slow_path' or 'tiled'",
                 supported_buckets=buckets,
-                nearest=_nearest_bucket(hw, buckets),
+                nearest=nearest_bucket(hw, buckets),
             )
+        if self.config.unknown_shape == "tiled":
+            # only submit_many items land here under 'tiled' (submit routes
+            # to submit_tiled before any accounting); their rid was counted
+            # submitted, so a tiled success is counted completed here
+            res = self._run_tiled(rid, p1, p2, hw, deadline, req_iters, priority=priority, tenant=tenant)
+            self._count("completed")
+            return res
         if not self._slow_tokens.try_take():
             self._count("shed_slow_path")
+            self._qos_stats.count(priority, "shed")
             raise Overloaded(
                 f"slow path over its {self.config.slow_path_per_s}/s rate",
                 retry_after_ms=self._slow_tokens.retry_after_ms(),
@@ -1033,7 +1318,7 @@ class ServeEngine:
         shape = self._router.natural_shape(*hw)
         req = Request(
             rid, shape, self._router.pad_to(p1, shape), self._router.pad_to(p2, shape), hw, deadline,
-            slow_path=True, kind="slow", iters=req_iters,
+            slow_path=True, kind="slow", iters=req_iters, priority=priority, tenant=tenant,
         )
         return self._enqueue_and_wait(req, deadline_ms)
 
@@ -1144,7 +1429,7 @@ class ServeEngine:
         """Stage a pair batch at its rung and dispatch its whole forward;
         the flow starts for pinned memory behind the replay."""
         bucket = live[0].bucket
-        iters, level = self._observe(live)
+        iters, level = self._qos_levels(live, *self._observe(live))
         iters = self._honor_iters(live, iters)
         rung = self._rung(len(live))
         shape = (self._max_batch,) + tuple(bucket) + (3,)
@@ -1166,7 +1451,7 @@ class ServeEngine:
         what pipelines against the next batch.
         """
         bucket = live[0].bucket
-        iters, level = self._observe(live)
+        iters, level = self._qos_levels(live, *self._observe(live))
         iters = self._honor_iters(live, iters)
         rung = self._rung(len(live))
         shape = (self._max_batch,) + tuple(bucket) + (3,)
@@ -1309,6 +1594,7 @@ class ServeEngine:
             if remaining_ms <= 0:
                 if r.finish(error=DeadlineExceeded(f"request {r.rid} expired after {meta.done} pool iterations")):
                     self._count("expired")
+                    self._qos_stats.count(r.priority, "expired")
                 pool.release(i)
                 continue
             need = meta.target - meta.done
@@ -1319,7 +1605,7 @@ class ServeEngine:
             elif (
                 cfg.pool_early_exit
                 and meta.done >= cfg.pool_min_iters
-                and remaining_ms < (need + 1) * pool.tick_ewma_ms
+                and remaining_ms < (need + 1) * pool.tick_ewma_ms * self._qos_forecast_slack(r)
             ):
                 # the deadline would expire before the remaining
                 # iterations finish: cash in the anytime ladder now
@@ -1432,6 +1718,7 @@ class ServeEngine:
             if r.done or r.remaining <= 0:
                 if r.finish(error=DeadlineExceeded(f"request {r.rid} expired in queue")):
                     self._count("expired")
+                    self._qos_stats.count(r.priority, "expired")
                 if r.kind == "stream":
                     self._invalidate_stream(r.stream_id)
             else:
@@ -1505,17 +1792,23 @@ class ServeEngine:
     def _pool_insert_live(self, pool: BucketPool, rows, live: List[Request], ctrl_iters: int, level: int) -> None:
         """Write each admitted request's rows into a free slot. The
         per-request iteration target is fixed here: the request's own
-        ``num_flow_updates`` capped by the degradation level's target."""
+        ``num_flow_updates`` capped by the degradation level's target,
+        which under QoS pressure browns out by the request's class."""
         now = time.monotonic()
         rung = int(rows["coords1"].shape[0])
         slots = [pool.alloc() for _ in live]
         idx = np.asarray(slots + [0] * (rung - len(slots)), np.int64)
         mask = np.asarray([True] * len(slots) + [False] * (rung - len(slots)), bool)
         self._pool_insert(pool.state, rows, idx, mask)
+        ladder = self._controller.ladder
         for i, r in zip(slots, live):
             requested = r.iters if r.iters is not None else self.config.ladder[0]
-            pool.slots[i] = _SlotMeta(req=r, target=max(1, min(requested, ctrl_iters)), level=level, admitted_t=now,
-                                      warm=r.warm)
+            eff_level, eff_iters = level, ctrl_iters
+            if self.config.qos_enabled and level > 0:
+                eff_level = brownout_level(level, r.rank, len(ladder))
+                eff_iters = ladder[eff_level]
+            pool.slots[i] = _SlotMeta(req=r, target=max(1, min(requested, eff_iters)), level=eff_level,
+                                      admitted_t=now, warm=r.warm)
             with self._lock:
                 self._counters["pool_admitted"] += 1
                 self._ttfd.append((now - r.t_submit) * 1e3)
@@ -1780,6 +2073,8 @@ class ServeEngine:
             # counted BEFORE the waiter wakes, so a stats read issued after
             # the caller observed this result always sees it counted
             self._latency_hist.observe(latency_ms)
+            self._qos_stats.count(r_.priority, "completed")
+            self._qos_stats.observe_latency(r_.priority, latency_ms)
             with self._lock:
                 self._counters["completed"] += 1
                 self._latency.setdefault(r_.bucket, []).append(latency_ms)
@@ -1791,6 +2086,77 @@ class ServeEngine:
     def _count(self, key: str) -> None:
         with self._lock:
             self._counters[key] += 1
+
+    # -- QoS ---------------------------------------------------------------
+
+    def _qos_resolve(self, priority: Optional[str], tenant: Optional[str]) -> Tuple[str, str]:
+        """The request's class and tenant (the config's defaults when
+        unspecified; an unknown class raises ``InvalidInput``)."""
+        cfg = self.config
+        pr = validate_priority(priority if priority is not None else cfg.qos_default_priority)
+        return pr, (tenant if tenant else cfg.qos_default_tenant)
+
+    def _qos_charge(self, priority: str, tenant: str):
+        """Charge one admission against the tenant's quota.
+
+        Returns a one-shot releaser (attach it as a done callback AND call
+        it on every abandonment path: only the first call releases), or
+        ``None`` when QoS is off. Raises the retryable
+        :class:`~raft_tpu_torch.serve.errors.QuotaExceeded` on breach."""
+        policy = self._qos_policy
+        if policy is None:
+            return None
+        try:
+            policy.admit(tenant, priority)
+        except QuotaExceeded:
+            self._qos_stats.count(priority, "quota_refused")
+            raise
+        lock = threading.Lock()
+        done = [False]
+
+        def rel(_req=None):
+            with lock:
+                if done[0]:
+                    return
+                done[0] = True
+            policy.release(tenant)
+
+        return rel
+
+    def _qos_preempted(self, preempted: List[Request], by: Request) -> None:
+        """Finish queue-displaced lower-class victims with the typed
+        retryable shed: a preempted request is never silently lost, and
+        counts exactly once, as a shed."""
+        if not preempted:
+            return
+        retry_ms = self._retry_after_ms()
+        for v in preempted:
+            err = Overloaded(
+                f"request {v.rid} ({v.priority}) preempted by a higher-class arrival; retry in ~{retry_ms:.0f}ms",
+                retry_after_ms=retry_ms,
+            )
+            if v.finish(error=err):
+                self._count("shed")
+                self._qos_stats.count(v.priority, "preempted")
+
+    def _qos_levels(self, live: List[Request], iters: int, level: int) -> Tuple[int, int]:
+        """Class-aware brownout of a whole-request batch: under pressure
+        the batch runs at the highest class present's level (nobody's
+        quality is cut below their class's entitlement); a batch of
+        batch-class requests browns out first. Always a ladder rung, so
+        always a captured program."""
+        if not self.config.qos_enabled or level <= 0:
+            return iters, level
+        eff = brownout_level(level, min(r.rank for r in live), len(self._controller.ladder))
+        return self._controller.ladder[eff], eff
+
+    def _qos_forecast_slack(self, r: Request) -> float:
+        """The pool's deadline forecast, by class: under pressure a
+        lower-class slot forecasts with extra slack, so it cashes in the
+        anytime ladder earlier and frees its slot for higher-class work."""
+        if not self.config.qos_enabled or self._controller.level <= 0:
+            return 1.0
+        return 1.0 + 0.5 * r.rank
 
     def _shed_count(self) -> int:
         with self._lock:
@@ -1836,16 +2202,3 @@ def _stack_rows(rows: List[torch.Tensor], rung: int) -> torch.Tensor:
     """Device rows ``(1, ...)`` stacked and zero-padded to ``rung`` rows."""
     return torch.cat(rows + [torch.zeros_like(rows[0])] * (rung - len(rows)))
 
-
-def _nearest_bucket(hw: Tuple[int, int], buckets) -> Optional[Tuple[int, int]]:
-    """The bucket a rejected caller should resize toward (the JAX
-    package's ``tiler.nearest_bucket``): the smallest containing bucket,
-    else the least L1 shape distance, ties to the smaller area, then to
-    configuration order."""
-    if not buckets:
-        return None
-    containing = [b for b in buckets if b[0] >= hw[0] and b[1] >= hw[1]]
-    if containing:
-        return min(containing, key=lambda b: (b[0] * b[1], b))
-    best = min(buckets, key=lambda b: (abs(b[0] - hw[0]) + abs(b[1] - hw[1]), b[0] * b[1]))
-    return (int(best[0]), int(best[1]))

@@ -42,8 +42,8 @@ class Request:
 
     __slots__ = (
         "rid", "bucket", "p1", "p2", "orig_hw", "deadline", "t_submit",
-        "slow_path", "kind", "stream_id", "iters", "warm", "init8", "priority", "rank",
-        "_event", "_lock", "_done", "_callbacks", "result", "error",
+        "slow_path", "kind", "stream_id", "iters", "warm", "init8", "priority",
+        "tenant", "rank", "_event", "_lock", "_done", "_callbacks", "result", "error",
     )
 
     def __init__(
@@ -60,6 +60,7 @@ class Request:
         stream_id: Optional[int] = None,
         iters: Optional[int] = None,
         priority: str = "standard",
+        tenant: str = "default",
     ):
         self.rid = rid
         self.bucket = bucket
@@ -73,6 +74,7 @@ class Request:
         self.stream_id = stream_id
         self.iters = iters    # per-request num_flow_updates cap (None = full)
         self.priority = priority            # QoS class
+        self.tenant = tenant
         self.rank = rank_of(priority)       # 0 = interactive ... 2 = batch
         self.warm = False     # admitted with a warm-start seed
         self.init8 = None     # (1, bh/8, bw/8, 2) init_flow seed (pair requests only)

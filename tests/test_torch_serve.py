@@ -501,21 +501,19 @@ class TestLadder:
     @pytest.mark.parametrize(
         "kw",
         [
-            dict(unknown_shape="tiled"),
             dict(apply_timeout_s=1.0),
             dict(trace_sample_rate=0.5),
-            dict(qos_enabled=True),
         ],
     )
     def test_unported_knobs_raise(self, tiny, kw):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeEngine(tiny[2], _config(**kw), device="cpu")
 
-    @pytest.mark.parametrize("key", ["trace_ctx", "priority", "tenant", "shadow", "p1", "skip_quota"])
+    @pytest.mark.parametrize("key", ["trace_ctx", "shadow"])
     def test_unported_submit_many_keys_raise(self, engine, key):
-        """An item key of a path the port has not reached (tracing, QoS,
-        rollout mirroring, the tiler's fan-out) is refused before anything
-        of the burst is admitted."""
+        """An item key of a path the port has not reached (tracing,
+        rollout mirroring) is refused before anything of the burst is
+        admitted."""
         rng = np.random.default_rng(14)
         before = engine.stats()["submitted"]
         items = [dict(image1=_image(rng), image2=_image(rng)), dict(image1=_image(rng), image2=_image(rng))]
