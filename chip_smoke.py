@@ -117,7 +117,26 @@ Phases, each of which raises on failure (exit code 1):
      request served or refused typed or expired, every preemption of a
      strictly lower class, no batch-class request over an interactive
      one's updates at a level above 0, no capture after ``start()``;
- 13. training: ``Trainer`` at raft_large's chairs stage, full width (batch
+ 13. observability and the watchdogs: raft_large at 'quality' (fused),
+     bucket 440x1024, warmed, in the pool and at ``pool_capacity=0``:
+     the serving phase's 24 requests from 8 threads at
+     ``trace_sample_rate`` 1.0 and 0 (ABBA, one engine) under
+     ``apply_timeout_s`` 5 s: every result with a ``trace_id``, every
+     span inside its trace, the trace's end within 1 ms of the result's
+     latency (the admission aside), ``prometheus()`` parsed with the QoS
+     series, no trip, no capture; a profiled pool burst with
+     ``obs.profile`` on (one ``serve/pool_step`` range a tick); a ~2 s
+     device stall (``torch.cuda._sleep`` ahead of one replay, through
+     ``FaultInjector.patch_engine``) at ``apply_timeout_s`` 0.5 s in
+     each engine: its 8 requests fail ``DeadlineExceeded`` within the
+     timeout plus one poll of the stalled dispatch, one trip, the
+     ``watchdog_trips`` page alert, valid bundles, a ``pool_reset`` in
+     the pool, the next 8 requests within 1e-3 / 5e-2 px of the graphed
+     FlowEstimator; the chairs-stage ``Trainer`` with a stalled data
+     fetch (``StallError`` at ``data/next``, a stack dump, a bundle) and
+     two fused windows of 2 steps between boundaries under an armed
+     ``HostSyncTripwire`` (0 hits) and ``set_sync_debug_mode('warn')``;
+ 14. training: ``Trainer`` at raft_large's chairs stage, full width (batch
      8, crop 368x496, 12 updates, dense fp32), on a synthetic FlyingChairs
      tree of 24 pairs at 384x512: 8 steps, a checkpoint every 4, a
      boundary every 2 (finite losses), preempted after step 4 and resumed
@@ -133,7 +152,7 @@ Phases, each of which raises on failure (exit code 1):
      control); each remat policy at the train bench's shape (fused fp32:
      pairs/s, peak memory, K1 24 launches a step, 12 under 'corr'); the
      TF32 flags are checked unchanged;
- 14. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+ 15. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -2593,6 +2612,354 @@ def bench_phase():
     return k1_train
 
 
+# the observability phase: tracing at apply_timeout_s 5 s, a device stall
+# of ~2 s against apply_timeout_s 0.5 s, the trainer's data-fetch stall
+# at watchdog_timeout 2 s
+OBS_TRACE_TIMEOUT_S, OBS_STALL_TIMEOUT_S, OBS_STALL_MS, OBS_TRAIN_TIMEOUT_S = 5.0, 0.5, 2000.0, 2.0
+OBS_STALL_ITERS = 12  # the stall engines' requests: a batch of 8 at 12 updates stays well under 0.5 s
+
+
+def sleep_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles for about ``ms`` of the card's time,
+    calibrated here against CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    return int(100_000_000 / start.elapsed_time(end) * ms)
+
+
+def prometheus_ok(text: str) -> bool:
+    """Every line of a Prometheus exposition a comment or ``name value``
+    with a numeric value, and the QoS class series present."""
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        float(value)
+        if not name or " " in name:
+            return False
+    return 'serve_qos_class{class="interactive",key="submitted"}' in text
+
+
+def traced_runs(engine, what, card, pairs, targets):
+    """``SERVE_REQUESTS`` requests from ``SERVE_THREADS`` threads at
+    trace_sample_rate 1.0, 0, 0, 1.0 (ABBA), on one engine in
+    this process (the tracer's rate is the only difference). At 1.0 every
+    result carries a trace_id, ``tracer.finished`` counts every request,
+    each span lies inside its trace, and the trace's end agrees with the
+    result's: ``dur_ms`` less the admission (the queue_wait span's start,
+    where the result's clock starts) is within 1 ms of ``latency_ms``; at
+    0 nothing is traced. Returns {rate: [(requests/s, p50, p99), ...]}."""
+    out, worst = {}, 0.0
+    for rate in (1.0, 0.0, 0.0, 1.0):  # ABBA: a drift over the four runs cancels
+        engine.tracer.sample_rate = rate
+        started0, finished0 = engine.tracer.started, engine.tracer.finished
+        batches0 = engine.stats()["batches"]
+        t0 = time.perf_counter()
+        results = serve_requests(engine, pairs, targets, SERVE_THREADS)
+        wall = time.perf_counter() - t0
+        lat = [r.latency_ms for r in results]
+        out.setdefault(rate, []).append((len(results) / wall, float(np.percentile(lat, 50)),
+                                         float(np.percentile(lat, 99)), engine.stats()["batches"] - batches0))
+        if not rate:
+            if any(r.trace_id for r in results) or engine.tracer.started != started0:
+                raise AssertionError(f"{what}: requests traced at trace_sample_rate 0")
+            continue
+        if engine.tracer.finished - finished0 != len(results) or not all(r.trace_id for r in results):
+            raise AssertionError(f"{what}: {engine.tracer.finished - finished0} traces finished for "
+                                 f"{len(results)} requests")
+        for r in results:
+            rec = engine.tracer.find(r.trace_id)
+            if rec is None or not rec["ok"]:
+                raise AssertionError(f"{what}: no finished trace for {r.trace_id}")
+            spans = {sp["name"]: sp for sp in rec["spans"]}
+            if any(sp["t0_ms"] < 0 or sp["t0_ms"] + sp["dur_ms"] > rec["dur_ms"] for sp in rec["spans"]):
+                raise AssertionError(f"{what}: a span outside its trace: {rec}")
+            gap = rec["dur_ms"] - spans["queue_wait"]["t0_ms"] - r.latency_ms
+            worst = max(worst, abs(gap))
+    log(f"{what}: traced requests: every span inside its trace; |dur_ms - admission - latency_ms| at most "
+        f"{worst:.4f} ms; card {card}")
+    if worst >= 1.0:
+        raise AssertionError(f"{what}: a trace's end is {worst:.3f} ms off its result's latency")
+    return out
+
+
+def stall_check(engine, what, card, stage, pairs, est):
+    """One device stall of ~``OBS_STALL_MS`` (``torch.cuda._sleep`` on the
+    engine's stream ahead of one ``stage`` replay, through
+    ``FaultInjector.patch_engine``) under ``apply_timeout_s`` 0.5 s: the
+    8 requests of that dispatch fail with DeadlineExceeded within the
+    timeout plus one poll of their dispatch, one trip is counted, the
+    ``watchdog_trips`` page alert fires, every bundle validates (a
+    ``pool_reset`` event in the pool), the next 8 requests are served
+    within 1e-3 / 5e-2 px of the graphed FlowEstimator, no capture after
+    ``start()``. Returns the K1 launches and the numbers."""
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.obs import validate_bundle
+    from raft_tpu_torch.serve import DeadlineExceeded
+    from raft_tpu_torch.utils.faults import FaultInjector
+
+    cycles = sleep_cycles(OBS_STALL_MS)
+    inj, armed, t_stall = FaultInjector(), [False], []
+
+    def stall(ctx):
+        t_stall.append(time.monotonic())
+        torch.cuda._sleep(cycles)
+
+    inj.on("infer.slow_apply", when=lambda i, ctx: armed[0] and ctx["stage"] == stage and not inj.fired[
+        "infer.slow_apply"], action=stall)
+    burst = pairs[:SERVE_THREADS]
+    ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+    with inj.patch_engine(engine):
+        before = serve_requests(engine, burst, [OBS_STALL_ITERS] * len(burst), SERVE_THREADS)
+        time.sleep(1.5)  # the alert engine observes the healthy engine first
+        armed[0] = True
+        # one submit_many: the 8 requests reach the queue together, so they
+        # are one admission (one batch) and the stalled dispatch is theirs
+        done_t = {}
+        t0 = time.monotonic()
+        handles = engine.submit_many([dict(image1=a, image2=b, num_flow_updates=OBS_STALL_ITERS,
+                                           on_done=lambda h: done_t.setdefault(id(h), time.monotonic()))
+                                      for a, b in burst])
+        for h in handles:
+            h.wait(60.0)
+        failed = [(done_t.get(id(h), math.inf), str(h.error) if isinstance(h.error, DeadlineExceeded) else None)
+                  for h in handles]
+        after = serve_requests(engine, burst, [OBS_STALL_ITERS] * len(burst), SERVE_THREADS)
+        deadline = time.monotonic() + 10.0
+        while not engine.recorder.events("alert_fire") and time.monotonic() < deadline:
+            time.sleep(0.1)
+    captures = capture_events() - ev0
+    k1 = by_kernel(engine.graph_launches())["k1"] - k1_0
+    poll = engine._watchdog.poll
+    health, stats = engine.health(), engine.stats()
+    bundles = engine.recorder.bundles()
+    problems = [p for b in bundles for p in validate_bundle(b)]
+    fires = [e["rule"] for e in engine.recorder.events("alert_fire")]
+    resets = engine.recorder.events("pool_reset")
+    # from the stalled replay's dispatch (the host's wait on it starts a
+    # tick or two later) and from the submit (admission included)
+    to_error = [t - t_stall[0] for t, _ in failed]
+    from_submit = [t - t0 for t, _ in failed]
+    log(f"{what}: a {OBS_STALL_MS:g} ms device stall (torch.cuda._sleep, {cycles} cycles) ahead of one {stage} "
+        f"replay at apply_timeout_s {OBS_STALL_TIMEOUT_S} (watchdog poll {poll:g} s): its {len(failed)} requests "
+        f"failed DeadlineExceeded {sum(err is not None for _, err in failed)}x, "
+        f"{min(to_error):.4f}-{max(to_error):.4f} s after the stalled dispatch "
+        f"({min(from_submit):.4f}-{max(from_submit):.4f} s after their submit); watchdog_trips "
+        f"{health['watchdog_trips']}; alerts fired "
+        f"{fires}; bundles {[b['reason'] for b in bundles]} ({len(problems)} schema problems); pool_reset events "
+        f"{len(resets)}, pool_resets {stats['pool_resets']}; card {card}")
+    wants = [est(*p, num_flow_updates=OBS_STALL_ITERS) for p in burst]
+    mean_d, max_d = flow_gap([r.flow for r in after], wants)
+    mean_b, max_b = flow_gap([r.flow for r in after], [r.flow for r in before])
+    tol_mean, tol_max = SERVE_TOL["quality"]
+    log(f"{what}: the next {len(after)} requests: |dflow| vs the graphed FlowEstimator mean {mean_d:.3e} px, max "
+        f"{max_d:.3e} px, vs the same requests served before the stall mean {mean_b:.3e} px, max {max_b:.3e} px "
+        f"(tol {tol_mean:g} / {tol_max:g}); captures after start() {captures}")
+    if any(err is None or "device execution exceeded" not in err for _, err in failed):
+        raise AssertionError(f"{what}: the stalled dispatch's requests did not fail typed: {failed}")
+    if max(to_error) > OBS_STALL_TIMEOUT_S + poll + 0.05:
+        raise AssertionError(f"{what}: a stalled request failed {max(to_error):.3f} s after the stalled dispatch")
+    if health["watchdog_trips"] != 1 or "watchdog_trips" not in fires or problems or not any(
+            b["reason"] == "watchdog_trip:serve/apply" for b in bundles):
+        raise AssertionError(f"{what}: trips {health['watchdog_trips']}, alerts {fires}, bundle problems {problems}")
+    if stage == "pool_step" and not resets:
+        raise AssertionError(f"{what}: no pool_reset event after the trip")
+    if captures or not (max(mean_d, mean_b) <= tol_mean and max(max_d, max_b) <= tol_max):
+        raise AssertionError(f"{what}: {captures} captures after start(), or the next requests' flows disagree")
+    return k1, {"to_error_s": max(to_error), "from_submit_s": max(from_submit), "poll_s": poll}
+
+
+def free_card() -> None:
+    """Collect what earlier engines and graphs left (an engine's bound
+    methods in its alert engine and gauges make reference cycles, which
+    hold its graph pools until a collection) and return the cached
+    blocks, so the next model has the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def observability_phase(device, card, weights):
+    """The observability spine and the watchdogs on the card: raft_large
+    at 'quality' (fused, K1 in every pool tick), bucket 440x1024, warmed,
+    the serving phase's weights.
+
+    Tracing (pool, then ``pool_capacity=0``), at apply_timeout_s 5 s: the
+    serving phase's 24 requests from 8 threads at trace_sample_rate 1.0
+    and 0, alternating (:func:`traced_runs`), ``prometheus()`` parsed line
+    by line with the QoS series, no trip, no capture after ``start()``;
+    in the pool one profiled burst with ``obs.profile`` on must show one
+    ``serve/pool_step`` range a tick. A device stall in each engine at
+    apply_timeout_s 0.5 s (:func:`stall_check`). The Trainer at the
+    chairs stage: a stall injected into its data fetch (``patch_batches``)
+    raises StallError at ``data/next`` with a stack dump and a bundle; two
+    fused windows of 2 steps between boundaries under an armed
+    HostSyncTripwire (0 hits), with ``torch.cuda.set_sync_debug_mode
+    ('warn')`` over the same region (its warnings counted). Returns the
+    K1 launches by part and the numbers."""
+    import tempfile
+    import warnings
+
+    import raft_tpu_torch as rt
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.data import FlyingChairs
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.obs import profile as obs_profile
+    from raft_tpu_torch.obs import validate_bundle
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+    from raft_tpu_torch.train import TrainConfig, Trainer
+    from raft_tpu_torch.utils.faults import FaultInjector, StallError
+    from raft_tpu_torch.utils.tripwire import HostSyncTripwire
+
+    t_phase = time.perf_counter()
+    free_card()
+    log(f"observability: {torch.cuda.memory_allocated(device)} B allocated on the card at the phase's start")
+    model = rt.raft_for_serving(ServeConfig.preset("quality"), corr_impl="fused", device=device)
+    model.load_state_dict(weights)
+    pairs = [request_pair(100 + i)[:2] for i in range(SERVE_REQUESTS)]
+    targets = [SERVE_LADDER[i % len(SERVE_LADDER)] for i in range(SERVE_REQUESTS)]
+    modes = {"pool": dict(pool_capacity=SERVE_CAPACITY),
+             "whole-request": dict(pool_capacity=0, max_batch=WR_MAX_BATCH, pipeline_depth=WR_DEPTH)}
+    k1, out = {}, {}
+    for mode, kw in modes.items():
+        what = f"observability {mode}"
+        cfg = ServeConfig(buckets=(SERVE_BUCKET,), ladder=SERVE_LADDER, warmup=True, default_deadline_ms=120_000.0,
+                          stream_cache_size=0, trace_sample_rate=1.0, apply_timeout_s=OBS_TRACE_TIMEOUT_S, **kw)
+        engine = ServeEngine(model, cfg, device=device).start()
+        ev0, k1_0 = capture_events(), by_kernel(engine.graph_launches())["k1"]
+        reset_counts()
+        runs = traced_runs(engine, what, card, pairs, targets)
+        prom = engine.prometheus()
+        ticks = None
+        if mode == "pool":
+            obs_profile.enable()
+            try:
+                ticks0 = engine.stats()["pool_ticks"]
+                with profile(activities=[ProfilerActivity.CPU],
+                             experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+                    serve_requests(engine, pairs[:SERVE_THREADS], [20] * SERVE_THREADS, SERVE_THREADS)
+                ticks = engine.stats()["pool_ticks"] - ticks0
+            finally:
+                obs_profile.disable()
+            ranges = [e.name for e in prof.events()].count("serve/pool_step")
+            log(f"{what}: a profiled burst of {SERVE_THREADS} requests at 20 updates with obs.profile on: "
+                f"{ranges} serve/pool_step ranges, {ticks} ticks")
+            if ranges != ticks:
+                raise AssertionError(f"{what}: {ranges} serve/pool_step ranges for {ticks} ticks")
+        captures, eager = capture_events() - ev0, read_counts()
+        k1[f"{mode} traced"] = by_kernel(engine.graph_launches())["k1"] - k1_0
+        health, stats = engine.health(), engine.stats()
+        on, off = runs[1.0], runs[0.0]
+        log(f"{what}: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads, alternating: trace_sample_rate 1.0 "
+            f"{[round(x[0], 3) for x in on]} requests/s, p50 {[round(x[1], 3) for x in on]} ms, p99 "
+            f"{[round(x[2], 3) for x in on]} ms; trace_sample_rate 0 {[round(x[0], 3) for x in off]} requests/s, p50 "
+            f"{[round(x[1], 3) for x in off]} ms, p99 {[round(x[2], 3) for x in off]} ms; batches (the pool: ticks "
+            f"and retirements) on {[x[3] for x in on]}, off {[x[3] for x in off]}; traces "
+            f"{stats['obs']}; watchdog_trips {health['watchdog_trips']}; captures after start() {captures}; "
+            f"eager launches {eager}; K1 {k1[f'{mode} traced']} (graph replays); prometheus {len(prom.splitlines())} "
+            f"lines; card {card}")
+        if health["watchdog_trips"] or captures or eager["k1"] or not prometheus_ok(prom):
+            raise AssertionError(f"{what}: trips {health['watchdog_trips']}, captures {captures}, eager {eager}, "
+                                 f"or the Prometheus text did not parse")
+        out[mode] = {"on": on, "off": off, "ticks": ticks}
+        engine.stop()
+        del engine
+        free_card()
+
+    est = rt.FlowEstimator(model, num_flow_updates=SERVE_LADDER[0], pad_mode="downstream", device=device)
+    for mode, kw in modes.items():
+        cfg = ServeConfig(buckets=(SERVE_BUCKET,), ladder=SERVE_LADDER, warmup=True, default_deadline_ms=120_000.0,
+                          stream_cache_size=0, apply_timeout_s=OBS_STALL_TIMEOUT_S, **kw)
+        engine = ServeEngine(model, cfg, device=device).start()
+        k1[f"{mode} stall"], out[f"{mode} stall"] = stall_check(
+            engine, f"observability {mode} stall", card, "pool_step" if mode == "pool" else "pair", pairs, est)
+        engine.stop()
+        del engine
+        free_card()
+    del est, model
+    free_card()
+    log(f"observability: {torch.cuda.memory_allocated(device)} B allocated after the serving engines are gone")
+
+    with tempfile.TemporaryDirectory(prefix="raft_obs_") as tmp:
+        tmp = Path(tmp)
+        ds = FlyingChairs(str(write_chairs(tmp / "chairs")))
+        cfg = TrainConfig(arch="raft_large", stage="chairs", num_steps=TRAIN_STEPS, log_every=TRAIN_LOG_EVERY,
+                          log_dir=str(tmp / "logs"), watchdog_timeout=OBS_TRAIN_TIMEOUT_S)
+        trainer = Trainer(cfg, ds)
+        inj = FaultInjector().on("data.next", when=1, action=30.0)
+        t0 = time.monotonic()
+        try:
+            with inj.patch_batches(trainer):
+                trainer.run(log_fn=lambda *_: None)
+            raise AssertionError("observability train: the stalled data fetch did not raise")
+        except StallError as e:
+            stall_s, err = time.monotonic() - t0, str(e)
+        dump = tmp / "logs" / "stall_stacks.log"
+        size = dump.stat().st_size if dump.exists() else 0
+        bundle = trainer.recorder.last_bundle
+        log(f"observability train: a 30 s stall in the second data fetch at watchdog_timeout "
+            f"{OBS_TRAIN_TIMEOUT_S:g} s: StallError after {stall_s:.3f} s of the run ({err!r}); stall_stacks.log "
+            f"{size} B; bundle {bundle and bundle['reason']!r} ({len(validate_bundle(bundle)) if bundle else '-'} "
+            f"schema problems); card {card}")
+        if "'data/next'" not in err or not size or bundle is None or bundle["reason"] != "watchdog_trip:data/next" \
+                or validate_bundle(bundle):
+            raise AssertionError("observability train: the data-fetch stall was not caught as specified")
+        del trainer
+        free_card()
+
+        cfg = TrainConfig(arch="raft_large", stage="chairs", num_steps=6, log_every=6, corr_impl="fused",
+                          window_size=2)
+        trainer = Trainer(cfg, ds)
+        tw = HostSyncTripwire(armed=False)
+        window_fn, host_window = trainer.window_fn, trainer._host_window
+        armed_windows = []
+
+        def arming(state, batch):
+            armed_windows.append(tw.armed)  # was this window dispatched armed?
+            out_ = window_fn(state, batch)
+            if len(armed_windows) == 1:
+                torch.cuda.set_sync_debug_mode("warn")
+                tw.arm()  # from the first window's return ...
+            return out_
+
+        def disarming(window):
+            tw.disarm()  # ... to the boundary's one fetch
+            torch.cuda.set_sync_debug_mode(0)
+            return host_window(window)
+
+        trainer.window_fn, trainer._host_window = arming, disarming
+        reset_counts()
+        with warnings.catch_warnings(record=True) as caught, tw:
+            warnings.simplefilter("always")
+            try:
+                trainer.run(log_fn=lambda *_: None)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        k1["train fused windows"] = read_counts()["k1"]
+        syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+        log(f"observability train: fused, windows of 2, 3 windows, the last two between boundaries under an armed "
+            f"HostSyncTripwire: {tw.total} hits {tw.snapshot()}; torch.cuda.set_sync_debug_mode('warn') over the "
+            f"same region: {len(syncs)} warnings {sorted(set(syncs))[:3]}; window staging took "
+            f"{trainer.pipeline._staging.fresh} fresh buffers while the card still read a slot's; K1 "
+            f"{k1['train fused windows']} eager launches; card {card}")
+        if tw.total or armed_windows.count(True) != 2:
+            raise AssertionError(f"observability train: {tw.total} host syncs between boundaries ({tw.snapshot()}), "
+                                 f"armed windows {armed_windows}")
+        out["train"] = {"stall_s": stall_s, "tripwire": tw.total, "sync_warnings": len(syncs),
+                        "fresh_staging_buffers": trainer.pipeline._staging.fresh}
+        del trainer
+    free_card()  # before the training phases measure memory
+    log(f"observability phase: {time.perf_counter() - t_phase:.1f} s")
+    return k1, out
+
+
 def tf32_flags():
     """The TF32 settings of cuDNN convolutions and cuBLAS matmuls as the
     per-operator API reads them (it reads legacy settings too)."""
@@ -2675,6 +3042,7 @@ def main() -> int:
     k1_golden_tiled = golden_tiled_phase(device)
     k1_qos_quality = qos_flood_phase(device, card, "quality", weights)
     k1_qos_edge = qos_flood_phase(device, card, "edge", weights)
+    k1_obs, _ = observability_phase(device, card, weights)
     train_phase(device, card)
     fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
     fused_training_checks(device, card)
@@ -2717,6 +3085,11 @@ def main() -> int:
               qos_path=f"ServeEngine 'quality', qos_enabled, pool capacity 8, queue 8, a flood of "
                        f"{len(QOS_CLASSES) * QOS_ROUNDS} requests from {len(QOS_CLASSES)} threads (graph replays)",
               qos_launches=k1_qos_quality,
+              observability_path=f"ServeEngine 'quality', traced (trace_sample_rate 1.0 and 0) and under "
+                                 f"apply_timeout_s, pool and pool_capacity=0, {SERVE_REQUESTS} requests x 4 runs, "
+                                 f"then a device stall and 16 requests each; Trainer fused windows of 2 under the "
+                                 f"tripwire (graph replays; eager in training)",
+              observability_launches=k1_obs,
               training_path=f"Trainer, raft_large chairs stage at fused fp32 (b=8, 368x496, 12 updates, window 2), "
                             f"{TRAIN_STEPS} steps", training_launches=fused_launches["k1"],
               bench_train_k1_launches_per_step=bench_train_k1[

@@ -55,13 +55,17 @@ class _WindowStaging:
     buffers are pinned, so a window goes to the device in one non-blocking
     copy, and a buffer is rewritten only once the copy that read it has
     finished (an event a slot: the host runs ahead of the device, so
-    ``slots`` alone cannot promise that)."""
+    ``slots`` alone cannot promise that). Staging never waits on the card:
+    while that copy still runs, the slot takes a fresh pinned buffer, and
+    PyTorch's pinned-memory cache hands the old block out again only once
+    the copy recorded on it has finished."""
 
     def __init__(self, slots: int, device: torch.device):
         self._slots = max(2, int(slots))
         self._device = device
         self._rings: Dict[tuple, list] = {}
         self._idx: Dict[tuple, int] = {}
+        self.fresh = 0  # buffers taken in place of one the card still read
 
     def stack(self, batches) -> Tuple[torch.Tensor, list, int, tuple]:
         """The window's flat host buffer, its layout ``[(key, shape,
@@ -79,8 +83,9 @@ class _WindowStaging:
         i = self._idx[sig]
         self._idx[sig] = (i + 1) % len(ring)
         buf, copied = ring[i]
-        if copied is not None:
-            copied.synchronize()  # the copy that last read this buffer
+        if copied is not None and not copied.query():  # the card still reads this buffer
+            buf = ring[i][0] = torch.empty(buf.numel(), dtype=torch.float32, pin_memory=self._device.type == "cuda")
+            self.fresh += 1
         flat = buf.numpy()
         layout, off = [], 0
         for key, v in first.items():

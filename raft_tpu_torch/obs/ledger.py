@@ -180,6 +180,22 @@ class DeviceTimeLedger:
 
     # -- exposure ----------------------------------------------------------
 
+    def drift(self, min_samples: int = 8) -> float:
+        """Worst-family EWMA drift: max over families (with at least
+        ``min_samples`` samples) of ``ewma / long-run mean``. ~1.0 when
+        device time is stationary; a hot path that got slower pulls the
+        fast EWMA above its own history (the signal the burn-rate alert
+        engine watches, :mod:`raft_tpu_torch.obs.alerts`)."""
+        with self._lock:
+            fams = list(self._families.values())
+        worst = 1.0
+        for f in fams:
+            mean = f.mean_ms
+            if f.sampled < min_samples or not mean or f.ewma_ms is None:
+                continue
+            worst = max(worst, f.ewma_ms / mean)
+        return worst
+
     def breakdown(self) -> Dict[str, Any]:
         """Per-family device-time attribution plus the extrapolated
         total. ``share`` is each family's fraction of the estimated

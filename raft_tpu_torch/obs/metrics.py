@@ -1,8 +1,8 @@
-"""Metrics registry: typed counters, gauges and histograms.
+"""Metrics registry: typed counters, gauges and histograms, three sinks.
 
-The port's copy of the JAX package's ``raft_tpu/obs/metrics.py``, the parts
-the serving engine's ``stats()`` and device-time ledger read:
+The port's copy of the JAX package's ``raft_tpu/obs/metrics.py``:
 
+  * :class:`Counter` — monotonically increasing int.
   * :class:`CounterGroup` — a ``MutableMapping`` of named counters that
     works as a counter dict (``group[k] += 1``, ``dict(group)``).
   * :class:`Gauge` — a point-in-time value, either ``set()`` explicitly
@@ -10,18 +10,26 @@ the serving engine's ``stats()`` and device-time ledger read:
     occupancy, degradation level).
   * :class:`Histogram` — fixed-bucket latency/duration distribution;
     fixed bounds keep ``observe()`` an O(#buckets) scan with no
-    allocation.
+    allocation, and make snapshots mergeable across replicas.
 
-``MetricsRegistry.snapshot()`` is a flat ``{name: number}`` view; the
-Prometheus and JSONL sinks wait for the observability slice.
+One snapshot feeds three sinks:
+
+  * ``snapshot()`` — a flat ``{name: number}`` dict, which is what the
+    ``stats()`` surfaces consume.
+  * ``prometheus_text()`` — Prometheus text exposition (``# TYPE`` lines,
+    ``_bucket``/``_sum``/``_count`` histogram series), byte for byte the
+    JAX registry's for the same operations.
+  * ``log_to(metric_logger, step)`` — one JSONL record through
+    :class:`~raft_tpu_torch.utils.logging.MetricLogger`.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Iterator, MutableMapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, MutableMapping, Optional, Sequence, Tuple
 
 __all__ = [
+    "Counter",
     "CounterGroup",
     "Gauge",
     "Histogram",
@@ -29,6 +37,7 @@ __all__ = [
     "LATENCY_BUCKETS_MS",
     "DEVICE_TIME_BUCKETS_MS",
     "RESIDUAL_BUCKETS",
+    "relabel_prometheus",
 ]
 
 # Default fixed bucket bounds for request/phase latencies (ms). The last
@@ -50,6 +59,62 @@ RESIDUAL_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
     2.5, 5.0, 10.0,
 )
+
+
+def _sanitize(name: str) -> str:
+    """Prometheus metric names: [a-zA-Z_:][a-zA-Z0-9_:]*."""
+    out = "".join(c if (c.isalnum() or c in "_:") else "_" for c in name)
+    return out if out and not out[0].isdigit() else f"_{out}"
+
+
+def relabel_prometheus(text: str, **labels) -> str:
+    """Inject constant labels into every sample of an exposition text.
+
+    The fleet scrape surface: N replicas expose the SAME registry names, which would collide on one scrape page — the router
+    re-exports each replica's text with ``replica="rN"`` injected, so
+    per-replica/per-worker series stay distinguishable from one
+    endpoint. Works on any well-formed exposition (comment lines pass
+    through; existing labels — histogram ``le``, counter-group ``key`` —
+    are preserved after the injected ones).
+    """
+    if not labels:
+        return text
+    lab = ",".join(
+        f'{_sanitize(str(k))}="{v}"' for k, v in sorted(labels.items())
+    )
+    out: List[str] = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            out.append(line)
+            continue
+        name, _, rest = line.partition(" ")
+        if "{" in name:
+            base, _, existing = name.partition("{")
+            name = f"{base}{{{lab},{existing}"
+        else:
+            name = f"{name}{{{lab}}}"
+        out.append(f"{name} {rest}")
+    return "\n".join(out) + ("\n" if text.endswith("\n") else "")
+
+
+class Counter:
+    """A monotonically increasing integer metric."""
+
+    __slots__ = ("name", "help", "_value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0
+
+    def inc(self, n: int = 1) -> None:
+        # single bytecode-level += under the GIL; callers that need strict
+        # cross-thread exactness (the engine) already hold their own lock
+        self._value += n
+
+    @property
+    def value(self) -> int:
+        return self._value
 
 
 class Gauge:
@@ -171,6 +236,9 @@ class CounterGroup(MutableMapping):
     def __len__(self) -> int:
         return len(self._values)
 
+    def inc(self, k: str, n: int = 1) -> None:
+        self._values[k] = self._values.get(k, 0) + n
+
     def snapshot(self) -> Dict[str, int]:
         return dict(self._values)
 
@@ -181,11 +249,19 @@ class MetricsRegistry:
     def __init__(self, namespace: str = ""):
         self.namespace = namespace
         self._lock = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
         self._groups: Dict[str, CounterGroup] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
 
     # -- registration ------------------------------------------------------
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name, help)
+            return c
 
     def counter_group(
         self, name: str, keys: Sequence[str] = ()
@@ -256,9 +332,12 @@ class MetricsRegistry:
         """
         out: Dict[str, float] = {}
         with self._lock:
+            counters = list(self._counters.values())
             groups = list(self._groups.values())
             gauges = list(self._gauges.values())
             hists = list(self._histograms.values())
+        for c in counters:
+            out[self._full(c.name)] = c.value
         for g in groups:
             for k, v in g.snapshot().items():
                 out[self._full(f"{g.name}/{k}")] = v
@@ -273,3 +352,53 @@ class MetricsRegistry:
                 out[f"{base}_p50"] = s["p50"]
                 out[f"{base}_p99"] = s["p99"]
         return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition of the registry (scrape format)."""
+        lines: List[str] = []
+        with self._lock:
+            counters = list(self._counters.values())
+            groups = list(self._groups.values())
+            gauges = list(self._gauges.values())
+            hists = list(self._histograms.values())
+        for c in counters:
+            n = _sanitize(self._full(c.name))
+            if c.help:
+                lines.append(f"# HELP {n} {c.help}")
+            lines.append(f"# TYPE {n} counter")
+            lines.append(f"{n} {c.value}")
+        for g in groups:
+            base = _sanitize(self._full(g.name))
+            lines.append(f"# TYPE {base} counter")
+            for k, v in g.snapshot().items():
+                lines.append(f'{base}{{key="{k}"}} {v}')
+        for ga in gauges:
+            n = _sanitize(self._full(ga.name))
+            if ga.help:
+                lines.append(f"# HELP {n} {ga.help}")
+            lines.append(f"# TYPE {n} gauge")
+            lines.append(f"{n} {ga.value}")
+        for h in hists:
+            n = _sanitize(self._full(h.name))
+            lines.append(f"# TYPE {n} histogram")
+            cum = 0
+            for b, c in zip(h.bounds, h._counts):
+                cum += c
+                lines.append(f'{n}_bucket{{le="{b:g}"}} {cum}')
+            cum += h._counts[-1]
+            lines.append(f'{n}_bucket{{le="+Inf"}} {cum}')
+            lines.append(f"{n}_sum {h.sum:g}")
+            lines.append(f"{n}_count {h.count}")
+        return "\n".join(lines) + "\n"
+
+    def log_to(self, metric_logger, step: int) -> None:
+        """One JSONL record of the whole snapshot through
+        :class:`~raft_tpu_torch.utils.logging.MetricLogger` (numeric-only)."""
+        import math
+
+        scalars = {
+            k: float(v)
+            for k, v in self.snapshot().items()
+            if isinstance(v, (int, float)) and math.isfinite(float(v))
+        }
+        metric_logger.log(step, scalars)

@@ -19,10 +19,10 @@ setting (``num_flow_updates`` is a runtime accuracy/latency dial, which is
 what makes degradation under load a first-class mechanism). Buckets are
 **padded** ``(H, W)`` shapes (each divisible by 8, the model contract).
 
-Knobs whose path the port has not reached yet are still fields, validated
-as in the JAX package, and the engine raises ``NotImplementedError``
-naming them when they ask for that path: ``apply_timeout_s`` (the device
-watchdog) and ``trace_sample_rate > 0``.
+The JAX package's AOT artifact and compilation-cache knobs
+(``warmup_artifact``, ``compilation_cache_dir``, ``warmup_workers``) and
+its mesh (``mesh_devices``) have no field here: the port captures CUDA
+graphs at every boot, on one card.
 """
 
 from __future__ import annotations
@@ -127,8 +127,15 @@ class ServeConfig:
         tile_max_tiles: upper bound on tiles per request; a shape whose
             cheapest plan exceeds it is ``ShapeRejected`` even under
             ``'tiled'``.
-        apply_timeout_s: device-execution deadline per dispatch (the JAX
-            package's watchdog; not ported).
+        apply_timeout_s: device-execution deadline per dispatch, enforced
+            by a callback-mode :class:`~raft_tpu_torch.utils.faults.
+            Watchdog` around each dispatch AND the host's wait on it (a
+            replay returns once queued: the wait is where a device stall
+            shows). A trip fails the dispatch's requests with
+            :class:`~raft_tpu_torch.serve.errors.DeadlineExceeded` from
+            the watcher thread, dumps a postmortem bundle, resets the
+            pool (``pool_reset``), and the worker drains the stream
+            before its next replay. ``None`` (default) disables.
         warmup: capture the worker's whole program set inside
             ``start()``, so readiness implies the worker never captures.
         precision / compute_dtype / corr_dtype / corr_impl: the
@@ -137,12 +144,29 @@ class ServeConfig:
             itself never casts.
         drain_retry_after_ms: the backoff hint carried by the typed
             :class:`~raft_tpu_torch.serve.errors.Draining` error.
-        trace_sample_rate: fraction of requests traced (the tracing
-            slice; only 0 is served).
+        trace_sample_rate: fraction of requests recorded as traces
+            (:mod:`raft_tpu_torch.obs.trace`; deterministic
+            counter-based sampling, no RNG). ``0`` (default) disables:
+            the hot path then pays one attribute check per span site.
+            Sampled results carry ``trace_id``; the finished records
+            live on ``engine.tracer`` and the flight recorder's ring.
         ledger_sample_every: device-time ledger cadence: every Kth
             execution of each program family is timed
             (:mod:`raft_tpu_torch.obs.ledger`); 0 disables.
+        alert_short_window_s / alert_long_window_s: the two windows of
+            the burn-rate alert engine (:mod:`raft_tpu_torch.obs.alerts`).
+            A rule fires only when its burn exceeds threshold over BOTH
+            windows (fast detection + blip rejection) and resolves with
+            hysteresis. Engine rules: SLO burn (expired+shed fraction of
+            submissions, page severity — fires the postmortem dump),
+            quarantine fraction, watchdog-trip rate (page), device-time
+            EWMA drift. Exposed via ``engine.alerts()`` / the ``alerts``
+            stats block / per-rule Prometheus gauges.
         latency_window: per-bucket ring-buffer size for p50/p99 tracking.
+        log_every_batches: serving-counter cadence through the engine's
+            ``logger`` (a :class:`~raft_tpu_torch.utils.logging.
+            MetricLogger`): one record every this many batches, and one
+            at ``stop()``.
         qos_enabled: multi-tenant QoS enforcement. Off (default) the
             serve path is the priority-blind engine: priority/tenant ride
             along as accounting only. On, admission charges per-tenant
@@ -202,7 +226,10 @@ class ServeConfig:
     drain_retry_after_ms: float = 2000.0
     trace_sample_rate: float = 0.0
     ledger_sample_every: int = 0
+    alert_short_window_s: float = 5.0
+    alert_long_window_s: float = 60.0
     latency_window: int = 256
+    log_every_batches: int = 50
     qos_enabled: bool = False
     qos_default_priority: str = "standard"
     qos_default_tenant: str = "default"
@@ -388,6 +415,12 @@ class ServeConfig:
             raise ValueError(
                 f"ledger_sample_every must be >= 0 (0 = off), got "
                 f"{self.ledger_sample_every}"
+            )
+        if not (0 < self.alert_short_window_s <= self.alert_long_window_s):
+            raise ValueError(
+                f"need 0 < alert_short_window_s <= alert_long_window_s, "
+                f"got {self.alert_short_window_s} / "
+                f"{self.alert_long_window_s}"
             )
         if self.precision is not None and self.precision not in PRESETS:
             raise ValueError(

@@ -82,10 +82,24 @@ preempts strictly lower classes (the victim finishes with a retryable
 first, through ladder rungs only. Per-class accounting
 (``stats()['qos']``) runs either way.
 
-Not ported yet (the engine raises ``NotImplementedError`` naming the
-knob): tracing (``trace_sample_rate``), the device-deadline watchdog
-(``apply_timeout_s``), and ``submit_many``'s ``trace_ctx``/``shadow``
-item keys.
+**Observability**: per-request traces (``trace_sample_rate``; spans
+admit / queue_wait / batch_form / encode / dispatch / fetch, ``refine`` in
+the pool; ``trace_id`` on every sampled :class:`ServeResult`; a
+``trace_ctx`` joins a trace born elsewhere), a metrics registry with
+Prometheus text (:meth:`ServeEngine.prometheus`, with the QoS
+``class=``/``tenant=`` series), burn-rate alerts
+(:meth:`ServeEngine.alerts`), and a flight recorder
+(``engine.recorder``) whose bounded ring of fault-ladder events is dumped
+as a postmortem bundle on a page-severity alert or a device-deadline
+watchdog trip. ``apply_timeout_s`` guards each dispatch AND the host's
+wait on it (a replay returns once it is queued: the stall shows in the
+wait); a trip fails the dispatch's requests with ``DeadlineExceeded``
+from the watcher thread, resets the pool, and the worker drains the
+stream before its next replay, so an abandoned replay's outputs never
+reach a later request.
+
+Not ported yet: ``submit_many``'s ``shadow`` item key (rollout mirroring,
+the serving host layer) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -104,7 +118,21 @@ import torch
 from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.graphs import rows_like
 from raft_tpu_torch.inference import FlowEstimator
-from raft_tpu_torch.obs import RESIDUAL_BUCKETS, DeviceTimeLedger, MetricsRegistry
+from raft_tpu_torch.obs import (
+    RESIDUAL_BUCKETS,
+    AlertEngine,
+    AlertRule,
+    DeviceTimeLedger,
+    FlightRecorder,
+    MetricsRegistry,
+    TraceContext,
+    Tracer,
+    gauge_value,
+    logger_sink,
+    profile,
+    rate,
+    ratio_rate,
+)
 from raft_tpu_torch.serve import aot
 from raft_tpu_torch.serve.batch import BatchPrograms
 from raft_tpu_torch.serve.bucketing import BucketRouter, TokenBucket
@@ -133,13 +161,14 @@ from raft_tpu_torch.serve.pool import (
 from raft_tpu_torch.serve.qos import QosPolicy, QosStats, brownout_level, qos_stats_block, validate_priority
 from raft_tpu_torch.serve.queue import MicroBatchQueue, Request
 from raft_tpu_torch.serve.tiler import TilePlanner, blend_tiles, nearest_bucket
+from raft_tpu_torch.utils.faults import Watchdog
 
 __all__ = ["ServeEngine", "ServeResult", "StreamSession"]
 
 _COUNTERS = (
     "submitted", "completed", "shed", "shed_slow_path", "rejected",
     "invalid", "expired", "quarantined", "retried_singles",
-    "nonfinite_batches", "batches", "slow_path", "worker_errors",
+    "nonfinite_batches", "batches", "slow_path", "watchdog_trips", "worker_errors",
     "padded_rows", "dispatched_rows", "encode_cache_hits",
     "encode_cache_misses", "stream_primes", "stream_invalidations",
     "stream_evictions", "inflight_peak", "pool_ticks", "pool_admitted",
@@ -152,7 +181,6 @@ _COUNTERS = (
 # submit_many item keys of paths the port has not reached, with the
 # ROADMAP item that brings each
 _UNPORTED_ITEM_KEYS = {
-    "trace_ctx": "queue 1 item 3f (request tracing)",
     "shadow": "queue 1 item 4 (rollout mirroring)",
 }
 
@@ -175,6 +203,11 @@ class ServeResult:
     ``init_flow``. ``tiled``: served as ``tiles`` bucket-shaped tiles
     blended on the host (``num_flow_updates``/``level`` then report the
     most conservative tile: the fewest updates, the highest level).
+    ``trace_id``: the id of this request's sampled trace (``None`` when
+    tracing is off or the request was not sampled), found in
+    ``engine.tracer`` and the flight recorder's ring; ``residuals``
+    (pool, traced requests only): the per-iteration flow-update residual
+    trajectory (RMS ||delta flow|| in 1/8-grid pixels, oldest first).
     """
 
     flow: Optional[np.ndarray]       # (H, W, 2) float32, caller resolution
@@ -188,6 +221,8 @@ class ServeResult:
     retried_single: bool = False
     primed: bool = False
     exit_reason: str = "target"
+    trace_id: Optional[str] = None
+    residuals: Optional[Tuple[float, ...]] = None
     warm_started: bool = False
     tiled: bool = False
     tiles: int = 0
@@ -196,18 +231,6 @@ class ServeResult:
     def early_exit(self) -> bool:
         """True when the request stopped before its own target."""
         return self.exit_reason in ("deadline", "converged")
-
-
-def _check_ported(cfg: ServeConfig) -> None:
-    """Refuse the knobs whose path the port has not reached: never run an
-    approximation of it."""
-    todo = [
-        (cfg.apply_timeout_s is not None, "apply_timeout_s (the device-deadline watchdog)"),
-        (cfg.trace_sample_rate > 0, "trace_sample_rate > 0 (request tracing)"),
-    ]
-    for asked, knob in todo:
-        if asked:
-            raise NotImplementedError(f"ServeConfig {knob} is not ported to raft_tpu_torch yet")
 
 
 class _Token:
@@ -262,10 +285,11 @@ class StreamSession:
         self.stream_id = stream_id
 
     def submit(self, frame, *, deadline_ms: Optional[float] = None, num_flow_updates: Optional[int] = None,
-               priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
+               trace_ctx: Optional[TraceContext] = None, priority: Optional[str] = None,
+               tenant: Optional[str] = None) -> ServeResult:
         return self._engine.submit_frame(
             self.stream_id, frame, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
-            priority=priority, tenant=tenant,
+            trace_ctx=trace_ctx, priority=priority, tenant=tenant,
         )
 
     def close(self) -> None:
@@ -356,6 +380,10 @@ class ServeEngine:
         config: the :class:`ServeConfig`; default ``ServeConfig()``.
         device: the CUDA card unless ``'cpu'`` is named; raises when no
             card is present.
+        logger: an optional :class:`~raft_tpu_torch.utils.logging.
+            MetricLogger`: the serving counters go to its scalars every
+            ``config.log_every_batches`` batches, and postmortem bundles
+            to its events file.
 
     Example::
 
@@ -364,9 +392,8 @@ class ServeEngine:
             result = engine.submit(image1, image2)   # ServeResult
     """
 
-    def __init__(self, model, config: Optional[ServeConfig] = None, *, device=None):
+    def __init__(self, model, config: Optional[ServeConfig] = None, *, device=None, logger=None):
         self.config = cfg = config or ServeConfig()
-        _check_ported(cfg)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self._router = BucketRouter(cfg.buckets)
@@ -433,19 +460,46 @@ class ServeEngine:
         self._streams_lock = threading.Lock()
         self._next_sid = 0
         self._lock = threading.Lock()
+        # the observability spine: the metrics registry (the counter dict
+        # is a registry-backed CounterGroup), the per-request tracer, and
+        # the fault flight recorder
         self.metrics = MetricsRegistry("serve")
+        self.recorder = FlightRecorder(proc="engine")
+        self.tracer = Tracer(cfg.trace_sample_rate, prefix="srv", on_finish=self.recorder.add_trace)
+        self._logger = logger
+        if logger is not None:
+            # postmortem bundles persist through the logger's events file
+            self.recorder.add_sink(logger_sink(logger))
         self._counters = self.metrics.counter_group("counters", _COUNTERS)
         self._latency_hist = self.metrics.histogram("latency_ms")
         self.ledger = DeviceTimeLedger(cfg.ledger_sample_every, device=self.device, registry=self.metrics)
         self._resid_final = self.metrics.histogram("final_residual", bounds=RESIDUAL_BUCKETS)
         self._resid_iter_sum = np.zeros(self._resid_len)
         self._resid_iter_cnt = np.zeros(self._resid_len, np.int64)
+        # burn-rate alerting over the engine's own counters, evaluated
+        # from the worker loop; a page-severity fire dumps a postmortem,
+        # and every bundle carries the alerts active at dump time
+        s_w, l_w = cfg.alert_short_window_s, cfg.alert_long_window_s
+        self._alerts = AlertEngine(
+            (
+                AlertRule("slo_burn", ratio_rate(("expired", "shed"), "submitted"), 0.1, s_w, l_w, severity="page"),
+                AlertRule("quarantine_burn", ratio_rate("quarantined", "submitted"), 0.05, s_w, l_w),
+                AlertRule("watchdog_trips", rate("watchdog_trips"), 0.0, s_w, l_w, severity="page"),
+                AlertRule("device_time_drift", gauge_value("device_time_drift"), 1.5, s_w, l_w),
+            ),
+            snapshot_fn=self._alert_snapshot,
+            recorder=self.recorder,
+        )
+        self._alerts.register_gauges(self.metrics)
+        self.recorder.alerts_provider = self._alerts.active
         self.metrics.gauge("queue_depth", self._queue.depth)
+        self.metrics.gauge("queue_forming", self._queue.forming)
         self.metrics.gauge("degradation_level", lambda: self._controller.level)
         self.metrics.gauge("num_flow_updates", lambda: self._controller.num_flow_updates)
         self.metrics.gauge(
             "pool_occupied", lambda: sum(p.occupied_count() for p in self._pools.values())
         )
+        self._last_level = 0  # degradation level at the last observe
         self._next_rid = 0
         self._boot: Dict[str, Any] = {
             "source": "none",
@@ -466,6 +520,7 @@ class ServeEngine:
         self._inflight_n = 0
         self._ready = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._watchdog: Optional[Watchdog] = None
 
     @classmethod
     def from_estimator(cls, estimator: FlowEstimator, config: Optional[ServeConfig] = None) -> "ServeEngine":
@@ -486,6 +541,10 @@ class ServeEngine:
             raise EngineStopped("engine was stopped; build a new one")
         t0 = time.monotonic()
         ev0 = aot.capture_events()
+        if self.config.apply_timeout_s is not None and self._watchdog is None:
+            # callback-mode sections only: never interrupts the main
+            # thread; a trip records and dumps through the flight recorder
+            self._watchdog = Watchdog(self.config.apply_timeout_s, install_handler=False, recorder=self.recorder)
         if self.config.warmup:
             self._warmup()
         worker = self._worker_pool if self._pool_progs is not None else self._worker
@@ -494,6 +553,7 @@ class ServeEngine:
         self._ready.set()
         self._boot["boot_to_ready_ms"] = (time.monotonic() - t0) * 1e3
         self._boot["captures"] = aot.capture_events() - ev0
+        self.recorder.record("boot", **self._boot)
         return self
 
     def stop(self) -> None:
@@ -502,7 +562,10 @@ class ServeEngine:
             req.finish(error=EngineStopped("engine stopping"))
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+        if self._watchdog is not None:
+            self._watchdog.close()
         self._ready.clear()
+        self._log_counters(force=True)
 
     @property
     def is_draining(self) -> bool:
@@ -518,9 +581,14 @@ class ServeEngine:
         requests with the same ``Draining``; let dispatched batches
         complete and the pool retire every resident at its own target.
         Returns True once quiesced within ``timeout`` seconds (``None``
-        waits forever), False on timeout. Idempotent."""
+        waits forever), False on timeout. Idempotent. Each phase is a
+        flight-recorder event (``drain_begin``, ``drain_queued_failed``,
+        ``drain_quiesced`` or ``drain_timeout``)."""
+        if not self._draining.is_set():
+            self.recorder.record("drain_begin", timeout=timeout)
         self._draining.set()
         retry_ms = self.config.drain_retry_after_ms
+        n_failed = 0
         for req in self._queue.drain():
             if req.finish(
                 error=Draining(
@@ -529,16 +597,23 @@ class ServeEngine:
                 )
             ):
                 self._count("drained")
+                n_failed += 1
                 if req.kind == "stream":
                     self._invalidate_stream(req.stream_id)
+        if n_failed:
+            self.recorder.record("drain_queued_failed", n=n_failed)
         deadline = None if timeout is None else time.monotonic() + timeout
+        ok = True
         while not self._quiesced():
             if not (self._thread is not None and self._thread.is_alive()):
-                return self._quiesced()
+                ok = self._quiesced()
+                break
             if deadline is not None and time.monotonic() > deadline:
-                return False
+                ok = False
+                break
             time.sleep(0.005)
-        return True
+        self.recorder.record("drain_quiesced" if ok else "drain_timeout", ok=ok)
+        return ok
 
     def _quiesced(self) -> bool:
         """Nothing queued, no batch popped but not yet dispatched, nothing
@@ -620,8 +695,8 @@ class ServeEngine:
     # -- public API --------------------------------------------------------
 
     def submit(self, image1, image2, *, deadline_ms: Optional[float] = None,
-               num_flow_updates: Optional[int] = None, init_flow=None, priority: Optional[str] = None,
-               tenant: Optional[str] = None) -> ServeResult:
+               num_flow_updates: Optional[int] = None, init_flow=None, trace_ctx: Optional[TraceContext] = None,
+               priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
         """Serve one raw [0, 255] ``(H, W, 3)`` pair; returns :class:`ServeResult`.
 
         ``num_flow_updates`` caps this request's refinement iterations
@@ -649,6 +724,12 @@ class ServeEngine:
         :meth:`submit_tiled` (``init_flow`` is dropped: a tile has no
         seed of its own).
 
+        ``trace_ctx`` (a :class:`~raft_tpu_torch.obs.TraceContext`) joins
+        this request to a trace sampled elsewhere: the engine's spans
+        record under the propagated ``trace_id`` (the engine's own rate is
+        bypassed) and, when the context carries a live trace, the sealed
+        record is stitched into it before this call returns.
+
         Blocks the calling thread until the result, the deadline, or a
         typed :class:`~raft_tpu_torch.serve.errors.ServeError`."""
         if self.config.unknown_shape == "tiled":
@@ -657,19 +738,26 @@ class ServeEngine:
                 # fan out before any accounting, so the request is charged
                 # and counted once, by submit_tiled
                 return self.submit_tiled(image1, image2, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
-                                         priority=priority, tenant=tenant)
+                                         trace_ctx=trace_ctx, priority=priority, tenant=tenant)
+        t_sub = time.monotonic()
         deadline_ms = self._check_live(deadline_ms)
         pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p1, p2, hw = self._admit(image1, image2)
         rel = self._qos_charge(pr, ten)
+        t_adm = time.monotonic()
         bucket = self._router.route(*hw)
         rid = self._new_rid()
         self._qos_stats.count(pr, "submitted")
+        trace = self.tracer.start("pair", rid, t_start=t_sub, trace_id=None if trace_ctx is None else trace_ctx.trace_id)
+        if trace is not None:
+            trace.add_span("admit", t_sub, t_adm)
+            trace.annotate(priority=pr, tenant=ten)
         deadline = time.monotonic() + deadline_ms / 1e3
         try:
             if bucket is None:
-                return self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, priority=pr, tenant=ten)
+                return self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, trace=trace, priority=pr,
+                                         tenant=ten)
             req = Request(
                 rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
                 iters=iters, priority=pr, tenant=ten,
@@ -677,6 +765,7 @@ class ServeEngine:
             if init_flow is not None:
                 req.init8 = self._prepare_init_flow(init_flow, bucket)
                 req.warm = req.init8 is not None
+            req.trace = trace
             if rel is not None:
                 req.add_done_callback(rel)
             return self._enqueue_and_wait(req, deadline_ms)
@@ -686,6 +775,10 @@ class ServeEngine:
             # every error before the request existed
             if rel is not None:
                 rel()
+            # in-process stitch: the engine's sealed record joins the
+            # caller's trace on every exit path (success, shed, deadline)
+            if trace_ctx is not None and trace is not None:
+                trace_ctx.absorb(trace.record, proc="engine")
 
     def submit_many(self, items: List[Dict[str, Any]]) -> List[Request]:
         """Coalesced pairwise admission: validate and admit a burst,
@@ -693,8 +786,9 @@ class ServeEngine:
         (:meth:`MicroBatchQueue.put_many`).
 
         Each item is a dict: ``image1``, ``image2``, optional
-        ``deadline_ms`` / ``num_flow_updates`` / ``priority`` / ``tenant``
-        (as in :meth:`submit`), and an optional ``on_done`` callable
+        ``deadline_ms`` / ``num_flow_updates`` / ``trace_ctx`` (its
+        ``trace_id`` is adopted) / ``priority`` / ``tenant`` (as in
+        :meth:`submit`), and an optional ``on_done`` callable
         invoked with the request handle on completion. Returns one
         :class:`Request` handle per item, in order (``wait``, then
         ``result`` or ``error``). An item that fails validation,
@@ -707,9 +801,9 @@ class ServeEngine:
         The tiler's fan-out rides two internal item keys: ``p1``/``p2``/
         ``hw`` (already-admitted ``(1, h, w, 3)`` slices, not admitted
         again) and ``skip_quota`` (the tiled request was charged once for
-        all its tiles). The JAX package's ``trace_ctx`` and ``shadow``
-        item keys are not ported: an item carrying one raises
-        ``NotImplementedError`` before anything is admitted.
+        all its tiles). The JAX package's ``shadow`` item key is not
+        ported: an item carrying it raises ``NotImplementedError`` before
+        anything is admitted.
         """
         return self._submit_many(items)[0]
 
@@ -725,6 +819,8 @@ class ServeEngine:
         handles: List[Request] = []
         for it in items:
             cb = it.get("on_done")
+            ctx = it.get("trace_ctx")
+            t_sub = time.monotonic()
             try:
                 deadline_ms = self._check_live(it.get("deadline_ms"))
                 pr, ten = self._qos_resolve(it.get("priority"), it.get("tenant"))
@@ -743,6 +839,10 @@ class ServeEngine:
             bucket = self._router.route(*hw)
             rid = self._new_rid()
             self._qos_stats.count(pr, "submitted")
+            trace = self.tracer.start("pair", rid, t_start=t_sub, trace_id=None if ctx is None else ctx.trace_id)
+            if trace is not None:
+                trace.add_span("admit", t_sub, time.monotonic())
+                trace.annotate(priority=pr, tenant=ten)
             deadline = time.monotonic() + deadline_ms / 1e3
             if bucket is None:
                 # rare (un-bucketed shape): served now, through the slow path
@@ -753,8 +853,8 @@ class ServeEngine:
                 if cb is not None:
                     req.add_done_callback(cb)
                 try:
-                    req.finish(result=self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, priority=pr,
-                                                        tenant=ten))
+                    req.finish(result=self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, trace=trace,
+                                                        priority=pr, tenant=ten))
                 except Exception as e:
                     req.finish(error=e)
                 handles.append(req)
@@ -763,6 +863,7 @@ class ServeEngine:
                 rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
                 iters=iters, priority=pr, tenant=ten,
             )
+            req.trace = trace
             if rel is not None:
                 req.add_done_callback(rel)
             if cb is not None:
@@ -779,6 +880,7 @@ class ServeEngine:
             if isinstance(err, Overloaded):
                 self._count("shed")
                 self._qos_stats.count(req.priority, "shed")
+                self._record_shed(req, err)
             req.finish(error=err)
         # the burst may displace queued lower-class work: each victim is
         # finished with the typed retryable shed
@@ -786,8 +888,8 @@ class ServeEngine:
         return handles, 1
 
     def submit_tiled(self, image1, image2, *, deadline_ms: Optional[float] = None,
-                     num_flow_updates: Optional[int] = None, priority: Optional[str] = None,
-                     tenant: Optional[str] = None) -> ServeResult:
+                     num_flow_updates: Optional[int] = None, trace_ctx: Optional[TraceContext] = None,
+                     priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
         """Serve an off-bucket pair as bucket-shaped tiles.
 
         The :class:`~raft_tpu_torch.serve.tiler.TilePlanner` picks the
@@ -810,18 +912,22 @@ class ServeEngine:
 
         Returns a :class:`ServeResult` with ``tiled=True`` and
         ``tiles=N``; ``num_flow_updates``/``level``/``degraded`` report
-        the most conservative tile.
+        the most conservative tile. A traced request's record (kind
+        ``'tiled'``) carries ``admit``, ``tiled_submit`` and
+        ``tiled_blend`` spans; ``trace_ctx`` joins it to a trace born
+        elsewhere, as in :meth:`submit`.
         """
         a1 = np.asarray(image1)
         if a1.ndim == 3 and self._router.route(int(a1.shape[0]), int(a1.shape[1])) is not None:
             return self.submit(image1, image2, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
-                               priority=priority, tenant=tenant)
+                               trace_ctx=trace_ctx, priority=priority, tenant=tenant)
         t_sub = time.monotonic()
         deadline_ms = self._check_live(deadline_ms)
         pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p1, p2, hw = self._admit(image1, image2)
         rel = self._qos_charge(pr, ten)
+        t_adm = time.monotonic()
         # the request is an envelope: its tiles carry the engine's
         # submitted/completed/shed accounting (they are real queue
         # citizens), the ``tiler`` stats block counts the envelope, so
@@ -829,14 +935,22 @@ class ServeEngine:
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
+        trace = self.tracer.start("tiled", rid, t_start=t_sub,
+                                  trace_id=None if trace_ctx is None else trace_ctx.trace_id)
+        if trace is not None:
+            trace.add_span("admit", t_sub, t_adm)
+            trace.annotate(priority=pr, tenant=ten)
         deadline = time.monotonic() + deadline_ms / 1e3
         try:
-            return self._run_tiled(rid, p1, p2, hw, deadline, iters, priority=pr, tenant=ten, t_sub=t_sub)
+            return self._run_tiled(rid, p1, p2, hw, deadline, iters, trace=trace, priority=pr, tenant=ten,
+                                   t_sub=t_sub)
         finally:
             if rel is not None:
                 rel()
+            if trace_ctx is not None and trace is not None:
+                trace_ctx.absorb(trace.record, proc="engine")
 
-    def _run_tiled(self, rid, p1, p2, hw, deadline, req_iters=None, *, priority=None, tenant=None,
+    def _run_tiled(self, rid, p1, p2, hw, deadline, req_iters=None, *, trace=None, priority=None, tenant=None,
                    t_sub=None) -> ServeResult:
         """The tiled fan-out: plan, slice, one ``put_many``, wait, blend.
 
@@ -852,11 +966,14 @@ class ServeEngine:
             self._count("rejected")
             with self._lock:
                 self._tiler_counters["failures"] += 1
+            if trace is not None:
+                trace.finish(ok=False, error="ShapeRejected")
             raise
         with self._lock:
             self._tiler_counters["requests"] += 1
             self._tiler_px[0] += plan.hw[0] * plan.hw[1]
             self._tiler_px[1] += plan.dispatched_px
+        t_fan = time.monotonic()
         items: List[Dict[str, Any]] = [
             {
                 "p1": p1[:, t.y0:t.y0 + t.h, t.x0:t.x0 + t.w],
@@ -876,6 +993,9 @@ class ServeEngine:
         with self._lock:
             self._tiler_counters["tiles_submitted"] += len(items)
             self._tiler_counters["admission_acquisitions"] += acq
+        if trace is not None:
+            trace.add_span("tiled_submit", t_fan, tiles=len(items), bucket=f"{plan.bucket[0]}x{plan.bucket[1]}",
+                           put_many_acquisitions=acq)
         try:
             results: List[ServeResult] = []
             for i, h in enumerate(handles):
@@ -903,12 +1023,13 @@ class ServeEngine:
             t_blend = time.monotonic()
             flow = blend_tiles(plan, self._tiler.weights(plan), [r.flow for r in results])
             now = time.monotonic()
+            blend_ms = (now - t_blend) * 1e3
             with self._lock:
                 self._tiler_counters["completed"] += 1
-                self._tiler_blend_ms.append((now - t_blend) * 1e3)
+                self._tiler_blend_ms.append(blend_ms)
                 del self._tiler_blend_ms[: -self.config.latency_window]
             reasons = {r.exit_reason for r in results}
-            return ServeResult(
+            res = ServeResult(
                 flow=flow,
                 rid=rid,
                 bucket=plan.bucket,
@@ -917,12 +1038,22 @@ class ServeEngine:
                 degraded=any(r.degraded for r in results),
                 latency_ms=(now - t0) * 1e3,
                 exit_reason=reasons.pop() if len(reasons) == 1 else "target",
+                trace_id=None if trace is None else trace.trace_id,
                 tiled=True,
                 tiles=plan.n_tiles,
             )
-        except BaseException:
+            if trace is not None:
+                trace.add_span("tiled_blend", t_blend, now)
+                trace.annotate(tiled=True, tiles=plan.n_tiles, bucket=f"{plan.bucket[0]}x{plan.bucket[1]}",
+                               waste_frac=round(plan.waste_frac, 4), blend_ms=round(blend_ms, 3),
+                               latency_ms=round(res.latency_ms, 3))
+                trace.finish(ok=True)
+            return res
+        except BaseException as e:
             with self._lock:
                 self._tiler_counters["failures"] += 1
+            if trace is not None:
+                trace.finish(ok=False, error=type(e).__name__)
             raise
 
     def _finished_handle(self, *, error, on_done=None) -> Request:
@@ -952,23 +1083,25 @@ class ServeEngine:
         return StreamSession(self, sid)
 
     def submit_frame(self, stream_id: int, frame, *, deadline_ms: Optional[float] = None,
-                     num_flow_updates: Optional[int] = None, priority: Optional[str] = None,
-                     tenant: Optional[str] = None) -> ServeResult:
+                     num_flow_updates: Optional[int] = None, trace_ctx: Optional[TraceContext] = None,
+                     priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
         """Advance stream ``stream_id`` by one frame.
 
         Returns flow(previous frame -> this frame) at the caller's
         resolution, or a ``primed=True`` result (``flow=None``) when this
         frame opens a fresh pair (first frame, or first after an
         invalidation or eviction). One outstanding frame per stream.
-        ``priority`` / ``tenant`` classify the frame for QoS, as in
-        :meth:`submit`.
+        ``trace_ctx`` joins a trace sampled elsewhere, and ``priority`` /
+        ``tenant`` classify the frame for QoS, as in :meth:`submit`.
         """
         if not self._streams_on:
             raise InvalidInput("stream serving is disabled (stream_cache_size=0)")
+        t_sub = time.monotonic()
         deadline_ms = self._check_live(deadline_ms)
         pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p, hw = self._admit_frame(frame)
+        t_adm = time.monotonic()
         bucket = self._router.route(*hw)
         if bucket is None:
             self._count("rejected")
@@ -995,6 +1128,7 @@ class ServeEngine:
                 st.fmap = st.ctx = st.flow8 = None
                 st.bucket, st.hw = bucket, hw
             st.busy = True
+        req = None
         rel = None
         try:
             rel = self._qos_charge(pr, ten)
@@ -1005,6 +1139,11 @@ class ServeEngine:
                 rid, bucket, None, self._router.pad_to(p, bucket), hw, deadline, kind="stream",
                 stream_id=stream_id, iters=iters, priority=pr, tenant=ten,
             )
+            req.trace = self.tracer.start("stream", rid, t_start=t_sub,
+                                          trace_id=None if trace_ctx is None else trace_ctx.trace_id)
+            if req.trace is not None:
+                req.trace.add_span("admit", t_sub, t_adm)
+                req.trace.annotate(stream_id=stream_id, priority=pr, tenant=ten)
             if rel is not None:
                 req.add_done_callback(rel)
             return self._enqueue_and_wait(req, deadline_ms)
@@ -1013,6 +1152,8 @@ class ServeEngine:
                 rel()  # one-shot: covers the shed path (the request unfinished)
             with self._streams_lock:
                 st.busy = False
+            if trace_ctx is not None and req is not None and req.trace is not None:
+                trace_ctx.absorb(req.trace.record, proc="engine")
 
     def close_stream(self, stream_id: int) -> None:
         """Drop a stream session and its cached maps."""
@@ -1047,6 +1188,7 @@ class ServeEngine:
     def health(self) -> dict:
         """Liveness/readiness for an external supervisor or LB probe."""
         with self._lock:
+            trips = self._counters["watchdog_trips"]
             quarantined = self._counters["quarantined"]
         return {
             "ready": self._ready.is_set(),
@@ -1056,14 +1198,17 @@ class ServeEngine:
             "queue_capacity": self.config.queue_capacity,
             "level": self._controller.level,
             "num_flow_updates": self._controller.num_flow_updates,
+            "watchdog_trips": trips,
             "quarantined": quarantined,
         }
 
     def stats(self) -> dict:
         """Serving counters + degradation + per-bucket latency quantiles +
         hot-path efficiency (padding waste, encoder cache hit rate), pool
-        occupancy, convergence, device-time ledger, captured-program
-        counts and the kernel launches the graphs' replays made."""
+        occupancy, convergence, device-time ledger, tracing and
+        flight-recorder accounting (``obs``), burn-rate alerts,
+        captured-program counts and the kernel launches the graphs'
+        replays made."""
         with self._lock:
             counters = dict(self._counters)
             latency = {
@@ -1090,14 +1235,28 @@ class ServeEngine:
             padding_waste = counters["padded_rows"] / rows if rows else 0.0
         hits, misses = counters["encode_cache_hits"], counters["encode_cache_misses"]
         pools = list(self._pools.values())
+        occupied = sum(p.occupied_count() for p in pools)
         return {
             **counters,
             "padding_waste": padding_waste,
+            "mesh_devices": 1,  # the port serves on one card
             "encoder_cache_hit_rate": hits / (hits + misses) if hits + misses else None,
             "batch_ladder": list(self._batch_ladder),
             "boot": dict(self._boot),
+            # tracing + flight-recorder accounting; the rings live on
+            # engine.tracer / engine.recorder, Prometheus text on
+            # engine.prometheus()
+            "obs": {
+                "trace_sample_rate": self.config.trace_sample_rate,
+                "traces_started": self.tracer.started,
+                "traces_finished": self.tracer.finished,
+                "events_recorded": self.recorder.events_recorded,
+                "postmortem_dumps": self.recorder.dumps,
+            },
             "ledger": self.ledger.breakdown(),
+            "alerts": self._alerts.snapshot(),
             "convergence": {
+                "enabled": self._pool_progs is not None,
                 "threshold": self.config.pool_converge_thresh,
                 "streak": self.config.pool_converge_streak,
                 "warm_start": self._warm_start,
@@ -1108,7 +1267,11 @@ class ServeEngine:
             },
             "pool": {
                 "capacity": self._pool_cap,
-                "occupied": sum(p.occupied_count() for p in pools),
+                "mesh_devices": 1,
+                # the occupied fraction of the card's slots across buckets
+                "per_device_occupancy": [occupied / (self._pool_cap * max(1, len(pools)))]
+                if self._pool_progs is not None else [],
+                "occupied": occupied,
                 "ticks": counters["pool_ticks"],
                 "occupancy": 1.0 - counters["idle_slot_iters"] / disp_si if disp_si else 0.0,
                 "ttfd_p50_ms": float(np.percentile(ttfd, 50)) if ttfd else None,
@@ -1149,10 +1312,64 @@ class ServeEngine:
             },
         }
 
+    def prometheus(self) -> str:
+        """Prometheus text exposition of this engine's metrics registry
+        (counters, queue/degradation/pool gauges, latency and device-time
+        histograms, per-alert-rule gauges), plus the QoS series: per-class
+        counters labeled ``class=`` and per-tenant quota state labeled
+        ``tenant=``."""
+        text = self.metrics.prometheus_text()
+
+        def esc(s: str) -> str:
+            return s.replace("\\", "\\\\").replace('"', '\\"')
+
+        lines = ["# TYPE serve_qos_class counter"]
+        for cls, cstats in sorted(self._qos_stats.snapshot().items()):
+            for k in QosStats.COUNTER_KEYS:
+                lines.append(f'serve_qos_class{{class="{esc(cls)}",key="{k}"}} {int(cstats.get(k, 0))}')
+        tenants = self._qos_policy.snapshot() if self._qos_policy is not None else {}
+        if tenants:
+            lines.append("# TYPE serve_qos_tenant gauge")
+            for ten, tstats in sorted(tenants.items()):
+                for k in ("inflight", "quota_refused"):
+                    lines.append(f'serve_qos_tenant{{tenant="{esc(ten)}",key="{k}"}} {int(tstats.get(k, 0))}')
+        return text + "\n".join(lines) + "\n"
+
     def device_time_breakdown(self) -> Dict[str, Any]:
         """Per-program-family device-time attribution from the ledger
         (empty when ``config.ledger_sample_every == 0``)."""
         return self.ledger.breakdown()
+
+    def alerts(self) -> Dict[str, Any]:
+        """The burn-rate alert surface: active alerts (rule, severity,
+        live burn), fire/resolve counters, and the configured rules."""
+        snap = self._alerts.snapshot()
+        snap["active"] = self._alerts.active()
+        return snap
+
+    def _alert_snapshot(self) -> Dict[str, float]:
+        """What the alert rules see: the engine counters plus the
+        device-time drift gauge, one flat dict."""
+        with self._lock:
+            snap: Dict[str, float] = dict(self._counters)
+        snap["device_time_drift"] = self.ledger.drift()
+        return snap
+
+    def _log_counters(self, force: bool = False) -> None:
+        """The serving counters through the logger, every
+        ``log_every_batches`` batches (and always when ``force``)."""
+        if self._logger is None:
+            return
+        every = self.config.log_every_batches
+        with self._lock:
+            step = self._counters["batches"]
+            if not force and (step == 0 or every <= 0 or step % every):
+                return
+            scalars = {f"serve/{k}": float(v) for k, v in self._counters.items()}
+        scalars["serve/queue_depth"] = float(self._queue.depth())
+        scalars["serve/level"] = float(self._controller.level)
+        scalars["serve/num_flow_updates"] = float(self._controller.num_flow_updates)
+        self._logger.log(step, scalars)
 
     def program_counts(self) -> Dict[str, int]:
         """Captured-program count per program family (-1 on the CPU, where
@@ -1273,9 +1490,12 @@ class ServeEngine:
         preempted: List[Request] = []
         try:
             self._queue.put(req, retry_after_ms=self._retry_after_ms(), preempted=preempted)
-        except Overloaded:
+        except Overloaded as e:
             self._count("shed")
             self._qos_stats.count(req.priority, "shed")
+            self._record_shed(req, e)
+            if req.trace is not None:
+                req.trace.finish(ok=False, error="Overloaded")
             raise
         self._qos_preempted(preempted, req)
         if not req.wait(max(0.0, req.remaining) + 0.05):
@@ -1288,12 +1508,22 @@ class ServeEngine:
             raise req.error
         return req.result
 
-    def _submit_slow(self, rid, p1, p2, hw, deadline, deadline_ms, req_iters=None, *, priority="standard",
-                     tenant="default") -> ServeResult:
+    def _record_shed(self, req: Request, err: Overloaded) -> None:
+        """The flight-recorder events of a queue shed: ``shed``, and with
+        QoS on ``qos_shed`` naming the request's class and tenant."""
+        self.recorder.record("shed", rid=req.rid, req_kind=req.kind, retry_after_ms=err.retry_after_ms)
+        if self.config.qos_enabled:
+            self.recorder.record("qos_shed", rid=req.rid, priority=req.priority, tenant=req.tenant,
+                                 retry_after_ms=err.retry_after_ms)
+
+    def _submit_slow(self, rid, p1, p2, hw, deadline, deadline_ms, req_iters=None, *, trace=None,
+                     priority="standard", tenant="default") -> ServeResult:
         """Un-bucketed shape: reject, tile, or queue it rate-limited for
         the worker, which runs it alone (:meth:`_run_slow`)."""
         if self.config.unknown_shape == "reject":
             self._count("rejected")
+            if trace is not None:
+                trace.finish(ok=False, error="ShapeRejected")
             buckets = tuple(self._router.buckets)
             raise ShapeRejected(
                 f"no bucket admits shape {hw} (buckets: {list(buckets)}); "
@@ -1305,12 +1535,16 @@ class ServeEngine:
             # only submit_many items land here under 'tiled' (submit routes
             # to submit_tiled before any accounting); their rid was counted
             # submitted, so a tiled success is counted completed here
-            res = self._run_tiled(rid, p1, p2, hw, deadline, req_iters, priority=priority, tenant=tenant)
+            res = self._run_tiled(rid, p1, p2, hw, deadline, req_iters, trace=trace, priority=priority,
+                                  tenant=tenant)
             self._count("completed")
             return res
         if not self._slow_tokens.try_take():
             self._count("shed_slow_path")
             self._qos_stats.count(priority, "shed")
+            self.recorder.record("shed", rid=rid, req_kind="slow_path")
+            if trace is not None:
+                trace.finish(ok=False, error="Overloaded")
             raise Overloaded(
                 f"slow path over its {self.config.slow_path_per_s}/s rate",
                 retry_after_ms=self._slow_tokens.retry_after_ms(),
@@ -1320,16 +1554,30 @@ class ServeEngine:
             rid, shape, self._router.pad_to(p1, shape), self._router.pad_to(p2, shape), hw, deadline,
             slow_path=True, kind="slow", iters=req_iters, priority=priority, tenant=tenant,
         )
+        req.trace = trace
         return self._enqueue_and_wait(req, deadline_ms)
 
     def _run_slow(self, req: Request) -> None:
         """One slow-path request on the worker: the whole-request forward
-        at its natural shape (its graph captured here on first use)."""
+        at its natural shape (its graph captured here on first use), its
+        fetch inside the device-deadline section."""
         iters = self._controller.num_flow_updates
         if req.iters is not None:
             iters = min(iters, req.iters)
         key = ("pairwise", 1, req.bucket[0], req.bucket[1], int(iters))
-        flow = self.ledger.run(key, lambda: self._apply._forward(req.p1, req.p2, iters))[0]
+        t0 = time.monotonic()
+        self._trace_queue_wait([req], t0)
+
+        def run():
+            with profile.annotate("serve/pairwise"):
+                return self.ledger.run(key, lambda: self._apply._forward(req.p1, req.p2, iters))
+
+        out, tripped = self._guarded_dispatch([req], run)
+        if tripped:
+            self._after_trip()
+            return
+        self._trace_span([req], "dispatch", t0, iters=iters, slow_path=True)
+        flow = self._request_flow(req, out[0])
         if not np.isfinite(flow).all():
             self._quarantine(req)
             return
@@ -1407,6 +1655,8 @@ class ServeEngine:
                         # the window, or its requests finished), so drain()'s
                         # quiesce check never races the pop
                         self._queue.task_done()
+                self._log_counters()
+                self._alerts.maybe_observe()
             # drain the pipeline, then anything admitted during shutdown
             while inflight:
                 complete_oldest()
@@ -1425,7 +1675,7 @@ class ServeEngine:
             self._counters["dispatched_rows"] += rung
             self._counters["padded_rows"] += rung - k
 
-    def _dispatch_pair(self, live: List[Request]) -> _Inflight:
+    def _dispatch_pair(self, live: List[Request]) -> Optional[_Inflight]:
         """Stage a pair batch at its rung and dispatch its whole forward;
         the flow starts for pinned memory behind the replay."""
         bucket = live[0].bucket
@@ -1433,13 +1683,25 @@ class ServeEngine:
         iters = self._honor_iters(live, iters)
         rung = self._rung(len(live))
         shape = (self._max_batch,) + tuple(bucket) + (3,)
+        t_form = time.monotonic()
+        self._trace_queue_wait(live, t_form)
         p1 = self._staging.fill(("p1", bucket), shape, [r.p1 for r in live], rung)
         p2 = self._staging.fill(("p2", bucket), shape, [r.p2 for r in live], rung)
         self._note_padding(rung, len(live))
         t0 = time.monotonic()
-        flow = self._run_batch(p1, p2, iters)
-        self._staging.mark()
-        return _Inflight(live, iters, level, t0, self._to_host(flow, ("flow", bucket), self._max_batch), "pair")
+        self._trace_span(live, "batch_form", t_form, t0, rung=rung)
+
+        def run():
+            flow = self._run_batch(p1, p2, iters)
+            self._staging.mark()
+            return self._to_host(flow, ("flow", bucket), self._max_batch)
+
+        token, tripped = self._guarded_dispatch(live, run)
+        if tripped:
+            self._after_trip()
+            return None  # requests already failed (and the trip counted)
+        self._trace_span(live, "dispatch", t0, iters=iters)
+        return _Inflight(live, iters, level, t0, token, "pair")
 
     def _dispatch_stream(self, live: List[Request]) -> Optional[_Inflight]:
         """Stream batch: encode the new frames (one program per rung),
@@ -1455,28 +1717,66 @@ class ServeEngine:
         iters = self._honor_iters(live, iters)
         rung = self._rung(len(live))
         shape = (self._max_batch,) + tuple(bucket) + (3,)
+        t_form = time.monotonic()
+        self._trace_queue_wait(live, t_form)
         frames = self._staging.fill(("frames", bucket), shape, [r.p2 for r in live], rung)
         self._note_padding(rung, len(live))
         t0 = time.monotonic()
-        fmap, ctx = self._run_encode(frames)
-        self._staging.mark()
-        flow_reqs, rows = self._stream_transact(live, fmap, ctx, iters, level)
+        self._trace_span(live, "batch_form", t_form, t0, rung=rung)
+        enc, tripped = self._guarded_dispatch(live, lambda: self._encode_checked(frames, len(live)))
+        if tripped:
+            self._after_trip()
+            for r in live:
+                self._invalidate_stream(r.stream_id)
+            return None
+        self._trace_span(live, "encode", t0, rung=rung)
+        flow_reqs, rows = self._stream_transact(live, *enc, iters, level)
         if not flow_reqs:
             return None
         rung2 = self._rung(len(flow_reqs))
         f1, f2, cx = (_stack_rows([rr[k] for rr in rows], rung2) for k in range(3))
         self._note_padding(rung2, len(flow_reqs))
-        flow = self._run_iterate(f1, f2, cx, iters)
-        return _Inflight(flow_reqs, iters, level, t0, self._to_host(flow, ("flow", bucket), self._max_batch), "stream",
-                         retry_rows=rows)
+        t_d = time.monotonic()
+        token, tripped = self._guarded_dispatch(
+            flow_reqs,
+            lambda: self._to_host(self._run_iterate(f1, f2, cx, iters), ("flow", bucket), self._max_batch),
+        )
+        if tripped:
+            self._after_trip()
+            for r in flow_reqs:
+                self._invalidate_stream(r.stream_id)
+            return None
+        self._trace_span(flow_reqs, "dispatch", t_d, iters=iters)
+        return _Inflight(flow_reqs, iters, level, t0, token, "stream", retry_rows=rows)
+
+    def _encode_checked(self, frames, n: int):
+        """One encode batch and, per live row, whether its feature and
+        context maps are finite (a host fetch: the encode's wait)."""
+        fmap, ctx = self._run_encode(frames)
+        self._staging.mark()
+        finite = (torch.isfinite(fmap[:n]).flatten(1).all(1) & torch.isfinite(ctx[:n]).flatten(1).all(1)).tolist()
+        return fmap, ctx, finite
 
     def _complete(self, inf: _Inflight) -> None:
-        """Fetch one in-flight batch's flow and finish its requests."""
-        flow = inf.token.fetch().transpose(0, 2, 3, 1)
+        """Fetch one in-flight batch's flow and finish its requests. The
+        fetch is the host's wait on the replay: a device stall shows here,
+        so it runs inside the device-deadline section."""
+        t_f = time.monotonic()
+        flow, tripped = self._guarded_dispatch(inf.live, inf.token.fetch)
+        self._trace_span(inf.live, "fetch", t_f)
         batch_ms = (time.monotonic() - inf.t0) * 1e3
         with self._lock:
             self._counters["batches"] += 1
             self._batch_ms_ewma += 0.2 * (batch_ms - self._batch_ms_ewma)
+        if tripped:
+            # requests already failed (and the trip counted); the fetch
+            # waited out the stalled replay, its token is dropped unread
+            self._after_trip()
+            if inf.kind == "stream":
+                for r in inf.live:
+                    self._invalidate_stream(r.stream_id)
+            return
+        flow = flow.transpose(0, 2, 3, 1)
         flows = [self._request_flow(r, flow[i]) for i, r in enumerate(inf.live)]
         if all(np.isfinite(f).all() for f in flows):
             for r, f in zip(inf.live, flows):
@@ -1494,8 +1794,11 @@ class ServeEngine:
         for r in live:
             if r.done:
                 continue
+            t_r = time.monotonic()
             try:
                 f = self._request_flow(r, _host_flow(self._run_batch(r.p1, r.p2, iters))[0])
+                if r.trace is not None:
+                    r.trace.add_span("retry_single", t_r, iters=iters)
             except Exception as e:
                 r.finish(error=ServeError(f"single retry failed: {e!r}"))
                 self._count("worker_errors")
@@ -1514,8 +1817,11 @@ class ServeEngine:
         for r, (f1, f2, cx, _init) in zip(inf.live, inf.retry_rows or []):
             if r.done:
                 continue
+            t_r = time.monotonic()
             try:
                 f = self._request_flow(r, _host_flow(self._run_iterate(f1, f2, cx, inf.iters))[0])
+                if r.trace is not None:
+                    r.trace.add_span("retry_single", t_r, iters=inf.iters)
             except Exception as e:
                 r.finish(error=ServeError(f"single retry failed: {e!r}"))
                 self._count("worker_errors")
@@ -1565,6 +1871,8 @@ class ServeEngine:
                 except Exception as e:  # isolation: fail residents, not the worker
                     self._count("worker_errors")
                     self._pool_fail_all(ServeError(f"pool tick failed: {e!r}"))
+                self._log_counters()
+                self._alerts.maybe_observe()
             self._pool_fail_all(EngineStopped("engine stopping"))
         for r in self._queue.close():
             r.finish(error=EngineStopped("engine stopping"))
@@ -1574,9 +1882,27 @@ class ServeEngine:
             metas = pool.clear()
             for m in metas:
                 m.req.finish(error=err)
+                if m.req.kind == "stream":
+                    self._invalidate_stream(m.req.stream_id)
             if metas:
                 with self._lock:
                     self._counters["pool_resets"] += 1
+                self.recorder.record("pool_reset", bucket=f"{pool.bucket[0]}x{pool.bucket[1]}", residents=len(metas),
+                                     error=repr(err))
+
+    def _pool_reset_tripped(self, pool: BucketPool, why: str) -> None:
+        """A watchdog trip in one of ``pool``'s dispatches: its residents
+        were failed by the watcher's callback; free every slot, drop the
+        pending tokens unread, record the reset, and drain the stream."""
+        cleared = pool.clear()
+        for m in cleared:
+            if m.req.kind == "stream":
+                self._invalidate_stream(m.req.stream_id)
+        with self._lock:
+            self._counters["pool_resets"] += 1
+        self.recorder.record("pool_reset", bucket=f"{pool.bucket[0]}x{pool.bucket[1]}", residents=len(cleared),
+                             error=why)
+        self._after_trip()
 
     def _pool_retire(self, pool: BucketPool) -> None:
         """Free slots whose requests are finished, expired, or due:
@@ -1623,15 +1949,36 @@ class ServeEngine:
             due = due[self._admit_cap:]
         rung = self._rung_admit(len(due))
         idx = np.asarray([i for i, _, _ in due] + [due[0][0]] * (rung - len(due)), np.int64)
-        c1, hid, res = self._pool_gather(pool.state["coords1"], pool.state["hidden"], pool.state["resid_hist"], idx)
-        flows = _host_flow(self._run_pool_final(c1, hid))
-        resids = res.cpu().numpy()
+        live = [m.req for _, m, _ in due]
         # with warm start on, the retiring streams' final 1/8-grid coords
         # ride the fetch the finalize already pays
         fetch_c1 = self._warm_start and any(m.req.kind == "stream" for _, m, _ in due)
-        c1_rows = c1.cpu().numpy() if fetch_c1 else None
+
+        def run():
+            c1, hid, res = self._pool_gather(pool.state["coords1"], pool.state["hidden"], pool.state["resid_hist"],
+                                             idx)
+            return (_host_flow(self._run_pool_final(c1, hid)), res.cpu().numpy(),
+                    c1.cpu().numpy() if fetch_c1 else None)
+
+        t_f = time.monotonic()
+        for _, meta, _ in due:
+            if meta.req.trace is not None:
+                # the pool's refinement window, admission insert -> finalize
+                meta.req.trace.add_span("refine", meta.admitted_t, t_f, iters=meta.done)
+        out, tripped = self._guarded_dispatch(live, run)
+        self._trace_span(live, "fetch", t_f)
         with self._lock:
             self._counters["batches"] += 1
+        if tripped:
+            # requests already failed by the watchdog callback; their
+            # slots are dead weight now: free them, then drain the stream
+            for i, meta, _ in due:
+                pool.release(i)
+                if meta.req.kind == "stream":
+                    self._invalidate_stream(meta.req.stream_id)
+            self._after_trip()
+            return
+        flows, resids, c1_rows = out
         for pos, (i, meta, reason) in enumerate(due):
             r = meta.req
             f = self._request_flow(r, flows[pos])
@@ -1660,9 +2007,12 @@ class ServeEngine:
                         self._resid_iter_cnt[i0:eff] += 1
                 if k:
                     self._resid_final.observe(float(traj[-1]))
+                    if r.trace is not None:
+                        r.trace.annotate(final_residual=round(float(traj[-1]), 6))
                 if c1_rows is not None and r.kind == "stream":
                     self._store_stream_flow(r.stream_id, c1_rows[pos])
-                self._finish_ok(r, f, eff, level=meta.level, exit_reason=reason, warm_started=meta.warm)
+                self._finish_ok(r, f, eff, level=meta.level, exit_reason=reason, warm_started=meta.warm,
+                                residuals=tuple(float(x) for x in traj) if (k and r.trace is not None) else None)
             else:
                 self._quarantine(r)
                 if r.kind == "stream":
@@ -1730,7 +2080,14 @@ class ServeEngine:
         iters = self._controller.observe(
             min(1.0, depth_now / self._queue.capacity), self._p99(live[0].bucket)
         )
-        return iters, self._controller.level
+        level = self._controller.level
+        if level != self._last_level:
+            # each controller move is a fault-ladder event: the seconds of
+            # context before an incident show the pressure ramp
+            self.recorder.record("degradation_step", frm=self._last_level, to=level, num_flow_updates=iters,
+                                 queue_depth=depth_now)
+            self._last_level = level
+        return iters, level
 
     def _pool_admit_pairs(self, pool: BucketPool, live: List[Request], ctrl_iters: int, level: int) -> None:
         seeded = [r for r in live if r.init8 is not None]
@@ -1744,10 +2101,18 @@ class ServeEngine:
                 return
         bh, bw = pool.bucket
         rung = self._rung_admit(len(live))
+        t_form = time.monotonic()
+        self._trace_queue_wait(live, t_form)
         pad = [np.zeros((1, bh, bw, 3), np.float32)] * (rung - len(live))
         p1 = np.concatenate([r.p1 for r in live] + pad)
         p2 = np.concatenate([r.p2 for r in live] + pad)
-        rows = self._run_pool_begin(_nchw(p1), _nchw(p2))
+        t0 = time.monotonic()
+        self._trace_span(live, "batch_form", t_form, t0, rung=rung)
+        rows, tripped = self._guarded_dispatch(live, lambda: self._run_pool_begin(_nchw(p1), _nchw(p2)))
+        if tripped:
+            self._after_trip()
+            return
+        self._trace_span(live, "dispatch", t0, rung=rung)
         self._pool_insert_live(pool, rows, live, ctrl_iters, level)
 
     def _pool_admit_pairs_seeded(self, pool: BucketPool, live: List[Request], ctrl_iters: int, level: int) -> None:
@@ -1757,16 +2122,35 @@ class ServeEngine:
         carry encode(0) rows that the insert mask discards."""
         rung = self._rung_admit(len(live))
         shape = (self._admit_cap,) + tuple(pool.bucket) + (3,)
+        t_form = time.monotonic()
+        self._trace_queue_wait(live, t_form)
         p1 = self._staging.fill(("pool_p1", pool.bucket), shape, [r.p1 for r in live], rung)
         p2 = self._staging.fill(("pool_p2", pool.bucket), shape, [r.p2 for r in live], rung)
-        # one encode graph serves both frames: keep the first's outputs
-        # before the second replay overwrites them
-        f1, c1 = (t.clone() for t in self._run_encode(p1))
-        f2, _ = self._run_encode(p2)
+        t_e = time.monotonic()
+        self._trace_span(live, "batch_form", t_form, t_e, rung=rung)
+
+        def encode():
+            # one encode graph serves both frames: keep the first's outputs
+            # before the second replay overwrites them
+            f1, c1 = (t.clone() for t in self._run_encode(p1))
+            f2, _ = self._run_encode(p2)
+            return f1, c1, f2
+
+        out, tripped = self._guarded_dispatch(live, encode)
+        if tripped:
+            self._after_trip()
+            return
+        f1, c1, f2 = out
+        self._trace_span(live, "encode", t_e, rung=rung)
         ishape = (self._admit_cap, 2) + tuple(f1.shape[2:])
         init = self._staging.fill(("pool_init", pool.bucket), ishape, [_nchw_rows(r.init8) for r in live], rung)
-        rows = self._run_pool_begin_features(f1, f2, c1, init)
+        t0 = time.monotonic()
+        rows, tripped = self._guarded_dispatch(live, lambda: self._run_pool_begin_features(f1, f2, c1, init))
         self._staging.mark()
+        if tripped:
+            self._after_trip()
+            return
+        self._trace_span(live, "dispatch", t0, rung=rung)
         self._pool_insert_live(pool, rows, live, ctrl_iters, level)
 
     def _pool_admit_stream(self, pool: BucketPool, live: List[Request], ctrl_iters: int, level: int) -> None:
@@ -1775,18 +2159,34 @@ class ServeEngine:
         previous frame from features (warm-started when on)."""
         rung = self._rung_admit(len(live))
         shape = (self._admit_cap,) + tuple(pool.bucket) + (3,)
+        t_form = time.monotonic()
+        self._trace_queue_wait(live, t_form)
         frames = self._staging.fill(("pool_frames", pool.bucket), shape, [r.p2 for r in live], rung)
-        fmap, ctx = self._run_encode(frames)
-        self._staging.mark()
-        flow_reqs, rows = self._stream_transact(live, fmap, ctx, ctrl_iters, level)
+        t_e = time.monotonic()
+        enc, tripped = self._guarded_dispatch(live, lambda: self._encode_checked(frames, len(live)))
+        if tripped:
+            self._after_trip()
+            for r in live:
+                self._invalidate_stream(r.stream_id)
+            return
+        self._trace_span(live, "encode", t_e, rung=rung)
+        flow_reqs, rows = self._stream_transact(live, *enc, ctrl_iters, level)
         if not flow_reqs:
             return
         rung2 = self._rung_admit(len(flow_reqs))
         f1, f2, cx = (_stack_rows([rr[k] for rr in rows], rung2) for k in range(3))
         ishape = (self._admit_cap, 2) + tuple(f1.shape[2:])
         init = self._staging.fill(("pool_init", pool.bucket), ishape, [_nchw_rows(rr[3]) for rr in rows], rung2)
-        state_rows = self._run_pool_begin_features(f1, f2, cx, init)
+        t0 = time.monotonic()
+        state_rows, tripped = self._guarded_dispatch(
+            flow_reqs, lambda: self._run_pool_begin_features(f1, f2, cx, init))
         self._staging.mark()
+        if tripped:
+            self._after_trip()
+            for r in flow_reqs:
+                self._invalidate_stream(r.stream_id)
+            return
+        self._trace_span(flow_reqs, "dispatch", t0, rung=rung2)
         self._pool_insert_live(pool, state_rows, flow_reqs, ctrl_iters, level)
 
     def _pool_insert_live(self, pool: BucketPool, rows, live: List[Request], ctrl_iters: int, level: int) -> None:
@@ -1818,11 +2218,17 @@ class ServeEngine:
         """Advance every slot of ``pool`` by ONE refinement iteration.
         Already-converged slots are frozen on device (idle slot
         iterations). When the pacing window is full, the oldest tick's
-        token — its packed converged mask — is fetched."""
+        token — its packed converged mask — is fetched: the host's wait on
+        the tick's replay, where a device stall shows. A watchdog trip in
+        the launch or the fetch resets the pool (:meth:`_pool_reset_tripped`)."""
         occupied = pool.occupied()
+        live = [m.req for _, m in occupied]
         live_n = len(occupied)
         frozen_n = sum(1 for _, m in occupied if m.converged)
-        token = self._run_pool_step(pool)
+        token, tripped = self._guarded_dispatch(live, lambda: self._run_pool_step(pool))
+        if tripped:
+            self._pool_reset_tripped(pool, "watchdog trip")
+            return
         for _, m in occupied:
             if not m.converged:
                 m.done += 1
@@ -1838,10 +2244,13 @@ class ServeEngine:
         pool.pending.append((time.monotonic(), token, occupants))
         while len(pool.pending) > self.config.pipeline_depth:
             _, tok, occ = pool.pending.popleft()
-            mask = tok.fetch()
+            mask, tripped = self._guarded_dispatch(live, tok.fetch)
             pool.note_drain(time.monotonic())
             with self._lock:
                 self._batch_ms_ewma += 0.2 * (pool.tick_ewma_ms - self._batch_ms_ewma)
+            if tripped:
+                self._pool_reset_tripped(pool, "watchdog trip (drain)")
+                return
             self._apply_converged_mask(pool, mask, occ)
 
     def _apply_converged_mask(self, pool: BucketPool, mask, occupants) -> None:
@@ -1858,6 +2267,56 @@ class ServeEngine:
             if m is not None and m.req.rid == rid and not m.converged:
                 m.converged = True
                 m.converged_done = done_after
+
+    # -- the device deadline and the trace spans -----------------------------
+
+    def _guarded_dispatch(self, live: List[Request], fn):
+        """Run one dispatch, or the host's wait on one, under the
+        per-dispatch device deadline (``apply_timeout_s``).
+
+        Returns ``(result, tripped)``. On a trip the watcher thread has
+        already failed ``live`` with ``DeadlineExceeded`` and counted it;
+        ``fn`` still runs to its end (work queued on the card cannot be
+        cancelled), and the caller drops its result and calls
+        :meth:`_after_trip` before any further replay.
+        """
+        if self._watchdog is None:
+            return fn(), False
+        tripped: List[str] = []
+
+        def on_timeout(name, _live=live, _tripped=tripped):
+            # the watcher thread's callback: fail the dispatch's requests
+            # and count the trip now (the stalled dispatch may hold the
+            # worker a while yet; it is abandoned when it returns)
+            _tripped.append(name)
+            self._count("watchdog_trips")
+            for r in _live:
+                r.finish(error=DeadlineExceeded(f"device execution exceeded {self.config.apply_timeout_s:g}s"))
+
+        with self._watchdog.section("serve/apply", on_timeout=on_timeout):
+            out = fn()
+        return out, bool(tripped)
+
+    def _after_trip(self) -> None:
+        """After a tripped dispatch: wait until the stream has drained the
+        stalled work, so the next replay starts behind it and no abandoned
+        replay still writes a buffer a later request reads."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _trace_queue_wait(self, live: List[Request], now: float) -> None:
+        """Per-request span from submission to batch formation."""
+        for r in live:
+            if r.trace is not None:
+                r.trace.add_span("queue_wait", r.t_submit, now)
+
+    def _trace_span(self, live: List[Request], name: str, t0: float, t1: Optional[float] = None, **attrs) -> None:
+        """One shared-timestamp span recorded on every sampled request."""
+        if t1 is None:
+            t1 = time.monotonic()
+        for r in live:
+            if r.trace is not None:
+                r.trace.add_span(name, t0, t1, **attrs)
 
     # -- dispatch seams ----------------------------------------------------
 
@@ -1889,24 +2348,28 @@ class ServeEngine:
         bw, 3)`` images): its ``(rung, 2, bh, bw)`` flow on the device,
         valid until the program's next replay."""
         key = ("pairwise", p1.shape[0], p1.shape[1], p1.shape[2], int(iters))
-        return self.ledger.run(key, lambda: self._batch_progs.run_pairwise(p1, p2, iters))
+        with profile.annotate("serve/pairwise"):
+            return self.ledger.run(key, lambda: self._batch_progs.run_pairwise(p1, p2, iters))
 
     def _run_encode(self, frames):
         """One frame-encode batch (host NHWC): (feature map, raw context)
         on the device, valid until the program's next replay."""
         key = ("encode", frames.shape[0], frames.shape[1], frames.shape[2])
-        return self.ledger.run(key, lambda: self._batch_progs.run_encode(frames))
+        with profile.annotate("serve/encode"):
+            return self.ledger.run(key, lambda: self._batch_progs.run_encode(frames))
 
     def _run_iterate(self, f1, f2, ctx, iters: int) -> torch.Tensor:
         """One refinement batch from encoded frames (device tensors)."""
         key = ("iterate", f1.shape[0], f1.shape[2], f1.shape[3], int(iters))
-        return self.ledger.run(key, lambda: self._batch_progs.run_iterate(f1, f2, ctx, iters))
+        with profile.annotate("serve/iterate"):
+            return self.ledger.run(key, lambda: self._batch_progs.run_iterate(f1, f2, ctx, iters))
 
     def _run_pool_begin_features(self, f1, f2, ctx, init_flow):
         """One pool admission from encoded frames, with the warm-start
         seed ``init_flow`` ``(r, 2, h8, w8)`` (zeros: the cold start)."""
         key = ("pool_begin_features", f1.shape[0], f1.shape[2], f1.shape[3])
-        return self.ledger.run(key, lambda: self._pool_progs.run_begin_features(f1, f2, ctx, init_flow))
+        with profile.annotate("serve/pool_begin_features"):
+            return self.ledger.run(key, lambda: self._pool_progs.run_begin_features(f1, f2, ctx, init_flow))
 
     def _request_flow(self, req: Request, flow: np.ndarray) -> np.ndarray:
         """Per-request output hook (a seam: tests poison a request's flow
@@ -1917,22 +2380,24 @@ class ServeEngine:
         """One pool admission (pair encode + state init) from host NCHW
         images; the copy to the card happens here, on the worker."""
         key = ("pool_begin_pair", p1.shape[0], p1.shape[2], p1.shape[3])
-        return self.ledger.run(key, lambda: self._pool_progs.run_begin_pair(p1, p2))
+        with profile.annotate("serve/pool_begin"):
+            return self.ledger.run(key, lambda: self._pool_progs.run_begin_pair(p1, p2))
 
     def _run_pool_step(self, pool: BucketPool) -> _Token:
         """ONE refinement iteration across all of ``pool``'s slots, and its
         pacing token on its way to the host."""
         c = pool.state["coords1"]
         key = ("pool_step", c.shape[0], c.shape[2], c.shape[3])
-
-        return self.ledger.run(
-            key, lambda: self._to_host(self._pool_progs.run_step(pool.state), ("token", pool.bucket))
-        )
+        with profile.annotate("serve/pool_step"):
+            return self.ledger.run(
+                key, lambda: self._to_host(self._pool_progs.run_step(pool.state), ("token", pool.bucket))
+            )
 
     def _run_pool_final(self, coords1, hidden) -> torch.Tensor:
         """The final upsample of retiring slots' carry."""
         key = ("pool_final", coords1.shape[0], coords1.shape[2], coords1.shape[3])
-        return self.ledger.run(key, lambda: self._pool_progs.run_final(coords1, hidden))
+        with profile.annotate("serve/pool_final"):
+            return self.ledger.run(key, lambda: self._pool_progs.run_final(coords1, hidden))
 
     def _pool_insert(self, state, rows, idx, mask):
         """Write the admission cohort's rows into their slots (eager index
@@ -1948,10 +2413,11 @@ class ServeEngine:
 
     # -- the stream session cache ----------------------------------------
 
-    def _stream_transact(self, live: List[Request], fmap: torch.Tensor, ctx: torch.Tensor, iters: int,
-                         level: int):
+    def _stream_transact(self, live: List[Request], fmap: torch.Tensor, ctx: torch.Tensor, finite: List[bool],
+                         iters: int, level: int):
         """Transact each session's feature cache against an encode batch
-        (shared by both engines). Primes finish at once; returns the
+        (shared by both engines; ``finite``: per live row, whether its
+        maps are finite, :meth:`_encode_checked`). Primes finish at once; returns the
         requests that had a cached previous frame and their (prev fmap,
         new fmap, prev context, init_flow) rows for the refinement stage,
         the maps ``(1, C, h8, w8)`` on the device.
@@ -1961,8 +2427,6 @@ class ServeEngine:
         zeros (the cold start, bit for bit) when warm start is off, the
         session has no flow yet, or the whole-request engine serves (its
         iterate takes no seed)."""
-        n = len(live)
-        finite = (torch.isfinite(fmap[:n]).flatten(1).all(1) & torch.isfinite(ctx[:n]).flatten(1).all(1)).tolist()
         h8, w8 = int(fmap.shape[2]), int(fmap.shape[3])
         zero_flow = np.zeros((1, h8, w8, 2), np.float32)
         flow_reqs: List[Request] = []
@@ -2048,12 +2512,17 @@ class ServeEngine:
             self._counters["quarantined"] += 1
             self._quarantined_rids.append(r.rid)
             del self._quarantined_rids[:-100]
+        self.recorder.record("quarantine", rid=r.rid, req_kind=r.kind)
 
     def _finish_ok(self, r: Request, flow: Optional[np.ndarray], iters: int, *, level: Optional[int] = None,
                    retried: bool = False, primed: bool = False, exit_reason: str = "target",
-                   warm_started: bool = False) -> ServeResult:
+                   warm_started: bool = False, residuals: Optional[Tuple[float, ...]] = None) -> ServeResult:
         level = self._controller.level if level is None else level
         latency_ms = (time.monotonic() - r.t_submit) * 1e3
+        if r.trace is not None:
+            r.trace.annotate(bucket=f"{r.bucket[0]}x{r.bucket[1]}", level=level, num_flow_updates=iters,
+                             retried_single=retried, primed=primed, exit_reason=exit_reason,
+                             warm_started=warm_started, latency_ms=round(latency_ms, 3))
         result = ServeResult(
             flow=None if flow is None else self._router.crop(flow, r.orig_hw),
             rid=r.rid,
@@ -2066,6 +2535,8 @@ class ServeEngine:
             retried_single=retried,
             primed=primed,
             exit_reason=exit_reason,
+            trace_id=None if r.trace is None else r.trace.trace_id,
+            residuals=residuals,
             warm_started=warm_started,
         )
 
@@ -2108,8 +2579,9 @@ class ServeEngine:
             return None
         try:
             policy.admit(tenant, priority)
-        except QuotaExceeded:
+        except QuotaExceeded as e:
             self._qos_stats.count(priority, "quota_refused")
+            self.recorder.record("quota_breach", tenant=tenant, priority=priority, retry_after_ms=e.retry_after_ms)
             raise
         lock = threading.Lock()
         done = [False]
@@ -2138,6 +2610,8 @@ class ServeEngine:
             if v.finish(error=err):
                 self._count("shed")
                 self._qos_stats.count(v.priority, "preempted")
+                self.recorder.record("qos_preempt", rid=v.rid, priority=v.priority, tenant=v.tenant, by_rid=by.rid,
+                                     by_priority=by.priority, retry_after_ms=retry_ms)
 
     def _qos_levels(self, live: List[Request], iters: int, level: int) -> Tuple[int, int]:
         """Class-aware brownout of a whole-request batch: under pressure

@@ -43,7 +43,7 @@ class Request:
     __slots__ = (
         "rid", "bucket", "p1", "p2", "orig_hw", "deadline", "t_submit",
         "slow_path", "kind", "stream_id", "iters", "warm", "init8", "priority",
-        "tenant", "rank", "_event", "_lock", "_done", "_callbacks", "result", "error",
+        "tenant", "rank", "trace", "_event", "_lock", "_done", "_callbacks", "result", "error",
     )
 
     def __init__(
@@ -76,6 +76,7 @@ class Request:
         self.priority = priority            # QoS class
         self.tenant = tenant
         self.rank = rank_of(priority)       # 0 = interactive ... 2 = batch
+        self.trace = None     # obs.trace.Trace when sampled
         self.warm = False     # admitted with a warm-start seed
         self.init8 = None     # (1, bh/8, bw/8, 2) init_flow seed (pair requests only)
         self._event = threading.Event()
@@ -116,6 +117,15 @@ class Request:
                 on_first(self)
             except Exception:
                 pass  # accounting never breaks completion
+        if self.trace is not None:
+            # every completion path seals the trace exactly once (the
+            # trace's own finish is set-once, mirroring this method),
+            # BEFORE the caller is woken, so a caller that reads the
+            # result's trace_id finds the finished record
+            self.trace.finish(
+                ok=error is None,
+                error=None if error is None else repr(error),
+            )
         self._event.set()
         for fn in callbacks:
             try:

@@ -9,10 +9,11 @@
     python -m raft_tpu_torch.train ... --corr-impl fused --corr-dtype bfloat16 \
         --remat --remat-policy dots --window-size 2  # K1 in the step
 
-The arguments are the JAX package's ``scripts/train.py``'s; the knobs the
-port has not ported yet (``--watchdog-timeout``, ``--profile-port``) raise,
-and ``--corr-impl pallas|onthefly`` does not train (K3 defines no
-gradient; the on-the-fly block is not ported). ``--init-from`` and
+The arguments are the JAX package's ``scripts/train.py``'s;
+``--profile-port`` raises (PyTorch has no profiler server: profile
+in-process with ``torch.profiler``), and ``--corr-impl pallas|onthefly``
+does not train (K3 defines no gradient; the on-the-fly block is not
+ported). ``--init-from`` and
 ``--export`` take the port's weight files (``--init-from`` also a Flax
 ``.msgpack``).
 """
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-dir", default=None, help="write JSONL scalars here")
     p.add_argument("--log-every", type=int, default=100)
-    p.add_argument("--profile-port", type=int, default=None, help="not ported yet: raises")
+    p.add_argument("--profile-port", type=int, default=None, help="refused: PyTorch has no profiler server")
     p.add_argument("--init-from", default=None, help="weights to start from (.pt/.pth or Flax .msgpack)")
     p.add_argument("--corr-impl", default="dense", choices=["dense", "onthefly", "pallas", "fused"],
                    help="'dense', or 'fused' (K1 runs the lookup + convcorr1 forward, the dense "
@@ -111,7 +112,9 @@ def main(argv=None) -> int:
     p.add_argument("--data-fault-policy", default="skip", choices=["skip", "raise"])
     p.add_argument("--data-bad-sample-budget", type=int, default=64)
     p.add_argument("--eval-fault-policy", default="skip", choices=["skip", "raise"])
-    p.add_argument("--watchdog-timeout", type=float, default=None, help="not ported yet: raises")
+    p.add_argument("--watchdog-timeout", type=float, default=None,
+                   help="seconds a blocking region of the loop may stall before StallError (stacks to "
+                        "<log-dir>/stall_stacks.log)")
     p.add_argument("--numerics-policy", default="raise", choices=["raise", "skip"])
     p.add_argument("--spike-factor", type=float, default=20.0)
     p.add_argument("--skip-budget", type=int, default=5)

@@ -18,6 +18,12 @@ being enough:
   * After ``max_rollbacks`` escalations the monitor raises
     :class:`DivergenceError` carrying the full attempt trail.
 
+With a flight recorder (``recorder=``, :mod:`raft_tpu_torch.obs.recorder`)
+skip windows, budget breaches and rollbacks become structured events
+(``nan_skip_window``, ``skip_budget_breach``, ``rollback``), and a
+``DivergenceError`` records ``divergence_death`` and dumps a postmortem
+bundle as it raises.
+
 Nothing here runs on the hot path.
 """
 
@@ -110,29 +116,51 @@ class StabilityMonitor:
             monitor.record_rollback(step, to_step, window_skips)
     """
 
-    def __init__(self, policy: StabilityPolicy, *, base_seed: int = 0):
+    def __init__(self, policy: StabilityPolicy, *, base_seed: int = 0, recorder=None):
         self.policy = policy
         self.base_seed = int(base_seed)
         self.rollbacks: List[RollbackAttempt] = []
         self.total_skipped = 0
+        # optional obs.FlightRecorder: skip windows, budget breaches and
+        # rollbacks become structured events; a DivergenceError dumps the
+        # postmortem bundle as it raises
+        self.recorder = recorder
 
     # -- boundary-side API -------------------------------------------------
 
     def breached(self, window_skips: int) -> bool:
         """Did this window's skip count blow the per-window budget?"""
         self.total_skipped += int(window_skips)
-        return int(window_skips) > self.policy.skip_budget
+        breached = int(window_skips) > self.policy.skip_budget
+        if self.recorder is not None and window_skips:
+            self.recorder.record(
+                "skip_budget_breach" if breached else "nan_skip_window",
+                skips=int(window_skips), budget=self.policy.skip_budget,
+            )
+        return breached
+
+    def _die(self, err: DivergenceError) -> None:
+        """Dump the flight recorder as the escalation ladder kills the
+        run: the exception carries the attempt trail, the bundle the
+        surrounding event context."""
+        if self.recorder is not None:
+            try:
+                self.recorder.record("divergence_death", error=str(err))
+                self.recorder.dump("divergence", extra={"attempts": [a.describe() for a in self.rollbacks]})
+            except Exception:
+                pass
+        raise err
 
     def check_escalation(self, at_step: int, window_skips: int) -> None:
         """Raise :class:`DivergenceError` when the rollback budget is spent
         (or rollback is impossible — ``can_rollback=False`` from the
         Trainer means no checkpoint manager to restore from)."""
         if len(self.rollbacks) >= self.policy.max_rollbacks:
-            raise DivergenceError(self._death_message(at_step, window_skips), self.rollbacks)
+            self._die(DivergenceError(self._death_message(at_step, window_skips), self.rollbacks))
 
     def fail(self, at_step: int, window_skips: int, reason: str) -> None:
         """Unconditional escalation to death (e.g. no checkpoint dir)."""
-        raise DivergenceError(f"{self._death_message(at_step, window_skips)} ({reason})", self.rollbacks)
+        self._die(DivergenceError(f"{self._death_message(at_step, window_skips)} ({reason})", self.rollbacks))
 
     def next_seed(self) -> int:
         """Data-order seed for the NEXT rollback attempt."""
@@ -156,6 +184,12 @@ class StabilityMonitor:
             ),
         )
         self.rollbacks.append(attempt)
+        if self.recorder is not None:
+            self.recorder.record(
+                "rollback", at_step=attempt.at_step, to_step=attempt.to_step,
+                window_skips=attempt.window_skips, seed=attempt.seed,
+                lr_scale=attempt.lr_scale, attempt=len(self.rollbacks),
+            )
         return attempt
 
     # -- reporting ---------------------------------------------------------

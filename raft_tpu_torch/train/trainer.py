@@ -19,15 +19,30 @@ the next window boundary, in one process; ``corr_impl`` ``'dense'`` and
 ``'fused'`` with ``remat_policy``; the device-time ledger of the window
 step (``ledger_sample_every``, family ``train_window_step/<k>``).
 
-Not ported yet, each raising ``NotImplementedError`` from
-:meth:`Trainer._check_ported`: ``watchdog_timeout`` and ``profile_port``.
-``corr_impl='pallas'`` does not train (K3 defines no gradient). The JAX
-trainer's traces and flight recorder have no knob and no port yet
-(ROADMAP queue 1 item 3f).
+Observability, as in the JAX trainer: a metrics registry with the phase
+histograms (``data_wait``, ``dispatch``, ``metric_fetch``, ``checkpoint``,
+``eval``, in ms), a flight recorder (``trainer.recorder``) that the
+stability ladder and the stall watchdog dump through, and one
+``train_window`` trace per dispatch window (``trainer.tracer``, every
+window sampled, the last 64 kept). ``watchdog_timeout`` arms a
+:class:`~raft_tpu_torch.utils.faults.Watchdog` around the blocking
+host-side regions (``data/next``, ``train/step``, ``train/device_sync``
+at the boundary's metrics fetch, where a step queued on the card is
+actually waited for, ``checkpoint/save``, ``checkpoint/preempt``,
+``rollback``, ``eval``); a stall raises ``StallError`` and writes every
+thread's stack to ``<log_dir>/stall_stacks.log``.
+
+``profile_port`` is refused on purpose: ``jax.profiler.start_server``
+serves a live profile to a remote TensorBoard and PyTorch has no such
+server (a profile is taken in-process with ``torch.profiler``; the
+``train/window_dispatch`` range of :mod:`raft_tpu_torch.obs.profile`
+marks the dispatches in it). ``corr_impl='pallas'`` does not train (K3
+defines no gradient).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -46,13 +61,13 @@ from raft_tpu_torch.data.pipeline import TrainPipeline
 from raft_tpu_torch.device import resolve_device
 from raft_tpu_torch.eval.validate import validate
 from raft_tpu_torch.models.zoo import CONFIGS, build_raft
-from raft_tpu_torch.obs import DeviceTimeLedger, MetricsRegistry
+from raft_tpu_torch.obs import DeviceTimeLedger, FlightRecorder, MetricsRegistry, Tracer, logger_sink, profile
 from raft_tpu_torch.train.optim import make_optimizer, one_cycle_lr
 from raft_tpu_torch.train.stability import StabilityMonitor, StabilityPolicy
 from raft_tpu_torch.train.state import TrainState
 from raft_tpu_torch.train.step import make_train_step, make_window_step
 from raft_tpu_torch.utils.debug import NumericsError, format_report, nonfinite_report
-from raft_tpu_torch.utils.faults import DataFaultPolicy
+from raft_tpu_torch.utils.faults import DataFaultPolicy, Watchdog
 from raft_tpu_torch.utils.logging import MetricLogger
 
 __all__ = ["TrainConfig", "STAGES", "Trainer"]
@@ -77,7 +92,9 @@ class TrainConfig:
     checkpoint_every: int = 5_000
     log_every: int = 100
     log_dir: Optional[str] = None  # durable scalars (JSONL)
-    profile_port: Optional[int] = None  # not ported: raises
+    # jax.profiler.start_server's port in the JAX package; refused here
+    # (no PyTorch counterpart: profile in-process with torch.profiler)
+    profile_port: Optional[int] = None
     remat: bool = False
     # selective-remat policy under remat=True ('dots', 'dots_no_batch',
     # 'corr': models.raft.REMAT_POLICIES)
@@ -125,7 +142,9 @@ class TrainConfig:
     # In-loop eval failures (OOM, one bad val sample): 'skip' logs an
     # eval/failed scalar and keeps training; 'raise' kills the run.
     eval_fault_policy: str = "skip"
-    # stall watchdog: not ported, raises when set
+    # stall watchdog (utils.faults.Watchdog): seconds a guarded host-side
+    # region (data fetch, dispatch, boundary metrics fetch, checkpoint,
+    # rollback, eval) may block before StallError; None disables
     watchdog_timeout: Optional[float] = None
     # --- divergence resilience (the model-fault ladder)
     # 'raise': the pre-existing fail-fast behavior (check_numerics raises
@@ -213,21 +232,19 @@ class Trainer:
 
     @staticmethod
     def _check_ported(config: TrainConfig) -> None:
-        """Raise for the JAX trainer's knobs the port does not have yet,
-        each naming its ROADMAP item, and for ``corr_impl='pallas'``;
-        none falls back."""
+        """Raise for ``corr_impl='pallas'`` and for ``profile_port`` (a
+        deliberate difference from the JAX trainer); neither falls back."""
         if config.corr_impl == "pallas":
             raise NotImplementedError(
                 "training at corr_impl='pallas' is not supported: K3, its pyramid kernel, defines no gradient "
                 "(train.step.check_trainable); train with corr_impl='dense' or 'fused'"
             )
-        unported = [
-            (config.watchdog_timeout is not None, "watchdog_timeout (the stall watchdog)", "queue 1 item 3g"),
-            (config.profile_port is not None, "profile_port (the live profiler server)", "queue 1 item 3f"),
-        ]
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+        if config.profile_port is not None:
+            raise NotImplementedError(
+                "profile_port has no counterpart in raft_tpu_torch: jax.profiler.start_server serves a live profile "
+                "to a remote TensorBoard and PyTorch has no profiler server; take the profile in-process with "
+                "torch.profiler (the dispatches carry raft_tpu_torch.obs.profile's train/window_dispatch range)"
+            )
 
     def __init__(self, config: TrainConfig, dataset, *, init_from=None, eval_dataset=None, eval_fn=None):
         if config.corr_dtype == "int8":
@@ -268,8 +285,21 @@ class Trainer:
             skip_budget=config.skip_budget, max_rollbacks=config.max_rollbacks,
             rollback_lr_scale=config.rollback_lr_scale,
         )
+        # the observability spine: per-window traces (data wait, dispatch,
+        # metric fetch, checkpoint and eval spans), phase histograms, and
+        # a flight recorder that the stability ladder and the stall
+        # watchdog dump through
+        self.metrics = MetricsRegistry("train")
+        self.recorder = FlightRecorder(proc="trainer")
+        self.tracer = Tracer(1.0, capacity=64, prefix="trn", on_finish=self.recorder.add_trace)
+        self._phase_hist = {
+            name: self.metrics.histogram(f"{name}_ms")
+            for name in ("data_wait", "dispatch", "metric_fetch", "checkpoint", "eval")
+        }
+        self._obs_counters = self.metrics.counter_group("counters", ("windows", "boundaries", "checkpoints", "evals"))
+        self.watchdog: Optional[Watchdog] = None
         self.stability = (
-            StabilityMonitor(stability_policy, base_seed=config.seed)
+            StabilityMonitor(stability_policy, base_seed=config.seed, recorder=self.recorder)
             if config.numerics_policy == "skip" else None
         )
         self._lr_scale = 1.0
@@ -281,7 +311,6 @@ class Trainer:
         self._make_step_fns()
         # the device-time ledger: the trainer's one device family is the
         # window step, every Kth dispatch timed
-        self.metrics = MetricsRegistry("train")
         self.ledger = DeviceTimeLedger(config.ledger_sample_every, device=self.device, registry=self.metrics)
 
         self.manager = None
@@ -432,31 +461,34 @@ class Trainer:
                     report,
                 )
 
-    def _rollback(self, at_step: int, window_skips: int, log_fn, logger) -> None:
+    def _rollback(self, at_step: int, window_skips: int, guard, log_fn, logger) -> None:
         """Persistent-divergence recovery: restore the last known-good
         checkpoint, perturb the data-order seed, scale the LR when
         ``rollback_lr_scale < 1``; DivergenceError when the budget is
-        spent or nothing can be restored."""
+        spent or nothing can be restored. The restore runs in a
+        ``rollback`` watchdog section: a wedged restore dumps stacks and
+        raises ``StallError``."""
         mon = self.stability
         mon.check_escalation(at_step, window_skips)
         if self.manager is None:
             mon.fail(at_step, window_skips, "no checkpoint_dir configured: nothing to roll back to")
         new_seed = mon.next_seed()
         lr_scale = mon.next_lr_scale()
-        if self.manager.restore_known_good(self.state, before=at_step) is None:
-            mon.fail(at_step, window_skips, "no retained checkpoint to roll back to")
-        # the trajectory past the restore point is abandoned
-        to_step = int(self.state.step)
-        for s in sorted(self.manager.all_steps(), reverse=True):
-            if s > to_step:
-                self.manager.delete(s)
-        if self.config.rollback_lr_scale != 1.0:
-            self._lr_scale = lr_scale
-            base = self.lr_schedule
-            self.tx = make_optimizer(lambda count, s=lr_scale: base(count) * s,
-                                     weight_decay=self.config.weight_decay, clip_norm=self.config.clip_norm)
-            self._make_step_fns()
-        self.pipeline = self._build_pipeline(seed=new_seed, start_step=to_step)
+        with guard("rollback", scale=5.0):
+            if self.manager.restore_known_good(self.state, before=at_step) is None:
+                mon.fail(at_step, window_skips, "no retained checkpoint to roll back to")
+            # the trajectory past the restore point is abandoned
+            to_step = int(self.state.step)
+            for s in sorted(self.manager.all_steps(), reverse=True):
+                if s > to_step:
+                    self.manager.delete(s)
+            if self.config.rollback_lr_scale != 1.0:
+                self._lr_scale = lr_scale
+                base = self.lr_schedule
+                self.tx = make_optimizer(lambda count, s=lr_scale: base(count) * s,
+                                         weight_decay=self.config.weight_decay, clip_norm=self.config.clip_norm)
+                self._make_step_fns()
+            self.pipeline = self._build_pipeline(seed=new_seed, start_step=to_step)
         attempt = mon.record_rollback(at_step, to_step, window_skips, seed=new_seed, lr_scale=lr_scale)
         self._pending_good = []
         self._eval_ok = True
@@ -514,6 +546,12 @@ class Trainer:
                     json.dump({"step": step, "epe": self.best_epe}, f)
                 os.replace(tmp_j, os.path.join(d, "best.json"))
 
+    def _next_batch(self, data_iter, step: int):
+        """The next batch (or window) from the pipeline for ``step``; a
+        seam (``FaultInjector.patch_batches`` fires its ``data.next``
+        site here, inside the ``data/next`` watchdog section)."""
+        return next(data_iter)
+
     def _install_preemption_handler(self):
         """SIGTERM/SIGINT set a flag; the loop checkpoints and returns at
         the next step boundary. Returns the function that puts the old
@@ -551,36 +589,90 @@ class Trainer:
                 f"resumed at step {start}, which is not a multiple of window_size={wsize} (a checkpoint from a "
                 f"differently windowed run?); resume with window_size=1 or a divisor of {start} to realign"
             )
-        logger = MetricLogger(cfg.log_dir) if cfg.log_dir else None
+        logger = None
+        if cfg.log_dir:
+            logger = MetricLogger(cfg.log_dir)
+            # postmortem bundles (watchdog trip, divergence death) persist
+            # through the logger's structured events file
+            self.recorder.add_sink(logger_sink(logger))
         self.model.train()
         t0 = time.perf_counter()
         window: list = []
         data_iter = iter(self.pipeline)
         restore_handlers = self._install_preemption_handler() if self.manager is not None else (lambda: None)
+        # stall watchdog: armed around every blocking host-side region
+        # below, two attribute writes a region, no device sync
+        self.watchdog = None
+        if cfg.watchdog_timeout:
+            dump = os.path.join(cfg.log_dir, "stall_stacks.log") if cfg.log_dir else None
+            self.watchdog = Watchdog(cfg.watchdog_timeout, dump_path=dump, recorder=self.recorder)
+
+        def guard(name, scale=1.0):
+            if self.watchdog is None:
+                return contextlib.nullcontext()
+            return self.watchdog.section(name, scale=scale)
+
         try:
             step = start
+            stretch_next = True  # the first dispatch warms up (cuDNN trials); also post-rollback
             while step < cfg.num_steps:
                 if self.manager is not None and self._preempted:
-                    if self.manager.latest_step() != step:
-                        self.manager.save(step, self.state, force=True)
+                    with guard("checkpoint/preempt"):
+                        if self.manager.latest_step() != step:
+                            self.manager.save(step, self.state, force=True)
                     print(f"preempted: checkpointed step {step}, exiting")
                     return self.state
-                batch = next(data_iter)
-                fn = self.window_fn or self.step_fn
-                self.state, metrics = self.ledger.run(("train_window_step", wsize),
-                                                      lambda: fn(self.state, batch))
+                # the first dispatch runs cuDNN's trials and the first fetch
+                # warms the prefetch pipeline: legitimately slow ONCE, so the
+                # deadline is stretched there instead of loosening the steady
+                # state; steady-state deadlines scale with the window
+                scale = (20.0 if stretch_next else 1.0) * wsize
+                stretch_next = False
+                # one trace a dispatch window, spans over the host's phases
+                wtrace = self.tracer.start("train_window", rid=step)
+                t_a = time.monotonic()
+                with guard("data/next", scale=scale):
+                    batch = self._next_batch(data_iter, step)
+                t_b = time.monotonic()
+                with guard("train/step", scale=scale), profile.annotate("train/window_dispatch"):
+                    fn = self.window_fn or self.step_fn
+                    self.state, metrics = self.ledger.run(("train_window_step", wsize),
+                                                          lambda: fn(self.state, batch))
+                t_c = time.monotonic()
+                if wtrace is not None:
+                    wtrace.add_span("data_wait", t_a, t_b)
+                    wtrace.add_span("dispatch", t_b, t_c, steps=wsize)
+                self._phase_hist["data_wait"].observe((t_b - t_a) * 1e3)
+                self._phase_hist["dispatch"].observe((t_c - t_b) * 1e3)
+                self._obs_counters["windows"] += 1
                 window.append((wsize, metrics))
                 end = step + wsize
                 at_log = end % cfg.log_every == 0
                 hwin = None
                 if at_log or (cfg.check_numerics and self.manager is not None
                               and end % cfg.checkpoint_every == 0):
-                    hwin = self._host_window(window)
+                    t_mf = time.monotonic()
+                    # the boundary's one fetch: where the host actually waits
+                    # for the steps queued on the card, so a device stall
+                    # shows in this section
+                    with guard("train/device_sync", scale=scale):
+                        hwin = self._host_window(window)
+                    if wtrace is not None:
+                        wtrace.add_span("metric_fetch", t_mf)
+                    self._phase_hist["metric_fetch"].observe((time.monotonic() - t_mf) * 1e3)
+                    self._obs_counters["boundaries"] += 1
                     if cfg.check_numerics and cfg.numerics_policy == "raise":
                         # never persist a poisoned state as the latest
                         self._check_window(end, hwin)
-                if self.manager is not None and self.manager.save(end, self.state):
-                    self._pending_good.append(end)
+                if self.manager is not None:
+                    t_ck = time.monotonic()
+                    with guard("checkpoint/save"):
+                        if self.manager.save(end, self.state):
+                            self._pending_good.append(end)
+                            self._obs_counters["checkpoints"] += 1
+                    if wtrace is not None:
+                        wtrace.add_span("checkpoint", t_ck)
+                    self._phase_hist["checkpoint"].observe((time.monotonic() - t_ck) * 1e3)
                 if at_log:
                     # skipped steps carry their bad batch's NaN loss in
                     # their metrics (the state never saw it): keep them out
@@ -612,20 +704,34 @@ class Trainer:
                     window = []
                     t0 = time.perf_counter()
                     if breached:
-                        self._rollback(end, window_skips, log_fn, logger)
+                        self._rollback(end, window_skips, guard, log_fn, logger)
+                        if wtrace is not None:
+                            wtrace.finish(ok=True, step=end, rollback=True)
                         data_iter.close()
                         data_iter = iter(self.pipeline)
                         step = int(self.state.step)
+                        stretch_next = True
                         t0 = time.perf_counter()
                         continue
                 if cfg.eval_every and end % cfg.eval_every == 0:
                     t_eval = time.perf_counter()
-                    self._run_eval(end, log_fn, logger)
+                    t_ev = time.monotonic()
+                    with guard("eval", scale=20.0):  # the whole held-out split
+                        self._run_eval(end, log_fn, logger)
+                    if wtrace is not None:
+                        wtrace.add_span("eval", t_ev)
+                    self._phase_hist["eval"].observe((time.monotonic() - t_ev) * 1e3)
+                    self._obs_counters["evals"] += 1
                     t0 += time.perf_counter() - t_eval  # eval is not training time
+                if wtrace is not None:
+                    wtrace.finish(ok=True, step=end)
                 step = end
         finally:
             restore_handlers()
             data_iter.close()
+            if self.watchdog is not None:
+                # closed but kept: stall_count / last_stall stay readable
+                self.watchdog.close()
             if logger is not None:
                 logger.close()
         if self.manager is not None:

@@ -64,13 +64,19 @@ SLICE_MODULES = (
     "raft_tpu_torch/utils/debug.py",
     "raft_tpu_torch/utils/faults.py",
     "raft_tpu_torch/utils/logging.py",
+    "raft_tpu_torch/obs/alerts.py",
+    "raft_tpu_torch/obs/metrics.py",
+    "raft_tpu_torch/obs/profile.py",
+    "raft_tpu_torch/obs/recorder.py",
+    "raft_tpu_torch/obs/trace.py",
+    "raft_tpu_torch/utils/tripwire.py",
 )
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_slice_modules_are_checked(module):
-    """The evaluation, precision and training slices' modules exist and
-    are among those the two no-JAX checks cover."""
+    """The evaluation, precision, training and observability slices'
+    modules exist and are among those the two no-JAX checks cover."""
     assert ROOT / module in PORT_FILES
 
 

@@ -498,21 +498,10 @@ class TestLadder:
             handle.remove()
         assert all(r.num_flow_updates == 3 and np.isfinite(r.flow).all() for r in results)
 
-    @pytest.mark.parametrize(
-        "kw",
-        [
-            dict(apply_timeout_s=1.0),
-            dict(trace_sample_rate=0.5),
-        ],
-    )
-    def test_unported_knobs_raise(self, tiny, kw):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(tiny[2], _config(**kw), device="cpu")
-
-    @pytest.mark.parametrize("key", ["trace_ctx", "shadow"])
+    @pytest.mark.parametrize("key", ["shadow"])
     def test_unported_submit_many_keys_raise(self, engine, key):
-        """An item key of a path the port has not reached (tracing,
-        rollout mirroring) is refused before anything of the burst is
+        """An item key of a path the port has not reached (rollout
+        mirroring) is refused before anything of the burst is
         admitted."""
         rng = np.random.default_rng(14)
         before = engine.stats()["submitted"]
@@ -601,6 +590,9 @@ BAD_CONFIGS = [
     {"drain_retry_after_ms": 0},
     {"trace_sample_rate": 1.5},
     {"ledger_sample_every": -1},
+    {"alert_short_window_s": 10.0, "alert_long_window_s": 5.0},
+    {"alert_short_window_s": 0.0},
+    {"alert_short_window_s": -1.0, "alert_long_window_s": -0.5},
     {"precision": "fast"},
     {"compute_dtype": "float16"},
     {"corr_dtype": "float16"},
@@ -616,6 +608,15 @@ class TestHostModulesAgainstJax:
         with pytest.raises(ValueError) as got:
             ServeConfig(**kw)
         assert str(got.value) == str(want.value)
+
+    @pytest.mark.parametrize("every", [1, 50, 0, -3])
+    def test_config_log_every_batches_equal(self, every):
+        """``log_every_batches`` keeps the JAX default, and neither
+        package validates it: every value constructs in both (the port's
+        engine logs only at ``stop()`` when it is not positive)."""
+        assert ServeConfig().log_every_batches == jax_config.ServeConfig().log_every_batches == 50
+        assert ServeConfig(log_every_batches=every).log_every_batches == every
+        assert jax_config.ServeConfig(log_every_batches=every).log_every_batches == every
 
     def test_admit_ladders_equal(self):
         for max_batch in (1, 2, 3, 5, 8, 16):

@@ -160,6 +160,38 @@ def test_pipeline_windows_are_the_per_step_batches(chairs):
         TrainPipeline(chairs, 2, device="cpu", window_size=0)
 
 
+class _Copy:
+    """A recorded host-to-device copy, finished or still running."""
+
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        raise AssertionError("window staging waited on the card")
+
+
+def test_window_staging_never_waits_on_a_copy():
+    """A ring slot whose last copy still runs gets a fresh buffer instead
+    of a wait (a wait there is a host sync of the window loop); a slot
+    whose copy has finished is rewritten in place."""
+    from raft_tpu_torch.data.pipeline import _WindowStaging
+
+    staging = _WindowStaging(2, torch.device("cpu"))
+    window = [{"a": np.full((2, 3), j, np.float32), "b": np.full((4,), 10 + j, np.float32)} for j in range(2)]
+    first = [staging.stack(window)[0] for _ in range(2)]
+    ring = next(iter(staging._rings.values()))
+    ring[0][1], ring[1][1] = _Copy(False), _Copy(True)
+    fresh, layout, slot, _ = staging.stack(window)
+    kept = staging.stack(window)[0]
+    assert slot == 0 and fresh is not first[0] and ring[0][0] is fresh and kept is first[1] and staging.fresh == 1
+    expected = np.concatenate([np.stack([w[key] for w in window]).ravel() for key, _, _ in layout])
+    np.testing.assert_array_equal(fresh.numpy(), expected)
+    np.testing.assert_array_equal(kept.numpy(), expected)
+
+
 def _config(tmp, **kw):
     base = dict(arch="raft_small", stage="chairs", num_steps=4, global_batch_size=2, learning_rate=1e-4,
                 num_flow_updates=UPDATES, crop_size=(HW, HW), log_every=2, seed=3, device="cpu",

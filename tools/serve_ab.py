@@ -10,7 +10,8 @@ The parent is a ``git archive`` of another commit unpacked under
 makes the main path's weights (raft_large, seed 0, flow head scaled) and
 runs ``serving_phase`` at 'throughput', 'quality' and 'throughput' again
 (the first engine of a process meets cuDNN's timed search of every conv
-shape; the second does not). One JSON line per phase:
+shape; the second does not), then ``whole_request_phase`` at 'quality'
+(the engine at ``pool_capacity=0``). One JSON line per phase:
 ``{"tree", "run", "preset", "requests_per_s", "idle_share", "peak"}``,
 also appended to ``chiprun_out/serve_ab.jsonl``.
 """
@@ -48,6 +49,10 @@ def run_tree(tree: Path, label: str, run: int) -> None:
     for preset in PRESETS:
         _, nums = cs.serving_phase(device, card, preset, weights)
         print("AB " + json.dumps({"tree": label, "run": run, "preset": preset, "card": card, **nums}), flush=True)
+    nums = cs.whole_request_phase(device, card, "quality", weights)
+    print("AB " + json.dumps({"tree": label, "run": run, "preset": "whole-request quality", "card": card,
+                              "requests_per_s": nums["requests_per_s"], "idle_share": nums["idle"],
+                              "peak": nums["peak"]}), flush=True)
 
 
 def main() -> int:
