@@ -136,7 +136,22 @@ Phases, each of which raises on failure (exit code 1):
      fetch (``StallError`` at ``data/next``, a stack dump, a bundle) and
      two fused windows of 2 steps between boundaries under an armed
      ``HostSyncTripwire`` (0 hits) and ``set_sync_debug_mode('warn')``;
- 14. training: ``Trainer`` at raft_large's chairs stage, full width (batch
+ 14. the serving tier, with the collector off: raft_large at 'throughput'
+     (fused, bf16 levels, K1's bf16 product), bucket 440x1024, warmed, a
+     one-rung ladder: one engine serves the 24 requests and is dropped
+     (the card's memory comes back); ``ServeRouter`` over two thread
+     replicas serves them (each flow within 'throughput''s bounds of the
+     single engine's, both replicas served, no capture); under a burst
+     ``replica_dead`` (``FaultInjector.patch_router``) declares r1 dead
+     while it holds work (one eviction, a valid bundle, its work
+     re-routed, every request a flow, readmission through a fresh engine
+     that captures its own set, the evicted engine's memory back as the
+     rebuild begins); a draining restart of a stream's home under load
+     (nothing dropped, the stream keeps its home or re-primes); an
+     ``Autoscaler`` (1..2): idle 2 -> 1, a flood of 24 clients 1 -> 2, a
+     trickle 2 -> 1 (every request a flow or a typed shed, the memory
+     back); ``prometheus()`` parsed; every engine gone after ``close()``;
+ 15. training: ``Trainer`` at raft_large's chairs stage, full width (batch
      8, crop 368x496, 12 updates, dense fp32), on a synthetic FlyingChairs
      tree of 24 pairs at 384x512: 8 steps, a checkpoint every 4, a
      boundary every 2 (finite losses), preempted after step 4 and resumed
@@ -152,7 +167,7 @@ Phases, each of which raises on failure (exit code 1):
      control); each remat policy at the train bench's shape (fused fp32:
      pairs/s, peak memory, K1 24 launches a step, 12 under 'corr'); the
      TF32 flags are checked unchanged;
- 15. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
+ 16. entry-point paths: ``lookup_pyramid_pallas`` (K4) and
      ``instance_norm_pallas`` (K5), each called once at the shapes above.
 
 The last line is a JSON object ``{"ok": true, "device": {...}}``; the line
@@ -2157,6 +2172,8 @@ def qos_flood_phase(device, card, preset, weights):
     captures, eager = capture_events() - ev0, read_counts()
     k1_run = by_kernel(engine.graph_launches())["k1"] - k1_0
     stats = engine.stats()
+    for name in ("_pool_insert_live", "_qos_levels", "_qos_preempted"):  # the recording wrappers
+        vars(engine).pop(name, None)
     engine.stop()
     n = len(QOS_CLASSES) * QOS_ROUNDS
     answered = sum(v[k] for v in tally.values() for k in ("completed", "overloaded", "quota", "expired"))
@@ -2631,9 +2648,12 @@ def sleep_cycles(ms: float) -> int:
     return int(100_000_000 / start.elapsed_time(end) * ms)
 
 
-def prometheus_ok(text: str) -> bool:
+QOS_SERIES = 'serve_qos_class{class="interactive",key="submitted"}'
+
+
+def prometheus_ok(text: str, *series: str) -> bool:
     """Every line of a Prometheus exposition a comment or ``name value``
-    with a numeric value, and the QoS class series present."""
+    with a numeric value, and each of ``series`` present."""
     for line in text.splitlines():
         if not line or line.startswith("#"):
             continue
@@ -2641,7 +2661,7 @@ def prometheus_ok(text: str) -> bool:
         float(value)
         if not name or " " in name:
             return False
-    return 'serve_qos_class{class="interactive",key="submitted"}' in text
+    return all(s in text for s in series)
 
 
 def traced_runs(engine, what, card, pairs, targets):
@@ -2652,7 +2672,20 @@ def traced_runs(engine, what, card, pairs, targets):
     each span lies inside its trace, and the trace's end agrees with the
     result's: ``dur_ms`` less the admission (the queue_wait span's start,
     where the result's clock starts) is within 1 ms of ``latency_ms``; at
-    0 nothing is traced. Returns {rate: [(requests/s, p50, p99), ...]}."""
+    0 nothing is traced. The collector is off over the runs: a full
+    collection's pause between a result's stamp and its trace's end is
+    the runtime's, not the tracer's. Returns {rate: [(requests/s, p50,
+    p99), ...]}."""
+    import gc
+
+    gc.disable()
+    try:
+        return _traced_runs(engine, what, card, pairs, targets)
+    finally:
+        gc.enable()
+
+
+def _traced_runs(engine, what, card, pairs, targets):
     out, worst = {}, 0.0
     for rate in (1.0, 0.0, 0.0, 1.0):  # ABBA: a drift over the four runs cancels
         engine.tracer.sample_rate = rate
@@ -2774,13 +2807,9 @@ def stall_check(engine, what, card, stage, pairs, est):
 
 
 def free_card() -> None:
-    """Collect what earlier engines and graphs left (an engine's bound
-    methods in its alert engine and gauges make reference cycles, which
-    hold its graph pools until a collection) and return the cached
-    blocks, so the next model has the card."""
-    import gc
-
-    gc.collect()
+    """Return the cached blocks, so the next model has the card. No
+    collection: a stopped engine sits in no reference cycle, so its graph
+    pools are freed when its last reference goes."""
     torch.cuda.empty_cache()
 
 
@@ -2865,7 +2894,7 @@ def observability_phase(device, card, weights):
             f"{stats['obs']}; watchdog_trips {health['watchdog_trips']}; captures after start() {captures}; "
             f"eager launches {eager}; K1 {k1[f'{mode} traced']} (graph replays); prometheus {len(prom.splitlines())} "
             f"lines; card {card}")
-        if health["watchdog_trips"] or captures or eager["k1"] or not prometheus_ok(prom):
+        if health["watchdog_trips"] or captures or eager["k1"] or not prometheus_ok(prom, QOS_SERIES):
             raise AssertionError(f"{what}: trips {health['watchdog_trips']}, captures {captures}, eager {eager}, "
                                  f"or the Prometheus text did not parse")
         out[mode] = {"on": on, "off": off, "ticks": ticks}
@@ -2960,6 +2989,368 @@ def observability_phase(device, card, weights):
     return k1, out
 
 
+ROUTER_QUEUE = 16  # a closed-loop flood of ROUTER_FLOOD clients fills one replica's queue
+ROUTER_FLOOD = 24
+ROUTER_BEAT_S, ROUTER_COOLDOWN_S = 0.05, 1.0
+ROUTER_MEM_TOL_GIB = 1.0
+
+
+def reserved_gib(device) -> float:
+    """The card's reserved memory after the cached blocks are returned."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(device) / 2**30
+
+
+def settle(cond, timeout_s: float, what: str) -> float:
+    """Poll ``cond`` every 20 ms; the seconds it took, or raise."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"router: {what} did not happen within {timeout_s:g} s")
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+class ClosedLoop:
+    """``threads`` clients submitting pairs through ``router`` back to back
+    (a shed backs off for its ``retry_after_ms``) until :meth:`stop`; every
+    outcome is counted by kind ('flow', a typed error's class name, or
+    'untyped'), so an accepted request that ends with neither a flow nor a
+    typed error shows, and a hung one keeps its thread alive past the
+    join. As a context manager it stops the clients on the way out."""
+
+    def __init__(self, router, pairs, threads: int):
+        import collections
+        import threading
+
+        self.outcomes, self._lock, self._stop = collections.Counter(), threading.Lock(), threading.Event()
+        self._threads = [threading.Thread(target=self._client, args=(router, pairs, i, threads), daemon=True)
+                         for i in range(threads)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, router, pairs, i, step):
+        from raft_tpu_torch.serve import Overloaded, ServeError
+
+        while not self._stop.is_set():
+            try:
+                r = router.submit(*pairs[i % len(pairs)])
+                kind = "flow" if r.flow is not None and np.isfinite(r.flow).all() else "bad flow"
+            except Overloaded as e:
+                kind = type(e).__name__
+                time.sleep(min(e.retry_after_ms, 100.0) / 1e3)
+            except ServeError as e:
+                kind = type(e).__name__
+            except Exception:  # noqa: BLE001 -- counted: a loss
+                kind = "untyped"
+            with self._lock:
+                self.outcomes[kind] += 1
+            i += step
+
+    def stop(self, timeout_s: float = 120.0):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout_s)
+        hung = sum(t.is_alive() for t in self._threads)
+        if hung or self.outcomes["untyped"] or self.outcomes["bad flow"]:
+            raise AssertionError(f"router: {hung} clients hung, outcomes {dict(self.outcomes)}")
+        return dict(self.outcomes)
+
+    def __enter__(self) -> "ClosedLoop":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(120.0)
+
+
+def router_single_engine(model, cfg, device, card, pairs, targets, base):
+    """One engine at ``cfg``: the requests' flows (the router's reference),
+    its requests/s and K1 replays; then stop and drop it: the reserved
+    memory must come back to ``base`` (F7)."""
+    import weakref
+
+    from raft_tpu_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, cfg, device=device).start()
+    booted = reserved_gib(device)
+    t0 = time.perf_counter()
+    want = serve_requests(engine, pairs, targets, SERVE_THREADS)
+    rps = SERVE_REQUESTS / (time.perf_counter() - t0)
+    k1 = by_kernel(engine.graph_launches())["k1"]
+    engine.stop()
+    ref = weakref.ref(engine)
+    del engine
+    after = reserved_gib(device)
+    log(f"router: one engine: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads at {rps:.3f} requests/s; "
+        f"reserved {base:.3f} GiB before it, {booted:.3f} with it booted, {after:.3f} after its stop() and del (no "
+        f"collection; gone: {ref() is None}); K1 {k1}; card {card}")
+    if ref() is not None or after > base + ROUTER_MEM_TOL_GIB:
+        raise AssertionError("router: a stopped, dropped engine still holds the card (F7)")
+    return want, rps, k1, booted - base
+
+
+def router_phase(device, card, weights):
+    """The in-process serving tier on the card, with the collector off (a
+    stopped engine's memory must come back by F7's repair, not by a
+    collection): raft_large at 'throughput' (fused, bf16 levels, K1's
+    bf16 product), bucket 440x1024, warmed, the serving phase's weights,
+    a one-rung ladder (32 updates: no degradation, so the autoscaler's
+    calm reads the queues and sheds, and an idle replica reads calm; a
+    degraded replica recovers only through admissions, which the router's
+    score steers away from it).
+
+    One engine serves the serving phase's 24 requests from 8 threads (the
+    reference flows and its requests/s), is stopped and dropped, and the
+    card's reserved memory comes back. Then ``ServeRouter`` over two
+    thread replicas (one nn.Module, each engine with its own graph set):
+    the same 24 requests (each flow within the serving phase's
+    'throughput' bounds of the single engine's, both replicas served, no
+    capture); a closed-loop burst during which ``replica_dead`` (through
+    ``FaultInjector.patch_router``) declares r1 dead while it holds work:
+    one eviction, a valid postmortem bundle, its work re-routed, every
+    request a flow, readmission through a fresh engine (its boot and
+    captures printed), and after the evicted engine's stop and drop the
+    reserved memory within ``ROUTER_MEM_TOL_GIB`` of the two-replica
+    level; a draining restart of a stream's home under load (no request
+    dropped, the stream keeps its home or re-primes, the old engine's
+    memory comes back); an ``Autoscaler`` (1..2 replicas): idle 2 -> 1, a
+    flood of 24 clients 1 -> 2, a trickle 2 -> 1 (nothing lost), memory
+    after the scale-down within the tolerance of the one-replica level,
+    ``explain()`` printed; ``prometheus()`` parsed line by line. Captures
+    after ``start()`` only in the rebuilt engines' boots; every engine
+    gone after ``close()``. Returns K1's launches (graph replays) and the
+    numbers."""
+    import dataclasses
+    import gc
+    import weakref
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.graphs import capture_events, replayed_launches
+    from raft_tpu_torch.obs import validate_bundle
+    from raft_tpu_torch.serve import AutoscaleConfig, Autoscaler, RouterConfig, ServeConfig, ServeEngine, ServeRouter
+    from raft_tpu_torch.utils.faults import FaultInjector
+
+    t_phase = time.perf_counter()
+    gc.disable()
+    try:
+        base = reserved_gib(device)
+        model = rt.raft_for_serving(ServeConfig.preset("throughput"), corr_impl="fused", device=device)
+        model.load_state_dict(weights)
+        cfg = ServeConfig(buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER[:1],
+                          warmup=True, default_deadline_ms=120_000.0, ledger_sample_every=0,
+                          queue_capacity=ROUTER_QUEUE)
+        pairs = [request_pair(100 + i)[:2] for i in range(SERVE_REQUESTS)]
+        targets = [SERVE_LADDER[i % len(SERVE_LADDER)] for i in range(SERVE_REQUESTS)]
+        reset_counts()
+        k1_graphs0 = by_kernel(replayed_launches())["k1"]
+        want, single_rps, k1_single, footprint = router_single_engine(model, cfg, device, card, pairs, targets,
+                                                                      base)
+        built = []  # weakrefs to every engine the router's factory builds
+        # (a weakref to the engine the next rebuild replaces, reserved GiB with it)
+        replaced: list = []
+        at_rebuild = []  # (reserved GiB, s for the memory to come back) as each rebuild begins
+
+        def factory(**overrides):
+            if replaced:
+                # F7: its replica has let go of it, the callers still in its
+                # frames finish, and its memory comes back, no collection
+                gone, level = replaced.pop()
+                t0 = time.monotonic()
+                settle(lambda: gone() is None, 10.0, "the release of the replaced engine")
+                settle(lambda: reserved_gib(device) <= level - footprint + ROUTER_MEM_TOL_GIB, 10.0,
+                       "the return of the replaced engine's memory")
+                at_rebuild.append((reserved_gib(device), time.monotonic() - t0))
+            eng = ServeEngine(model, dataclasses.replace(cfg, **overrides), device=device)
+            built.append(weakref.ref(eng))
+            return eng
+
+        def alive():
+            return sum(r() is not None for r in built)
+
+        router = ServeRouter.from_factory(factory, 2, RouterConfig(
+            heartbeat_interval_s=ROUTER_BEAT_S, cooldown_s=ROUTER_COOLDOWN_S, drain_timeout_s=60.0))
+        try:
+            t0 = time.perf_counter()
+            router.start()
+            boot_s = time.perf_counter() - t0
+            two_level = reserved_gib(device)
+            two_alloc = torch.cuda.memory_allocated(device) / 2**30
+            ev0, eager0 = capture_events(), read_counts()["k1"]
+            # the programs one boot captures (the two first boots overlap, so
+            # their capture counters count each other's)
+            boot_captures = sum(max(n, 0) for n in router._by_id["r0"].engine.program_counts().values())
+
+            # 1. routed traffic
+            t0 = time.perf_counter()
+            routed = serve_requests(router, pairs, targets, SERVE_THREADS)
+            router_rps = SERVE_REQUESTS / (time.perf_counter() - t0)
+            st = router.stats()
+            served = {rid: e["completed"] for rid, e in st["engines"].items()}
+            captures1, eager1 = capture_events() - ev0, read_counts()["k1"] - eager0
+            mean_d, max_d = flow_gap([r.flow for r in routed], [w.flow for w in want])
+            tol_mean, tol_max = SERVE_TOL["throughput"]
+            log(f"router: 2 thread replicas booted in {boot_s:.3f} s (reserved {two_level:.3f} GiB); "
+                f"{SERVE_REQUESTS} requests from {SERVE_THREADS} threads at {router_rps:.3f} requests/s (one engine "
+                f"{single_rps:.3f}), served {served}; |dflow| vs the single engine mean {mean_d:.3e} px (tol "
+                f"{tol_mean:g}), max {max_d:.3e} (tol {tol_max:g}); captures after start() {captures1}, eager K1 "
+                f"launches {eager1}; card {card}")
+            off = [(r.rid, r.num_flow_updates) for r, n in zip(routed, targets) if r.num_flow_updates != n]
+            if off or captures1 or eager1 or len(served) != 2 or min(served.values()) == 0 or not (
+                    mean_d <= tol_mean and max_d <= tol_max):
+                raise AssertionError(f"router: routed traffic off target {off}, {captures1} captures, {eager1} eager "
+                                     f"K1 launches, served {served}, or flows off the single engine's")
+
+            # 2. a replica dies under a burst; the phase holds the evicted
+            # engine weakly: the replica drops it when it rebuilds
+            rep1, fired = router._by_id["r1"], []
+            ref = weakref.ref(rep1.engine)
+            replaced.append((ref, two_level))
+            inj = FaultInjector()  # once, on a probe that finds r1 holding work
+            inj.on("router.heartbeat", when=lambda i, c: (c["replica"] == "r1" and rep1.inflight >= 2 and not fired
+                                                          and not fired.append(i)),
+                   action=FaultInjector.replica_dead)
+            with inj.patch_router(router), ClosedLoop(router, pairs, SERVE_THREADS) as loop:
+                evict_s = settle(lambda: router.stats()["router"]["evictions"] >= 1, 60.0, "the eviction of r1")
+                loop_out = loop.stop()
+                held = reserved_gib(device)  # in the cooldown: the evicted engine stopped, not yet replaced
+                readmit_s = settle(lambda: router.stats()["router"]["readmissions"] >= 1, 120.0,
+                                   "the readmission of r1")
+            del rep1, inj
+            st = router.stats()
+            new_boot = router._by_id["r1"].engine.stats()["boot"]
+            bundles = [b for b in router.recorder.bundles() if b["reason"] == "evict:r1"]
+            after_evict = reserved_gib(device)
+            alloc_evict = torch.cuda.memory_allocated(device) / 2**30
+            log(f"router: replica_dead on r1 after {evict_s:.3f} s of a closed-loop burst from {SERVE_THREADS} "
+                f"threads: outcomes {loop_out}, rerouted {st['router']['rerouted']}, evictions "
+                f"{st['router']['evictions']}, bundles {len(bundles)} ({[validate_bundle(b) for b in bundles]}); "
+                f"readmitted {readmit_s:.3f} s later through a fresh engine: boot to ready "
+                f"{new_boot['boot_to_ready_ms']:.1f} ms, {new_boot['captures']} captures; reserved {held:.3f} GiB in the "
+                f"cooldown (the evicted engine stopped, still held by its replica), {at_rebuild[0][0]:.3f} as the "
+                f"rebuild began (the evicted engine dropped, no collection: {held - at_rebuild[0][0]:.3f} GiB back "
+                f"of an engine's {footprint:.3f}, {at_rebuild[0][1]:.3f} s after the rebuild was called), "
+                f"{after_evict:.3f} after it (two-replica level {two_level:.3f}; "
+                f"allocated {alloc_evict:.3f}, at the two-replica level {two_alloc:.3f}; gone: {ref() is None}); "
+                f"card {card}")
+            if set(loop_out) != {"flow"} or st["router"]["evictions"] != 1 or st["router"]["rerouted"] < 1 \
+                    or len(bundles) != 1 or validate_bundle(bundles[0]) or st["replicas"]["r1"]["generation"] != 2:
+                raise AssertionError("router: the replica death was not handled as specified")
+            # F7 (held by the factory's waits): the evicted engine's memory
+            # is back before its successor boots; after the boot, what the
+            # card holds is the successor's (its reserve moves with cuDNN's
+            # algorithm choices on the rebuilding thread, the live tensors match)
+            if ref() is not None or abs(alloc_evict - two_alloc) > 0.25:
+                raise AssertionError(f"router: the evicted engine alive, or allocated {alloc_evict:.3f} GiB against "
+                                     f"{two_alloc:.3f} at the two-replica level")
+
+            # 3. a draining restart under load
+            frames = stream_frames(9)
+            stream = router.open_stream()
+            primed = [stream.submit(frames[0]), stream.submit(frames[1])]
+            home = router._stream_homes[stream.stream_id]
+            ref = weakref.ref(router._by_id[home].engine)
+            before_restart = reserved_gib(device)
+            replaced.append((ref, before_restart))
+            with ClosedLoop(router, pairs, SERVE_THREADS) as loop:
+                time.sleep(0.3)
+                t0 = time.perf_counter()
+                router.restart_replica(home)
+                restart_s = time.perf_counter() - t0
+                time.sleep(0.3)
+                loop_out = loop.stop()
+            after = [stream.submit(frames[2]), stream.submit(frames[3])]
+            homes = dict(router._stream_homes)
+            stream.close()
+            st = router.stats()
+            del stream
+            after_restart = reserved_gib(device)
+            log(f"router: draining restart of {home} (the stream's home) under a closed loop of {SERVE_THREADS} "
+                f"clients in {restart_s:.3f} s: outcomes {loop_out}, restarts {st['router']['restarts']}, drains "
+                f"{st['router']['drains']}; stream frames before primed={[r.primed for r in primed]}, after "
+                f"primed={[r.primed for r in after]}, homes {homes}; reserved {before_restart:.3f} GiB before the "
+                f"restart, {at_rebuild[1][0]:.3f} as its rebuild began (the drained engine dropped, no collection; "
+                f"{at_rebuild[1][1]:.3f} s after the rebuild was called), {after_restart:.3f} after it (the old "
+                f"engine gone: {ref() is None}); card {card}")
+            if set(loop_out) != {"flow"} or st["router"]["restarts"] != 1 or not primed[0].primed \
+                    or primed[1].flow is None or after[1].flow is None:
+                raise AssertionError("router: the draining restart dropped a request or broke the stream")
+            if ref() is not None:
+                raise AssertionError("router: the drained engine outlived its restart")
+
+            # 4. the autoscaler: idle 2 -> 1, a flood 1 -> 2, a trickle 2 -> 1
+            scaler = Autoscaler(router, AutoscaleConfig(min_replicas=1, max_replicas=2, eval_interval_s=0.2,
+                                                        up_after=2, down_after=3, cooldown_s=ROUTER_COOLDOWN_S))
+            down1_s = settle(lambda: len(router.replicas) == 1 and alive() == 1, 60.0,
+                             "the idle scale-down 2 -> 1 and the release of the removed engine")
+            # the last of the removed engine's memory may trail its object by
+            # a moment: wait (and say how long) for the card to hold one engine
+            back1_s = settle(lambda: reserved_gib(device) <= after_restart - footprint + ROUTER_MEM_TOL_GIB, 10.0,
+                             "the return of the removed engine's memory")
+            one_level = reserved_gib(device)
+            with ClosedLoop(router, pairs, ROUTER_FLOOD) as loop:
+                up_s = settle(lambda: len(router.replicas) == 2 and all(r.state == "healthy" for r in router.replicas),
+                              120.0, "the flood's scale-up 1 -> 2")
+                time.sleep(1.0)  # the new replica takes traffic
+                flood_out = loop.stop()
+            with ClosedLoop(router, pairs, 1) as loop:
+                down2_s = settle(lambda: len(router.replicas) == 1 and alive() == 1, 60.0,
+                                 "the calm scale-down 2 -> 1 and the release of the removed engine")
+                trickle_out = loop.stop()
+            back2_s = settle(lambda: reserved_gib(device) <= one_level + ROUTER_MEM_TOL_GIB, 10.0,
+                             "the return of the scaled-down engine's memory")
+            after_down = reserved_gib(device)
+            snap = scaler.snapshot()
+            log(f"router: autoscaler 1..2: idle 2 -> 1 in {down1_s:.3f} s (reserved {one_level:.3f} GiB, the memory "
+                f"back {back1_s:.3f} s after the engine's release), a flood of {ROUTER_FLOOD} clients 1 -> 2 in "
+                f"{up_s:.3f} s (outcomes {flood_out}), a trickle of one client 2 -> 1 in {down2_s:.3f} s (outcomes "
+                f"{trickle_out}; reserved {after_down:.3f} GiB, back {back2_s:.3f} s after the release); actions "
+                f"{[(a['action'], a['reason']) for a in snap['actions']]}; card {card}")
+            for d in scaler.explain(64):
+                if d["action"] != "hold" or d is scaler.history[-1]:
+                    sig = d["signals"]
+                    log(f"router explain: {d['action']} ({d['reason']}) occupancy {sig['occupancy']:.3f} degraded "
+                        f"{sig['degraded_level']:.3f} shed {sig['shed_rate']:.3f} slo_miss "
+                        f"{sig['slo_miss_rate']:.3f} arrival {sig['arrival_rps']:.2f}/s replicas "
+                        f"{sig['replica_count']} streaks {d['up_streak']}/{d['down_streak']}")
+            if [a["action"] for a in snap["actions"]] != ["down", "up", "down"] \
+                    or set(flood_out) - {"flow", "Overloaded"} or set(trickle_out) != {"flow"}:
+                raise AssertionError(f"router: the autoscaler's actions {snap['actions']}, outcomes {flood_out} / "
+                                     f"{trickle_out}")
+
+            # 5. metrics and launches
+            prom = router.prometheus()
+            prom_ok = prometheus_ok(prom, 'router_counters{key="routed"}',
+                                    *(f'replica="{rep.replica_id}"' for rep in router.replicas))
+            captures = capture_events() - ev0
+            rebuilds = [e for e in router.recorder.events()
+                        if (e["kind"] == "readmit" and e["rebuilt"]) or e["kind"] in ("restart_done", "scale_up")]
+        finally:
+            router.close()
+        # graph replays and the eager warm-ups before each capture
+        k1_graphs, eager = by_kernel(replayed_launches())["k1"] - k1_graphs0, read_counts()["k1"]
+        k1 = k1_graphs + eager
+        del router, scaler
+        after_close = reserved_gib(device)
+        log(f"router: prometheus {len(prom.splitlines())} lines, parsed: {prom_ok}; "
+            f"captures after start() {captures}: {len(rebuilds)} rebuilt engines' boots ({[e['kind'] for e in rebuilds]}) "
+            f"at {boot_captures} a boot; engines built {len(built)}, alive after close() and del {alive()}; reserved "
+            f"{after_close:.3f} GiB; K1 {k1} launches in the phase (graph replays {k1_graphs}, boots included, of "
+            f"which the single engine {k1_single}; eager, in the boots' warm-ups, {eager}); phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+        if not prom_ok or captures != len(rebuilds) * boot_captures or len(rebuilds) != 3 \
+                or alive():
+            raise AssertionError("router: Prometheus text, captures outside the rebuilt boots, or an engine alive "
+                                 "after close()")
+        del model
+        return k1, {"single_rps": single_rps, "router_rps": router_rps, "readmit_s": readmit_s,
+                    "boot_ms": new_boot["boot_to_ready_ms"], "two_level_gib": two_level,
+                    "after_evict_gib": after_evict}
+    finally:
+        gc.enable()
+
+
 def tf32_flags():
     """The TF32 settings of cuDNN convolutions and cuBLAS matmuls as the
     per-operator API reads them (it reads legacy settings too)."""
@@ -3043,6 +3434,7 @@ def main() -> int:
     k1_qos_quality = qos_flood_phase(device, card, "quality", weights)
     k1_qos_edge = qos_flood_phase(device, card, "edge", weights)
     k1_obs, _ = observability_phase(device, card, weights)
+    k1_router, _ = router_phase(device, card, weights)
     train_phase(device, card)
     fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
     fused_training_checks(device, card)
@@ -3103,6 +3495,10 @@ def main() -> int:
               lowp_times["k1_bf16_bf16"], lowp_bounds["k1_bf16_bf16"], **k1_batch8["k1_bf16_bf16"],
               serving_path=f"ServeEngine 'throughput', raft_large, {SERVE_REQUESTS} requests (graph replays)",
               serving_launches=k1_serve_t,
+              router_path=f"ServeRouter over 2 thread replicas at 'throughput' (one engine first): {SERVE_REQUESTS} "
+                          f"requests, a replica death, a draining restart, autoscaling 2 -> 1 -> 2 -> 1 "
+                          f"(graph replays, boots included)",
+              router_launches=k1_router,
               training_path="bench --train --corr fused --corr-dtype bfloat16 --dtype bfloat16 (b=6, 368x768, "
                             "12 updates, remat)", bench_train_k1_launches_per_step=bench_train_k1[
                   "corr_impl=fused, corr_dtype=bf16, compute_dtype=bf16"]["k1_launches_per_step"],

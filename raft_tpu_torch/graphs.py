@@ -47,13 +47,20 @@ import torch
 
 from raft_tpu_torch.device import cudnn_benchmark
 
-__all__ = ["GraphProgram", "capture_events", "count_launch", "rows_like"]
+__all__ = ["GraphProgram", "capture_events", "count_launch", "replayed_launches", "rows_like"]
 
 # captures are process-wide state in CUDA: one at a time, and one count
 _capture_lock = threading.Lock()
 _captures = 0
+# the warm-up stream, one a device: cuBLAS keeps a workspace for each
+# (handle, stream) it has run on for the process's life, so a fresh stream
+# a capture would leave one behind for every program ever captured
+_warmup_streams: Dict[torch.device, torch.cuda.Stream] = {}
 # the launches recorded by the capture under way on this thread
 _recording = threading.local()
+# kernel launches by every replay in this process, by wrapper name
+_replayed: Dict[str, int] = {}
+_replayed_lock = threading.Lock()
 
 
 def capture_events() -> int:
@@ -63,6 +70,15 @@ def capture_events() -> int:
     inside it."""
     with _capture_lock:
         return _captures
+
+
+def replayed_launches() -> Dict[str, int]:
+    """Kernel launches made by every graph replay in this process so far,
+    by kernel wrapper's name: sampled before and after a window, the
+    launches its replays made, whatever programs and engines came and went
+    inside it."""
+    with _replayed_lock:
+        return dict(_replayed)
 
 
 def count_launch(wrapper) -> None:
@@ -94,6 +110,7 @@ class GraphProgram:
     Args:
         fn: a function of no arguments; its inputs are static buffers it
             closes over, its result any tensors (or containers of them).
+            Dropped once captured.
         device: where it runs; on the CPU ``fn`` runs eagerly every call.
         pool: a ``torch.cuda.graph_pool_handle()`` shared by the programs
             of one owner (their graphs never run concurrently).
@@ -122,7 +139,9 @@ class GraphProgram:
             return
         with _capture_lock, torch.cuda.device(self.device):
             current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
+            side = _warmup_streams.get(self.device)
+            if side is None:
+                side = _warmup_streams[self.device] = torch.cuda.Stream(self.device)
             side.wait_stream(current)
             with cudnn_benchmark(), torch.cuda.stream(side):
                 self.fn()
@@ -137,6 +156,11 @@ class GraphProgram:
             finally:
                 _recording.launches = None
             self.graph, self.outputs, self.launches = graph, outputs, launches
+            # the graph needs no Python object to replay; the function's
+            # closure (often over the program's owner, which holds this
+            # program) would tie the graph's memory into a reference cycle
+            # that only a garbage collection frees
+            self.fn = None
             _captures += 1
 
     def __call__(self):
@@ -148,6 +172,9 @@ class GraphProgram:
             self.capture()
         self.graph.replay()
         self.replays += 1
+        with _replayed_lock:
+            for k, n in self.launches.items():
+                _replayed[k] = _replayed.get(k, 0) + n
         return self.outputs
 
     def replayed_launches(self) -> Dict[str, int]:

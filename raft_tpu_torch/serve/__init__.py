@@ -20,10 +20,23 @@ engine, ``ServeEngine`` (the iteration pool, or the whole-request engine at
         # a 375x1242 KITTI pair: two 440x1024 tiles, blended
         result = engine.submit(kitti1, kitti2, priority="interactive", tenant="acme")
 
+    # N replicas behind one router, each a fresh engine from the factory
+    # on every (re)boot; on one card they share the device
+    def factory(**overrides):
+        return ServeEngine(model, dataclasses.replace(cfg, **overrides))
+    with ServeRouter.from_factory(factory, 2, RouterConfig(cooldown_s=1.0)) as router:
+        Autoscaler(router, AutoscaleConfig(min_replicas=1, max_replicas=2))
+        result = router.submit(image1, image2)
+        router.restart_replica("r1")          # draining restart, nothing dropped
+
 Importing the package builds no kernel and needs no card; the engine runs
-on the card unless ``device='cpu'`` is passed.
+on the card unless ``device='cpu'`` is passed. Not ported yet: replicas in
+worker processes (``backend='process'|'remote'``, ROADMAP queue 1 item 4b)
+and guarded rollouts (``ServeRouter.add_candidate``, item 4a-ii); both
+raise ``NotImplementedError``.
 """
 
+from raft_tpu_torch.serve.autoscale import AutoscaleConfig, Autoscaler
 from raft_tpu_torch.serve.config import PRESETS, ServeConfig
 from raft_tpu_torch.serve.engine import ServeEngine, ServeResult, StreamSession
 from raft_tpu_torch.serve.errors import (
@@ -37,10 +50,20 @@ from raft_tpu_torch.serve.errors import (
     ServeError,
     ShapeRejected,
 )
+from raft_tpu_torch.serve.replica import Replica, ReplicaState
+from raft_tpu_torch.serve.router import ConsistentHashRing, RouterConfig, RouterStream, ServeRouter
 from raft_tpu_torch.serve.qos import PRIORITIES, QosPolicy, brownout_level, effective_rank
 from raft_tpu_torch.serve.tiler import TilePlan, TilePlanner, blend_tiles, nearest_bucket
 
 __all__ = [
+    "AutoscaleConfig",
+    "Autoscaler",
+    "ConsistentHashRing",
+    "Replica",
+    "ReplicaState",
+    "RouterConfig",
+    "RouterStream",
+    "ServeRouter",
     "PRESETS",
     "PRIORITIES",
     "QosPolicy",

@@ -99,17 +99,21 @@ stream before its next replay, so an abandoned replay's outputs never
 reach a later request.
 
 Not ported yet: ``submit_many``'s ``shadow`` item key (rollout mirroring,
-the serving host layer) raises ``NotImplementedError``.
+ROADMAP queue 1 item 4a-ii) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
+import functools
+import hashlib
 import math
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -178,10 +182,16 @@ _COUNTERS = (
     "early_exit_iters_saved_converged", "stream_warm_starts", "drained",
 )
 
+# one engine warms up at a time in a process: a capture on the card must
+# not overlap another engine's warm-up, whose device work between its own
+# captures is refused ("operation not permitted when stream is capturing")
+# and invalidates the capture under way; the captures take turns anyway
+_BOOT_LOCK = threading.Lock()
+
 # submit_many item keys of paths the port has not reached, with the
 # ROADMAP item that brings each
 _UNPORTED_ITEM_KEYS = {
-    "shadow": "queue 1 item 4 (rollout mirroring)",
+    "shadow": "queue 1 item 4a-ii (rollout mirroring)",
 }
 
 
@@ -425,6 +435,8 @@ class ServeEngine:
         # the slow path's whole-request forward: one graph per (natural
         # shape, iterations), captured and replayed on the worker
         self._apply = FlowEstimator(self.model, num_flow_updates=cfg.ladder[0], device=self.device)
+        # the serving-weights identity, computed once by variables_hash
+        self._variables_hash: Optional[str] = None
         # the whole-request engine's batch ladder (and the encode rungs of
         # its streams), pinned staging, and its programs; the iteration
         # pool uses the programs' encode for stream and seeded admissions
@@ -478,7 +490,13 @@ class ServeEngine:
         self._resid_iter_cnt = np.zeros(self._resid_len, np.int64)
         # burn-rate alerting over the engine's own counters, evaluated
         # from the worker loop; a page-severity fire dumps a postmortem,
-        # and every bundle carries the alerts active at dump time
+        # and every bundle carries the alerts active at dump time. The
+        # alert snapshot and the gauges close over the parts they read,
+        # never over the engine, and the obs objects that point back at
+        # each other (registry, alerts, ledger, recorder) do so weakly: the
+        # engine sits in no reference cycle, so its last reference going
+        # frees it (on the card, its graphs' memory) at once, not at the
+        # next garbage collection
         s_w, l_w = cfg.alert_short_window_s, cfg.alert_long_window_s
         self._alerts = AlertEngine(
             (
@@ -487,18 +505,18 @@ class ServeEngine:
                 AlertRule("watchdog_trips", rate("watchdog_trips"), 0.0, s_w, l_w, severity="page"),
                 AlertRule("device_time_drift", gauge_value("device_time_drift"), 1.5, s_w, l_w),
             ),
-            snapshot_fn=self._alert_snapshot,
+            snapshot_fn=functools.partial(_alert_snapshot, self._counters, self._lock, _weakly(self.ledger.drift, 0.0)),
             recorder=self.recorder,
         )
         self._alerts.register_gauges(self.metrics)
-        self.recorder.alerts_provider = self._alerts.active
+        self.recorder.alerts_provider = _weakly(self._alerts.active, [])
         self.metrics.gauge("queue_depth", self._queue.depth)
         self.metrics.gauge("queue_forming", self._queue.forming)
-        self.metrics.gauge("degradation_level", lambda: self._controller.level)
-        self.metrics.gauge("num_flow_updates", lambda: self._controller.num_flow_updates)
-        self.metrics.gauge(
-            "pool_occupied", lambda: sum(p.occupied_count() for p in self._pools.values())
-        )
+        ctrl, engine = self._controller, weakref.ref(self)
+        self.metrics.gauge("degradation_level", lambda: ctrl.level)
+        self.metrics.gauge("num_flow_updates", lambda: ctrl.num_flow_updates)
+        # the pools hold device state: read them through the engine, weakly
+        self.metrics.gauge("pool_occupied", lambda: _pool_occupied(engine()))
         self._last_level = 0  # degradation level at the last observe
         self._next_rid = 0
         self._boot: Dict[str, Any] = {
@@ -546,7 +564,8 @@ class ServeEngine:
             # thread; a trip records and dumps through the flight recorder
             self._watchdog = Watchdog(self.config.apply_timeout_s, install_handler=False, recorder=self.recorder)
         if self.config.warmup:
-            self._warmup()
+            with _BOOT_LOCK:
+                self._warmup()
         worker = self._worker_pool if self._pool_progs is not None else self._worker
         self._thread = threading.Thread(target=worker, name="raft-serve-worker", daemon=True)
         self._thread.start()
@@ -1018,7 +1037,7 @@ class ServeEngine:
                         it = dict(items[i], deadline_ms=max(1.0, (deadline - time.monotonic()) * 1e3))
                         h = self._submit_many([it])[0][0]
                         continue
-                    raise err
+                    _raise_copy(err)
                 results.append(h.result)
             t_blend = time.monotonic()
             flow = blend_tiles(plan, self._tiler.weights(plan), [r.flow for r in results])
@@ -1161,6 +1180,24 @@ class ServeEngine:
             self._streams.pop(stream_id, None)
 
     @property
+    def variables_hash(self) -> str:
+        """The serving-weights identity: sha256 over the model's
+        ``state_dict()`` (parameters and persistent buffers, in its fixed
+        order): each entry's name, shape and dtype, then its bytes. Two
+        engines over the same weights agree; one changed value changes it.
+        It is not the JAX engine's hash (the two packages' parameter trees
+        differ in names and layouts). Cached: the walk runs once an
+        engine."""
+        if self._variables_hash is None:
+            digest = hashlib.sha256()
+            for name, t in self.model.state_dict().items():
+                t = t.detach().cpu().contiguous()
+                digest.update(f"{name}:{tuple(t.shape)}:{t.dtype}".encode())
+                digest.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+            self._variables_hash = digest.hexdigest()
+        return self._variables_hash
+
+    @property
     def supports_init_flow(self) -> bool:
         """Whether pair submits can honor an ``init_flow`` seed: seeded
         admission runs ``encode`` + ``begin_features``, so both the
@@ -1240,6 +1277,7 @@ class ServeEngine:
             **counters,
             "padding_waste": padding_waste,
             "mesh_devices": 1,  # the port serves on one card
+            "variables_hash": self.variables_hash,
             "encoder_cache_hit_rate": hits / (hits + misses) if hits + misses else None,
             "batch_ladder": list(self._batch_ladder),
             "boot": dict(self._boot),
@@ -1345,14 +1383,6 @@ class ServeEngine:
         live burn), fire/resolve counters, and the configured rules."""
         snap = self._alerts.snapshot()
         snap["active"] = self._alerts.active()
-        return snap
-
-    def _alert_snapshot(self) -> Dict[str, float]:
-        """What the alert rules see: the engine counters plus the
-        device-time drift gauge, one flat dict."""
-        with self._lock:
-            snap: Dict[str, float] = dict(self._counters)
-        snap["device_time_drift"] = self.ledger.drift()
         return snap
 
     def _log_counters(self, force: bool = False) -> None:
@@ -1505,7 +1535,7 @@ class ServeEngine:
                 self._qos_stats.count(req.priority, "expired")
             self._count("expired")
         if req.error is not None:
-            raise req.error
+            _raise_copy(req.error)
         return req.result
 
     def _record_shed(self, req: Request, err: Overloaded) -> None:
@@ -2655,6 +2685,40 @@ class ServeEngine:
         if self._pool_progs is not None:
             return max(1.0, math.ceil(depth / self._pool_cap) * self.config.ladder[0] * ewma)
         return max(1.0, math.ceil(depth / self._max_batch) * ewma)
+
+
+def _pool_occupied(engine: Optional["ServeEngine"]) -> int:
+    """Occupied slots across the engine's pools (0 once it is gone)."""
+    return 0 if engine is None else sum(p.occupied_count() for p in engine._pools.values())
+
+
+def _raise_copy(err: BaseException) -> None:
+    """Raise a copy of a request's stored error. Raised itself, the stored
+    error would take a traceback through the frames that hold its request,
+    which holds the error: a reference cycle keeping the engine (and on the
+    card its graphs) alive after ``stop()`` until a garbage collection."""
+    raise copy.copy(err)
+
+
+def _weakly(method, default):
+    """``method`` called through a weak reference to its object:
+    ``default`` once the object is gone."""
+    ref = weakref.WeakMethod(method)
+
+    def call():
+        m = ref()
+        return default if m is None else m()
+
+    return call
+
+
+def _alert_snapshot(counters, lock, drift) -> Dict[str, float]:
+    """What the alert rules see: the engine counters plus the device-time
+    drift gauge, one flat dict."""
+    with lock:
+        snap: Dict[str, float] = dict(counters)
+    snap["device_time_drift"] = drift()
+    return snap
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:

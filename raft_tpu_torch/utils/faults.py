@@ -20,11 +20,11 @@ The port's own copy of the JAX package's ``raft_tpu/utils/faults.py``:
   * :class:`FaultInjector` / :func:`tear_checkpoint` — deterministic fault
     injection for the chaos tests and the card's smoke run: data reads,
     training steps and batches, the data fetch, the serving engine's
-    dispatch seams and per-request flows, checkpoint commits.
+    dispatch seams and per-request flows, the router's heartbeat and
+    dispatch seams, checkpoint commits.
 
-Not ported yet: ``FaultInjector.patch_router``, the ``replica_dead``
-action and ``NetworkFaultInjector`` (they drive the serving host layer,
-ROADMAP queue 1 item 4).
+Not ported yet: ``NetworkFaultInjector`` (it drives remote replicas,
+ROADMAP queue 1 item 4b).
 
 Nothing here touches the fault-free hot path: the watchdog costs two
 attribute writes per guarded region, the data policy engages only on
@@ -517,6 +517,15 @@ class FaultInjector:
         ctx["flow"][...] = float("nan")
 
     @staticmethod
+    def replica_dead(ctx) -> None:
+        """``router.heartbeat`` action: make one replica's probe report a
+        dead worker (``healthy=False``) without touching the engine, which
+        is what a crashed serving worker looks like from the router's
+        health loop. Mutates the probe's health dict in place; pair with a
+        ``when`` predicate keyed on ``ctx['replica']``."""
+        ctx["health"]["healthy"] = False
+
+    @staticmethod
     def loss_spike(ctx, scale: float = 100.0) -> None:
         """``step.loss_spike`` action: blow the input images far out of
         their [-1, 1] contract so the loss and the gradient global-norm
@@ -713,6 +722,51 @@ class FaultInjector:
         finally:
             for name, orig, _ in seams:
                 _restore(engine, name, orig)
+
+    @contextmanager
+    def patch_router(self, router):
+        """Route a :class:`~raft_tpu_torch.serve.router.ServeRouter`'s seams
+        through the serving tier's fault sites:
+
+        * ``'router.heartbeat'`` — fired per monitor probe, *after* the
+          replica's ``health()`` returns (ctx = ``{'replica': id,
+          'health': mutable dict}``). Actions: mutate the health dict
+          (:meth:`replica_dead` models a crashed worker the router must
+          evict), raise (a failing probe), or a number (seconds slept: a
+          stalled heartbeat; past ``heartbeat_timeout_s`` the router
+          evicts).
+        * ``'router.dispatch'`` — fired on the caller's thread just before
+          each replica dispatch (ctx = ``{'replica': id, 'kind':
+          'pair'|'tiled'|'stream', 'attempt_inflight': n}``). A numeric
+          action is a slow replica; an exception a replica-side dispatch
+          failure the router must re-route (counted against the replica's
+          error-rate budget).
+
+        The engine seams (:meth:`patch_engine`) still compose: patch one
+        replica's engine to poison flows or stall dispatches inside it
+        while the router sites watch the tier.
+        """
+        orig_probe = router._probe_health
+        orig_before = router._before_dispatch
+
+        def probe(rep):
+            ctx = {"replica": rep.replica_id, "health": orig_probe(rep)}
+            self.fire("router.heartbeat", ctx)
+            return ctx["health"]
+
+        def before_dispatch(rep, kind):
+            self.fire("router.dispatch", {"replica": rep.replica_id, "kind": kind, "attempt_inflight": rep.inflight})
+            return orig_before(rep, kind)
+
+        seams = [(name, vars(router).get(name, _UNSET), fn)
+                 for name, fn in (("_probe_health", probe), ("_before_dispatch", before_dispatch))]
+        for name, _, fn in seams:
+            setattr(router, name, fn)
+        try:
+            yield self
+        finally:
+            for name, orig, _ in seams:
+                _restore(router, name, orig)
 
     @contextmanager
     def patch_checkpoint_commits(self, manager):

@@ -864,6 +864,80 @@ def test_no_capture_after_start_with_streams(cuda_device, pool_capacity):
         assert counts["pairwise"] == 2 * 2 and counts["encode"] == 2 and counts["iterate"] == 2 * 2
 
 
+def _reserved(device):
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(device)
+
+
+@pytest.mark.parametrize("pool_capacity", [0, 3], ids=["whole_request", "pool"])
+def test_stopped_engine_frees_the_card_without_a_collection(cuda_device, pool_capacity):
+    """F7 on the card: with the collector off, an engine that served a
+    request holds its graph pools while it lives, and after ``stop()``,
+    ``del`` and ``empty_cache()`` the reserved memory is back at its level
+    before the boot (to 1 MiB). A first engine, booted and dropped before
+    the measurement, leaves the per-thread library workspaces behind."""
+    import gc
+
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = _tiny_serving_model(cuda_device)
+    cfg = ServeConfig(buckets=((48, 64),), ladder=(3, 2), max_batch=2, pool_capacity=pool_capacity, warmup=True,
+                      default_deadline_ms=60000.0)
+    rng = np.random.default_rng(20)
+    pair = [rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2)]
+    gc.collect()
+    gc.disable()
+    try:
+        levels = []
+        for _ in range(2):
+            base = _reserved(cuda_device)
+            engine = ServeEngine(model, cfg, device=cuda_device).start()
+            assert np.isfinite(engine.submit(*pair).flow).all()
+            held = _reserved(cuda_device)
+            engine.stop()
+            del engine
+            levels.append((base, held, _reserved(cuda_device)))
+    finally:
+        gc.enable()
+    base, held, after = levels[-1]
+    assert held > base and after <= base + (1 << 20), levels
+
+
+def test_routed_request_matches_a_single_engine(cuda_device):
+    """One pair, 4 times from 4 threads, through a 2-replica
+    ``ServeRouter`` (each replica a fresh engine with its own graph set)
+    against one engine's flow for it, at 1e-4 px: the graphs are the same
+    programs, captured on other threads (cuDNN's choices are a thread's)
+    and run at other pool occupancies. Both replicas serve, and nothing is
+    captured after ``start()``."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_tpu_torch.graphs import capture_events
+    from raft_tpu_torch.serve import RouterConfig, ServeConfig, ServeEngine, ServeRouter
+
+    model = _tiny_serving_model(cuda_device)
+    cfg = ServeConfig(buckets=((48, 64),), ladder=(3,), pool_capacity=2, warmup=True, default_deadline_ms=60000.0)
+    rng = np.random.default_rng(21)
+    pair = [rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2)]
+    with ServeEngine(model, cfg, device=cuda_device) as engine:
+        want = engine.submit(*pair).flow
+
+    def factory(**overrides):
+        return ServeEngine(model, dataclasses.replace(cfg, **overrides), device=cuda_device)
+
+    with ServeRouter.from_factory(factory, 2, RouterConfig(heartbeat_interval_s=60.0)) as router:
+        before = capture_events()
+        with ThreadPoolExecutor(4) as ex:
+            got = [r.flow for r in ex.map(lambda _: router.submit(*pair), range(4))]
+        served = {rid: e["completed"] for rid, e in router.stats()["engines"].items()}
+        assert capture_events() == before
+    assert min(served.values()) >= 1, served
+    for flow in got:
+        np.testing.assert_allclose(flow, want, rtol=0, atol=1e-4)
+
+
 # -- training on the card ------------------------------------------------------
 
 # tests/test_train.py's tiny_cfg widths (raft_small, and raft_large with its

@@ -3,10 +3,12 @@ package on the same seeded inputs and weights (fp32 on the CPU; tolerance
 1e-5 unless a check says otherwise: the two packages' conv and reduction
 kernels order their fp32 sums differently).
 
-Flax weights come from the JAX module's own ``init`` with biases, norm
-affines and batch statistics re-drawn from a seeded numpy generator (an
-init leaves them 0/1, which would hide a mis-mapped key), and reach the
-port through ``state_dict_from_flax``.
+Flax weights take the shapes of the JAX module's own ``init`` (traced by
+``jax.eval_shape``, nothing compiled) and are drawn from a seeded numpy
+generator: kernels at LeCun-normal scale, biases, norm affines and batch
+statistics around their init values (an init leaves them 0/1, which would
+hide a mis-mapped key). They reach the port through
+``state_dict_from_flax``.
 """
 
 from functools import partial
@@ -48,31 +50,36 @@ def _nhwc(t):
     return t.detach().permute(0, 2, 3, 1).numpy()
 
 
-def _redraw(tree, rng):
+def _draw(tree, rng):
+    """Seeded values for every leaf of a tree of shapes."""
     out = {}
     for key in sorted(tree):
         leaf = tree[key]
         if hasattr(leaf, "items"):
-            out[key] = _redraw(leaf, rng)
+            out[key] = _draw(leaf, rng)
             continue
-        arr = np.asarray(leaf)
-        if key == "bias":
-            arr = rng.normal(0.0, 0.1, arr.shape)
+        shape = tuple(leaf.shape)
+        if key == "kernel":
+            arr = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[:-1])), shape)
+        elif key == "bias":
+            arr = rng.normal(0.0, 0.1, shape)
         elif key == "scale":
-            arr = 1.0 + rng.normal(0.0, 0.1, arr.shape)
+            arr = 1.0 + rng.normal(0.0, 0.1, shape)
         elif key == "mean":
-            arr = rng.normal(0.0, 0.1, arr.shape)
+            arr = rng.normal(0.0, 0.1, shape)
         elif key == "var":
-            arr = rng.uniform(0.5, 1.5, arr.shape)
+            arr = rng.uniform(0.5, 1.5, shape)
+        else:
+            raise KeyError(key)
         out[key] = np.asarray(arr, np.float32)
     return out
 
 
 def _flax_and_port(jmodule, port_module, *inputs, seed=0, **apply_kw):
-    """Init the Flax module, re-draw its biases/stats, load them into the
-    port module; returns (variables, port module)."""
-    variables = jax.jit(jmodule.init)(jax.random.PRNGKey(seed), *inputs, **apply_kw)
-    variables = _redraw(jax.tree_util.tree_map(np.asarray, dict(variables)), np.random.default_rng(seed))
+    """Seeded weights in the Flax module's init shapes, loaded into the port
+    module; returns (variables, port module)."""
+    shapes = jax.eval_shape(partial(jmodule.init, **apply_kw), jax.random.PRNGKey(seed), *inputs)
+    variables = _draw(dict(shapes), np.random.default_rng(seed))
     port_module.load_state_dict(state_dict_from_flax(variables), strict=True)
     return variables, port_module.eval()
 

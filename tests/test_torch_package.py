@@ -42,6 +42,9 @@ SLICE_MODULES = (
     "raft_tpu_torch/device.py",
     "raft_tpu_torch/serve/__init__.py",
     "raft_tpu_torch/serve/config.py",
+    "raft_tpu_torch/serve/replica.py",
+    "raft_tpu_torch/serve/router.py",
+    "raft_tpu_torch/serve/autoscale.py",
     "raft_tpu_torch/checkpoint/convert.py",
     "raft_tpu_torch/data/datasets.py",
     "raft_tpu_torch/data/io.py",

@@ -47,9 +47,9 @@ torch.set_num_threads(2)
 MODES = {"pool": dict(pool_capacity=3), "whole-request": dict(pool_capacity=0)}
 
 # stats() keys of the JAX engine the port does not have: the rollout's
-# weights identity and its mirrored-traffic counters (ROADMAP queue 1
-# item 4); the port's own: the graphs' kernel launches
-JAX_ONLY = {"variables_hash", "shadow_submitted", "shadow_completed", "shadow_shed", "shadow_expired"}
+# mirrored-traffic counters (ROADMAP queue 1 item 4a-ii); the port's own:
+# the graphs' kernel launches
+JAX_ONLY = {"shadow_submitted", "shadow_completed", "shadow_shed", "shadow_expired"}
 PORT_ONLY = {"launches"}
 # blocks whose keys must be equal; 'boot' differs by design (the port
 # captures CUDA graphs, the JAX engine loads or compiles executables)
