@@ -3351,6 +3351,240 @@ def router_phase(device, card, weights):
         gc.enable()
 
 
+ROLLOUT_CLIENTS = 8
+# the perturbed candidate: added to both channels of the flow head's last
+# bias; each update adds it to the 1/8-grid flow and the upsampling scales
+# it by 8, so over 32 updates the flow moves ~256 x ROLLOUT_BIAS px a
+# component (before the recurrence's own response)
+ROLLOUT_BIAS = 0.01
+ROLLOUT_WAIT_S = 120.0
+
+
+def rollout_config(**kw):
+    """The ladders' knobs: 2 s holds, short windows, a floor of 8 samples,
+    the gate's thresholds at their defaults (a 1 px mean flow gap, 4 px
+    p99). A mirror runs alone on the candidate while its live twin ran in a
+    batch, so at bf16 an identical candidate's gap is batch rounding: a
+    long window's mean reads up to ~0.09 px on an H100 (PERF.md §6), too
+    near the 'throughput' bound of 0.1 to gate on without false breaches;
+    the phase holds the mean over every mirrored pair of the ladder to
+    that bound instead."""
+    from raft_tpu_torch.serve import RolloutConfig
+
+    knobs = dict(mirror_fraction=0.5, canary_fraction=0.25, min_samples=8, shadow_hold_s=2.0, canary_hold_s=2.0,
+                 short_window_s=1.0, long_window_s=3.0)
+    return RolloutConfig(**dict(knobs, **kw))
+
+
+def rollout_phase(device, card, weights):
+    """The guarded rollout on the card, with the collector off: raft_large at
+    'throughput' (fused, bf16 levels, K1's bf16 product), bucket 440x1024,
+    warmed, the serving phase's weights, a one-rung ladder (R5: a degraded
+    replica is starved of the admissions that would let it recover), two
+    thread replicas behind ``ServeRouter``, then three candidates, each
+    under a closed loop of ``ROLLOUT_CLIENTS`` clients:
+
+    1. identical weights: shadow -> canary -> promoted (the flow gap over
+       every mirrored pair is batch rounding only, within the 'throughput'
+       bounds: 0.1 px mean, the per-request p99 within the 2 px max bound);
+       every request a flow, every replica rebuilt onto the candidate's
+       hash;
+    2. the flow head's last bias offset by ``ROLLOUT_BIAS``: a ``flow_mean``
+       breach in shadow rolls it back, ``wait()`` raises
+       ``RolloutAborted``, no replica on its hash, a valid postmortem
+       bundle with the ``rollout_*`` events;
+    3. identical weights parked in canary, then declared dead on its
+       heartbeat (``FaultInjector.replica_dead`` through ``patch_router``):
+       rolled back with ``candidate_crash``, the canary requests it held
+       re-served by the replicas.
+
+    No request is lost in any ladder. The reserved memory is printed during
+    shadow and after each terminal stage: the candidate's engine is freed
+    without a collection, the card back within ``ROUTER_MEM_TOL_GIB`` of
+    the two-replica level. Captures
+    after ``start()`` happen only in the candidates' boots and promotion's
+    rebuilds; every engine is gone after ``close()``. Returns K1's
+    launches (graph replays, boots included, and the boots' eager
+    warm-ups) and the numbers."""
+    import copy
+    import dataclasses
+    import functools
+    import gc
+    import weakref
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.graphs import capture_events, replayed_launches
+    from raft_tpu_torch.obs import validate_bundle
+    from raft_tpu_torch.serve import RolloutAborted, RolloutStage, RouterConfig, ServeConfig, ServeEngine, ServeRouter
+    from raft_tpu_torch.utils.faults import FaultInjector
+
+    t_phase = time.perf_counter()
+    gc.disable()
+    try:
+        model = rt.raft_for_serving(ServeConfig.preset("throughput"), corr_impl="fused", device=device)
+        model.load_state_dict(weights)
+        perturbed = copy.deepcopy(model)
+        with torch.no_grad():
+            perturbed.update_block.flow_head.conv2.bias.add_(ROLLOUT_BIAS)
+        cfg = ServeConfig(buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER[:1],
+                          warmup=True, default_deadline_ms=120_000.0, ledger_sample_every=0,
+                          queue_capacity=ROUTER_QUEUE)
+        pairs = [request_pair(200 + i)[:2] for i in range(SERVE_REQUESTS)]
+        built = []  # weakrefs to every engine a factory builds
+
+        def factory(net=model, **overrides):
+            eng = ServeEngine(net, dataclasses.replace(cfg, **overrides), device=device)
+            built.append(weakref.ref(eng))
+            return eng
+
+        def alive():
+            return sum(r() is not None for r in built)
+
+        reset_counts()
+        k1_graphs0 = by_kernel(replayed_launches())["k1"]
+        router = ServeRouter.from_factory(factory, 2, RouterConfig(
+            heartbeat_interval_s=ROUTER_BEAT_S, cooldown_s=ROUTER_COOLDOWN_S, drain_timeout_s=60.0))
+        try:
+            t0 = time.perf_counter()
+            router.start()
+            boot_s = time.perf_counter() - t0
+            two_level = reserved_gib(device)
+            two_alloc = torch.cuda.memory_allocated(device) / 2**30
+            fleet_hash = router.variables_hash
+            boot_captures = sum(max(n, 0) for n in router._by_id["r0"].engine.program_counts().values())
+            ev0 = capture_events()
+            log(f"rollout: 2 thread replicas booted in {boot_s:.3f} s, reserved {two_level:.3f} GiB (allocated "
+                f"{two_alloc:.3f}), {boot_captures} captures a boot; card {card}")
+
+            def ladder(name, cand_factory, rcfg, during=None):
+                """One ladder under a closed loop: boot the candidate, wait
+                for the end, stop the clients, wait for the candidate's
+                engine to be released; its numbers."""
+                st0 = router.stats()["router"]
+                t0 = time.perf_counter()
+                ctrl = router.add_candidate(cand_factory, rollout_config=rcfg)
+                cand_boot_s = time.perf_counter() - t0
+                gone = weakref.ref(ctrl.candidate.engine)
+                cand_hash = ctrl.candidate.variables_hash
+                shadow_gib = reserved_gib(device)
+                extra = None
+                gate = None  # the gate's last long-window reading at its sample floor, in shadow or canary
+                with ClosedLoop(router, pairs, ROLLOUT_CLIENTS) as loop:
+                    t1 = time.perf_counter()
+                    if during is not None:
+                        extra = during(ctrl)
+                    while ctrl.stage not in RolloutStage.TERMINAL and time.perf_counter() - t1 < ROLLOUT_WAIT_S:
+                        if ctrl.stage in (RolloutStage.SHADOW, RolloutStage.CANARY):
+                            reading = ctrl.gate.evaluate()["long"]
+                            if reading["samples"] >= ctrl.config.min_samples:
+                                gate = reading
+                        time.sleep(0.05)
+                    try:
+                        ctrl.wait(timeout=ROLLOUT_WAIT_S)
+                        end = RolloutStage.PROMOTED
+                    except RolloutAborted as e:
+                        end = (e.stage, e.reason)
+                    ladder_s = time.perf_counter() - t1
+                    loop_out = loop.stop()
+                release_s = settle(lambda: gone() is None, 10.0, f"the release of the {name} candidate's engine")
+                after_gib = reserved_gib(device)
+                after_alloc = torch.cuda.memory_allocated(device) / 2**30
+                snap, st = ctrl.snapshot(), router.stats()
+                # the gap over every sample of the ladder, not a window's
+                samples = [sample for _, sample in list(ctrl.gate._ring)]
+                whole = ctrl.gate._metrics(samples)
+                gaps = [x["flow_mean"] for x in samples if x["flow_mean"] is not None]
+                whole["flow_mean_std_px"] = float(np.std(gaps)) if gaps else None
+                d = {k: st["router"][k] - st0[k] for k in ("routed", "rerouted", "evictions", "mirrored",
+                                                          "mirror_shed", "canary_routed")}
+                stages = [(h["stage"], h["t_s"]) for h in snap["stage_history"]]
+                gate = gate or snap["gate"]["long"]
+                log(f"rollout {name}: candidate booted in {cand_boot_s:.3f} s (reserved {shadow_gib:.3f} GiB in "
+                    f"shadow); ended {end} {ladder_s:.3f} s later, stages {stages}; clients' outcomes {loop_out}; "
+                    f"router {d}; gate (long window) samples {gate['samples']} flow_mean_px {gate['flow_mean_px']} "
+                    f"flow_p99_px {gate['flow_p99_px']} latency_ratio {gate['latency_ratio']} iters_delta "
+                    f"{gate['iters_delta']} error_rate {gate['error_rate']}; over the whole ladder samples "
+                    f"{whole['samples']} flow_mean_px {whole['flow_mean_px']} (std {whole['flow_mean_std_px']}) "
+                    f"flow_p99_px {whole['flow_p99_px']}; "
+                    f"mirror errors {snap['mirror_errors']}, "
+                    f"canary errors {snap['canary_errors']}; candidate engine released {release_s:.3f} s after, "
+                    f"reserved {after_gib:.3f} GiB (allocated {after_alloc:.3f}; two-replica level {two_level:.3f} / "
+                    f"{two_alloc:.3f}); replicas {[(r.replica_id, r.generation, r.variables_hash == cand_hash) for r in router.replicas]}; "
+                    f"card {card}")
+                if set(loop_out) != {"flow"}:
+                    raise AssertionError(f"rollout {name}: a request was lost: {loop_out}")
+                return dict(end=end, snap=snap, d=d, cand_hash=cand_hash, after_gib=after_gib, extra=extra, whole=whole)
+
+            # 1. an identical candidate, promoted
+            one = ladder("identical", None, rollout_config())
+            tol_mean, tol_max = SERVE_TOL["throughput"]
+            hashes = {r.variables_hash for r in router.replicas}
+            stages = [h["stage"] for h in one["snap"]["stage_history"]]
+            if one["end"] != RolloutStage.PROMOTED or stages != ["shadow", "canary", "promoting", "promoted"] \
+                    or hashes != {one["cand_hash"]} or one["cand_hash"] != fleet_hash \
+                    or any(r.generation != 2 for r in router.replicas) or not one["d"]["canary_routed"] \
+                    or one["d"]["evictions"] or one["whole"]["flow_mean_px"] is None \
+                    or not (one["whole"]["flow_mean_px"] <= tol_mean and one["whole"]["flow_p99_px"] <= tol_max):
+                raise AssertionError(f"rollout: the identical candidate's ladder {stages}, hashes {hashes}, flow gap "
+                                     f"{one['whole']}")
+            if one["after_gib"] > two_level + ROUTER_MEM_TOL_GIB:
+                raise AssertionError("rollout: the promoted candidate's memory did not come back")
+
+            # 2. a perturbed candidate, rolled back on the flow gate
+            two = ladder("perturbed", functools.partial(factory, net=perturbed), rollout_config())
+            bundles = [b for b in router.recorder.bundles() if b["reason"] == "rollout_rollback:flow_mean"]
+            kinds = set() if not bundles else {e["kind"] for e in bundles[-1]["events"]}
+            hashes = {r.variables_hash for r in router.replicas}
+            log(f"rollout perturbed: predicted gap ~{256 * ROLLOUT_BIAS * 2**0.5:.2f} px (32 updates x 8 x "
+                f"{ROLLOUT_BIAS} a component), measured flow_mean_px {two['whole']['flow_mean_px']} over its ladder; bundle "
+                f"{[validate_bundle(b) for b in bundles]}, rollout events "
+                f"{sorted(k for k in kinds if k.startswith('rollout'))}")
+            if two["end"] != ("shadow", "flow_mean") or two["cand_hash"] in hashes or hashes != {fleet_hash} \
+                    or len(bundles) != 1 or validate_bundle(bundles[0]) \
+                    or not {"rollout_candidate", "rollout_stage", "rollout_breach", "rollout_rollback"} <= kinds \
+                    or two["after_gib"] > two_level + ROUTER_MEM_TOL_GIB:
+                raise AssertionError(f"rollout: the perturbed candidate ended {two['end']}, replicas {hashes}")
+
+            # 3. a candidate declared dead in canary
+            def crash(ctrl):
+                settle(lambda: ctrl.stage in RolloutStage.TERMINAL or (ctrl.stage == RolloutStage.CANARY
+                                                                       and ctrl.canary_routed >= 4), 60.0,
+                       "the third candidate's canary stage")
+                if ctrl.stage != RolloutStage.CANARY:
+                    raise AssertionError(f"rollout: the third candidate ended {ctrl.stage} ({ctrl.abort_reason}) "
+                                         f"before its crash")
+                inj = FaultInjector()
+                inj.on("router.heartbeat", when=lambda i, c: c["replica"] == "candidate",
+                       action=FaultInjector.replica_dead)
+                with inj.patch_router(router):
+                    settle(lambda: ctrl.stage in RolloutStage.TERMINAL, 30.0, "the crashed candidate's rollback")
+                return inj.fired["router.heartbeat"]
+
+            three = ladder("crashed", None, rollout_config(auto_promote=False), during=crash)
+            if three["end"] != ("canary", "candidate_crash") or not three["extra"] or three["d"]["evictions"] != 1 \
+                    or {r.variables_hash for r in router.replicas} != {fleet_hash} \
+                    or three["after_gib"] > two_level + ROUTER_MEM_TOL_GIB:
+                raise AssertionError(f"rollout: the crashed candidate ended {three['end']}")
+            captures = capture_events() - ev0
+        finally:
+            router.close()
+        k1_graphs, eager = by_kernel(replayed_launches())["k1"] - k1_graphs0, read_counts()["k1"]
+        k1 = k1_graphs + eager
+        del router, one, two, three
+        after_close = reserved_gib(device)
+        log(f"rollout: captures after start() {captures} (3 candidates' boots and 2 promotion rebuilds at "
+            f"{boot_captures} a boot); engines built {len(built)}, alive after close() and del {alive()}; reserved "
+            f"{after_close:.3f} GiB; K1 {k1} launches in the phase (graph replays {k1_graphs}, boots included; eager, "
+            f"in the boots' warm-ups, {eager}); phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+        if captures != 5 * boot_captures or len(built) != 7 or alive():
+            raise AssertionError("rollout: captures outside the candidates' boots and promotion's rebuilds, or an "
+                                 "engine alive after close()")
+        del model, perturbed
+        return k1
+    finally:
+        gc.enable()
+
+
 def tf32_flags():
     """The TF32 settings of cuDNN convolutions and cuBLAS matmuls as the
     per-operator API reads them (it reads legacy settings too)."""
@@ -3435,6 +3669,7 @@ def main() -> int:
     k1_qos_edge = qos_flood_phase(device, card, "edge", weights)
     k1_obs, _ = observability_phase(device, card, weights)
     k1_router, _ = router_phase(device, card, weights)
+    k1_rollout = rollout_phase(device, card, weights)
     train_phase(device, card)
     fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
     fused_training_checks(device, card)
@@ -3499,6 +3734,10 @@ def main() -> int:
                           f"requests, a replica death, a draining restart, autoscaling 2 -> 1 -> 2 -> 1 "
                           f"(graph replays, boots included)",
               router_launches=k1_router,
+              rollout_path=f"ServeRouter.add_candidate over 2 thread replicas at 'throughput', {ROLLOUT_CLIENTS} "
+                           f"closed-loop clients: an identical candidate promoted, a perturbed one rolled back, a "
+                           f"crashed one rolled back (graph replays, boots included)",
+              rollout_launches=k1_rollout,
               training_path="bench --train --corr fused --corr-dtype bfloat16 --dtype bfloat16 (b=6, 368x768, "
                             "12 updates, remat)", bench_train_k1_launches_per_step=bench_train_k1[
                   "corr_impl=fused, corr_dtype=bf16, compute_dtype=bf16"]["k1_launches_per_step"],

@@ -29,11 +29,14 @@ engine, ``ServeEngine`` (the iteration pool, or the whole-request engine at
         result = router.submit(image1, image2)
         router.restart_replica("r1")          # draining restart, nothing dropped
 
+        # a guarded rollout: mirror, canary, then promote or roll back
+        ctrl = router.add_candidate(new_factory, rollout_config=RolloutConfig(min_samples=16))
+        ctrl.wait(timeout=600.0)               # RolloutAborted on rollback
+
 Importing the package builds no kernel and needs no card; the engine runs
-on the card unless ``device='cpu'`` is passed. Not ported yet: replicas in
-worker processes (``backend='process'|'remote'``, ROADMAP queue 1 item 4b)
-and guarded rollouts (``ServeRouter.add_candidate``, item 4a-ii); both
-raise ``NotImplementedError``.
+on the card unless ``device='cpu'`` is passed. Not ported yet: replicas and
+rollout candidates in worker processes (``backend='process'|'remote'``,
+ROADMAP queue 1 item 4b) raise ``NotImplementedError``.
 """
 
 from raft_tpu_torch.serve.autoscale import AutoscaleConfig, Autoscaler
@@ -47,10 +50,12 @@ from raft_tpu_torch.serve.errors import (
     Overloaded,
     PoisonedInput,
     QuotaExceeded,
+    RolloutAborted,
     ServeError,
     ShapeRejected,
 )
 from raft_tpu_torch.serve.replica import Replica, ReplicaState
+from raft_tpu_torch.serve.rollout import RolloutConfig, RolloutController, RolloutStage
 from raft_tpu_torch.serve.router import ConsistentHashRing, RouterConfig, RouterStream, ServeRouter
 from raft_tpu_torch.serve.qos import PRIORITIES, QosPolicy, brownout_level, effective_rank
 from raft_tpu_torch.serve.tiler import TilePlan, TilePlanner, blend_tiles, nearest_bucket
@@ -61,6 +66,10 @@ __all__ = [
     "ConsistentHashRing",
     "Replica",
     "ReplicaState",
+    "RolloutAborted",
+    "RolloutConfig",
+    "RolloutController",
+    "RolloutStage",
     "RouterConfig",
     "RouterStream",
     "ServeRouter",

@@ -98,8 +98,12 @@ from the watcher thread, resets the pool, and the worker drains the
 stream before its next replay, so an abandoned replay's outputs never
 reach a later request.
 
-Not ported yet: ``submit_many``'s ``shadow`` item key (rollout mirroring,
-ROADMAP queue 1 item 4a-ii) raises ``NotImplementedError``.
+**Shadow traffic** (``shadow=True`` on every entry point and
+``submit_many`` item): a rollout's mirrored request is served as any other
+but counted only in the ``shadow_*`` twins of ``submitted`` /
+``completed`` / ``shed`` / ``expired``; it charges no QoS class and takes
+no tenant token, so nothing the autoscaler, the QoS stats or the burn-rate
+alerts read moves with mirrored load.
 """
 
 from __future__ import annotations
@@ -180,6 +184,10 @@ _COUNTERS = (
     "early_exit_iters_saved", "early_exits_deadline",
     "early_exits_converged", "early_exit_iters_saved_deadline",
     "early_exit_iters_saved_converged", "stream_warm_starts", "drained",
+    # mirrored rollout traffic is counted HERE, never under submitted/
+    # completed/shed/expired: the autoscaler, QoS and alert signals those
+    # feed must be blind to it
+    "shadow_submitted", "shadow_completed", "shadow_shed", "shadow_expired",
 )
 
 # one engine warms up at a time in a process: a capture on the card must
@@ -187,13 +195,6 @@ _COUNTERS = (
 # captures is refused ("operation not permitted when stream is capturing")
 # and invalidates the capture under way; the captures take turns anyway
 _BOOT_LOCK = threading.Lock()
-
-# submit_many item keys of paths the port has not reached, with the
-# ROADMAP item that brings each
-_UNPORTED_ITEM_KEYS = {
-    "shadow": "queue 1 item 4a-ii (rollout mirroring)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ServeResult:
@@ -715,7 +716,7 @@ class ServeEngine:
 
     def submit(self, image1, image2, *, deadline_ms: Optional[float] = None,
                num_flow_updates: Optional[int] = None, init_flow=None, trace_ctx: Optional[TraceContext] = None,
-               priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
+               priority: Optional[str] = None, tenant: Optional[str] = None, shadow: bool = False) -> ServeResult:
         """Serve one raw [0, 255] ``(H, W, 3)`` pair; returns :class:`ServeResult`.
 
         ``num_flow_updates`` caps this request's refinement iterations
@@ -739,6 +740,12 @@ class ServeEngine:
         and the class drives shedding and brownout; off, they are
         accounting only.
 
+        ``shadow`` marks the request as mirrored rollout traffic: served as
+        any other, counted only in the ``shadow_*`` counters, no tenant
+        quota charged and no QoS class counted, so the submitted /
+        completed / shed / expired counters the autoscaler, the QoS stats
+        and the burn-rate alerts read never move.
+
         Under ``unknown_shape='tiled'`` an off-bucket pair is served by
         :meth:`submit_tiled` (``init_flow`` is dropped: a tile has no
         seed of its own).
@@ -757,17 +764,18 @@ class ServeEngine:
                 # fan out before any accounting, so the request is charged
                 # and counted once, by submit_tiled
                 return self.submit_tiled(image1, image2, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
-                                         trace_ctx=trace_ctx, priority=priority, tenant=tenant)
+                                         trace_ctx=trace_ctx, priority=priority, tenant=tenant, shadow=shadow)
         t_sub = time.monotonic()
         deadline_ms = self._check_live(deadline_ms)
         pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p1, p2, hw = self._admit(image1, image2)
-        rel = self._qos_charge(pr, ten)
+        rel = None if shadow else self._qos_charge(pr, ten)
         t_adm = time.monotonic()
         bucket = self._router.route(*hw)
-        rid = self._new_rid()
-        self._qos_stats.count(pr, "submitted")
+        rid = self._new_rid(shadow=shadow)
+        if not shadow:
+            self._qos_stats.count(pr, "submitted")
         trace = self.tracer.start("pair", rid, t_start=t_sub, trace_id=None if trace_ctx is None else trace_ctx.trace_id)
         if trace is not None:
             trace.add_span("admit", t_sub, t_adm)
@@ -776,10 +784,10 @@ class ServeEngine:
         try:
             if bucket is None:
                 return self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, trace=trace, priority=pr,
-                                         tenant=ten)
+                                         tenant=ten, shadow=shadow)
             req = Request(
                 rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
-                iters=iters, priority=pr, tenant=ten,
+                iters=iters, priority=pr, tenant=ten, shadow=shadow,
             )
             if init_flow is not None:
                 req.init8 = self._prepare_init_flow(init_flow, bucket)
@@ -806,8 +814,8 @@ class ServeEngine:
 
         Each item is a dict: ``image1``, ``image2``, optional
         ``deadline_ms`` / ``num_flow_updates`` / ``trace_ctx`` (its
-        ``trace_id`` is adopted) / ``priority`` / ``tenant`` (as in
-        :meth:`submit`), and an optional ``on_done`` callable
+        ``trace_id`` is adopted) / ``priority`` / ``tenant`` / ``shadow``
+        (as in :meth:`submit`), and an optional ``on_done`` callable
         invoked with the request handle on completion. Returns one
         :class:`Request` handle per item, in order (``wait``, then
         ``result`` or ``error``). An item that fails validation,
@@ -820,25 +828,18 @@ class ServeEngine:
         The tiler's fan-out rides two internal item keys: ``p1``/``p2``/
         ``hw`` (already-admitted ``(1, h, w, 3)`` slices, not admitted
         again) and ``skip_quota`` (the tiled request was charged once for
-        all its tiles). The JAX package's ``shadow`` item key is not
-        ported: an item carrying it raises ``NotImplementedError`` before
-        anything is admitted.
+        all its tiles).
         """
         return self._submit_many(items)[0]
 
     def _submit_many(self, items: List[Dict[str, Any]]) -> Tuple[List[Request], int]:
         """:meth:`submit_many`, and the queue acquisitions it took (0 or 1)."""
-        for it in items:
-            for key, item in _UNPORTED_ITEM_KEYS.items():
-                if key in it:
-                    raise NotImplementedError(
-                        f"submit_many item key {key!r} is not ported to raft_tpu_torch yet (ROADMAP {item})"
-                    )
         prepared: List[Request] = []
         handles: List[Request] = []
         for it in items:
             cb = it.get("on_done")
             ctx = it.get("trace_ctx")
+            sh = bool(it.get("shadow", False))
             t_sub = time.monotonic()
             try:
                 deadline_ms = self._check_live(it.get("deadline_ms"))
@@ -851,13 +852,14 @@ class ServeEngine:
                     hw = (int(it["hw"][0]), int(it["hw"][1]))
                 else:
                     p1, p2, hw = self._admit(it["image1"], it["image2"])
-                rel = None if it.get("skip_quota") else self._qos_charge(pr, ten)
+                rel = None if sh or it.get("skip_quota") else self._qos_charge(pr, ten)
             except Exception as e:
                 handles.append(self._finished_handle(error=e, on_done=cb))
                 continue
             bucket = self._router.route(*hw)
-            rid = self._new_rid()
-            self._qos_stats.count(pr, "submitted")
+            rid = self._new_rid(shadow=sh)
+            if not sh:
+                self._qos_stats.count(pr, "submitted")
             trace = self.tracer.start("pair", rid, t_start=t_sub, trace_id=None if ctx is None else ctx.trace_id)
             if trace is not None:
                 trace.add_span("admit", t_sub, time.monotonic())
@@ -866,21 +868,21 @@ class ServeEngine:
             if bucket is None:
                 # rare (un-bucketed shape): served now, through the slow path
                 # or the tiler
-                req = Request(rid, hw, None, None, hw, deadline, iters=iters, priority=pr, tenant=ten)
+                req = Request(rid, hw, None, None, hw, deadline, iters=iters, priority=pr, tenant=ten, shadow=sh)
                 if rel is not None:
                     req.add_done_callback(rel)
                 if cb is not None:
                     req.add_done_callback(cb)
                 try:
                     req.finish(result=self._submit_slow(rid, p1, p2, hw, deadline, deadline_ms, iters, trace=trace,
-                                                        priority=pr, tenant=ten))
+                                                        priority=pr, tenant=ten, shadow=sh))
                 except Exception as e:
                     req.finish(error=e)
                 handles.append(req)
                 continue
             req = Request(
                 rid, bucket, self._router.pad_to(p1, bucket), self._router.pad_to(p2, bucket), hw, deadline,
-                iters=iters, priority=pr, tenant=ten,
+                iters=iters, priority=pr, tenant=ten, shadow=sh,
             )
             req.trace = trace
             if rel is not None:
@@ -897,8 +899,9 @@ class ServeEngine:
             if err is None:
                 continue
             if isinstance(err, Overloaded):
-                self._count("shed")
-                self._qos_stats.count(req.priority, "shed")
+                self._count_outcome(req, "shed")
+                if not req.shadow:
+                    self._qos_stats.count(req.priority, "shed")
                 self._record_shed(req, err)
             req.finish(error=err)
         # the burst may displace queued lower-class work: each victim is
@@ -908,7 +911,8 @@ class ServeEngine:
 
     def submit_tiled(self, image1, image2, *, deadline_ms: Optional[float] = None,
                      num_flow_updates: Optional[int] = None, trace_ctx: Optional[TraceContext] = None,
-                     priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
+                     priority: Optional[str] = None, tenant: Optional[str] = None,
+                     shadow: bool = False) -> ServeResult:
         """Serve an off-bucket pair as bucket-shaped tiles.
 
         The :class:`~raft_tpu_torch.serve.tiler.TilePlanner` picks the
@@ -934,18 +938,19 @@ class ServeEngine:
         the most conservative tile. A traced request's record (kind
         ``'tiled'``) carries ``admit``, ``tiled_submit`` and
         ``tiled_blend`` spans; ``trace_ctx`` joins it to a trace born
-        elsewhere, as in :meth:`submit`.
+        elsewhere, and ``shadow`` counts its tiles in the ``shadow_*``
+        counters, as in :meth:`submit`.
         """
         a1 = np.asarray(image1)
         if a1.ndim == 3 and self._router.route(int(a1.shape[0]), int(a1.shape[1])) is not None:
             return self.submit(image1, image2, deadline_ms=deadline_ms, num_flow_updates=num_flow_updates,
-                               trace_ctx=trace_ctx, priority=priority, tenant=tenant)
+                               trace_ctx=trace_ctx, priority=priority, tenant=tenant, shadow=shadow)
         t_sub = time.monotonic()
         deadline_ms = self._check_live(deadline_ms)
         pr, ten = self._qos_resolve(priority, tenant)
         iters = self._validate_iters(num_flow_updates)
         p1, p2, hw = self._admit(image1, image2)
-        rel = self._qos_charge(pr, ten)
+        rel = None if shadow else self._qos_charge(pr, ten)
         t_adm = time.monotonic()
         # the request is an envelope: its tiles carry the engine's
         # submitted/completed/shed accounting (they are real queue
@@ -962,7 +967,7 @@ class ServeEngine:
         deadline = time.monotonic() + deadline_ms / 1e3
         try:
             return self._run_tiled(rid, p1, p2, hw, deadline, iters, trace=trace, priority=pr, tenant=ten,
-                                   t_sub=t_sub)
+                                   shadow=shadow, t_sub=t_sub)
         finally:
             if rel is not None:
                 rel()
@@ -970,7 +975,7 @@ class ServeEngine:
                 trace_ctx.absorb(trace.record, proc="engine")
 
     def _run_tiled(self, rid, p1, p2, hw, deadline, req_iters=None, *, trace=None, priority=None, tenant=None,
-                   t_sub=None) -> ServeResult:
+                   shadow=False, t_sub=None) -> ServeResult:
         """The tiled fan-out: plan, slice, one ``put_many``, wait, blend.
 
         ``p1``/``p2`` are admitted ``(1, H, W, 3)`` arrays; the tile
@@ -1002,6 +1007,7 @@ class ServeEngine:
                 "num_flow_updates": req_iters,
                 "priority": priority,
                 "tenant": tenant,
+                "shadow": shadow,
                 "skip_quota": True,
             }
             for t in plan.tiles
@@ -1103,15 +1109,17 @@ class ServeEngine:
 
     def submit_frame(self, stream_id: int, frame, *, deadline_ms: Optional[float] = None,
                      num_flow_updates: Optional[int] = None, trace_ctx: Optional[TraceContext] = None,
-                     priority: Optional[str] = None, tenant: Optional[str] = None) -> ServeResult:
+                     priority: Optional[str] = None, tenant: Optional[str] = None,
+                     shadow: bool = False) -> ServeResult:
         """Advance stream ``stream_id`` by one frame.
 
         Returns flow(previous frame -> this frame) at the caller's
         resolution, or a ``primed=True`` result (``flow=None``) when this
         frame opens a fresh pair (first frame, or first after an
         invalidation or eviction). One outstanding frame per stream.
-        ``trace_ctx`` joins a trace sampled elsewhere, and ``priority`` /
-        ``tenant`` classify the frame for QoS, as in :meth:`submit`.
+        ``trace_ctx`` joins a trace sampled elsewhere, ``priority`` /
+        ``tenant`` classify the frame for QoS, and ``shadow`` counts it in
+        the ``shadow_*`` counters, as in :meth:`submit`.
         """
         if not self._streams_on:
             raise InvalidInput("stream serving is disabled (stream_cache_size=0)")
@@ -1150,13 +1158,14 @@ class ServeEngine:
         req = None
         rel = None
         try:
-            rel = self._qos_charge(pr, ten)
-            rid = self._new_rid()
-            self._qos_stats.count(pr, "submitted")
+            rel = None if shadow else self._qos_charge(pr, ten)
+            rid = self._new_rid(shadow=shadow)
+            if not shadow:
+                self._qos_stats.count(pr, "submitted")
             deadline = time.monotonic() + deadline_ms / 1e3
             req = Request(
                 rid, bucket, None, self._router.pad_to(p, bucket), hw, deadline, kind="stream",
-                stream_id=stream_id, iters=iters, priority=pr, tenant=ten,
+                stream_id=stream_id, iters=iters, priority=pr, tenant=ten, shadow=shadow,
             )
             req.trace = self.tracer.start("stream", rid, t_start=t_sub,
                                           trace_id=None if trace_ctx is None else trace_ctx.trace_id)
@@ -1443,12 +1452,18 @@ class ServeEngine:
             raise InvalidInput(f"deadline_ms must be positive, got {deadline_ms}")
         return deadline_ms
 
-    def _new_rid(self) -> int:
+    def _new_rid(self, shadow: bool = False) -> int:
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
-            self._counters["submitted"] += 1
+            self._counters["shadow_submitted" if shadow else "submitted"] += 1
         return rid
+
+    def _count_outcome(self, r: Request, key: str) -> None:
+        """Count a request's outcome, in its ``shadow_*`` twin for mirrored
+        rollout traffic, so every signal read from the live counters stays
+        blind to shadow load."""
+        self._count(f"shadow_{key}" if r.shadow else key)
 
     def _validate_iters(self, n: Optional[int]) -> Optional[int]:
         """Validate a per-request ``num_flow_updates`` against the
@@ -1521,8 +1536,9 @@ class ServeEngine:
         try:
             self._queue.put(req, retry_after_ms=self._retry_after_ms(), preempted=preempted)
         except Overloaded as e:
-            self._count("shed")
-            self._qos_stats.count(req.priority, "shed")
+            self._count_outcome(req, "shed")
+            if not req.shadow:
+                self._qos_stats.count(req.priority, "shed")
             self._record_shed(req, e)
             if req.trace is not None:
                 req.trace.finish(ok=False, error="Overloaded")
@@ -1531,23 +1547,25 @@ class ServeEngine:
         if not req.wait(max(0.0, req.remaining) + 0.05):
             # worker still busy past our deadline: fail caller-side (set-once
             # means a simultaneous worker finish wins harmlessly)
-            if req.finish(error=DeadlineExceeded(f"request {req.rid} missed its {deadline_ms:.0f}ms deadline")):
+            if req.finish(error=DeadlineExceeded(f"request {req.rid} missed its {deadline_ms:.0f}ms deadline")) \
+                    and not req.shadow:
                 self._qos_stats.count(req.priority, "expired")
-            self._count("expired")
+            self._count_outcome(req, "expired")
         if req.error is not None:
             _raise_copy(req.error)
         return req.result
 
     def _record_shed(self, req: Request, err: Overloaded) -> None:
         """The flight-recorder events of a queue shed: ``shed``, and with
-        QoS on ``qos_shed`` naming the request's class and tenant."""
+        QoS on ``qos_shed`` naming the request's class and tenant (not for
+        shadow traffic, which no class is charged for)."""
         self.recorder.record("shed", rid=req.rid, req_kind=req.kind, retry_after_ms=err.retry_after_ms)
-        if self.config.qos_enabled:
+        if self.config.qos_enabled and not req.shadow:
             self.recorder.record("qos_shed", rid=req.rid, priority=req.priority, tenant=req.tenant,
                                  retry_after_ms=err.retry_after_ms)
 
     def _submit_slow(self, rid, p1, p2, hw, deadline, deadline_ms, req_iters=None, *, trace=None,
-                     priority="standard", tenant="default") -> ServeResult:
+                     priority="standard", tenant="default", shadow=False) -> ServeResult:
         """Un-bucketed shape: reject, tile, or queue it rate-limited for
         the worker, which runs it alone (:meth:`_run_slow`)."""
         if self.config.unknown_shape == "reject":
@@ -1566,12 +1584,17 @@ class ServeEngine:
             # to submit_tiled before any accounting); their rid was counted
             # submitted, so a tiled success is counted completed here
             res = self._run_tiled(rid, p1, p2, hw, deadline, req_iters, trace=trace, priority=priority,
-                                  tenant=tenant)
-            self._count("completed")
+                                  tenant=tenant, shadow=shadow)
+            self._count("shadow_completed" if shadow else "completed")
             return res
         if not self._slow_tokens.try_take():
-            self._count("shed_slow_path")
-            self._qos_stats.count(priority, "shed")
+            # a shadow request lands in its twin here too (the JAX engine
+            # counts it as a live slow-path shed and completion)
+            if shadow:
+                self._count("shadow_shed")
+            else:
+                self._count("shed_slow_path")
+                self._qos_stats.count(priority, "shed")
             self.recorder.record("shed", rid=rid, req_kind="slow_path")
             if trace is not None:
                 trace.finish(ok=False, error="Overloaded")
@@ -1582,7 +1605,7 @@ class ServeEngine:
         shape = self._router.natural_shape(*hw)
         req = Request(
             rid, shape, self._router.pad_to(p1, shape), self._router.pad_to(p2, shape), hw, deadline,
-            slow_path=True, kind="slow", iters=req_iters, priority=priority, tenant=tenant,
+            slow_path=True, kind="slow", iters=req_iters, priority=priority, tenant=tenant, shadow=shadow,
         )
         req.trace = trace
         return self._enqueue_and_wait(req, deadline_ms)
@@ -1949,8 +1972,9 @@ class ServeEngine:
             remaining_ms = r.remaining * 1e3
             if remaining_ms <= 0:
                 if r.finish(error=DeadlineExceeded(f"request {r.rid} expired after {meta.done} pool iterations")):
-                    self._count("expired")
-                    self._qos_stats.count(r.priority, "expired")
+                    self._count_outcome(r, "expired")
+                    if not r.shadow:
+                        self._qos_stats.count(r.priority, "expired")
                 pool.release(i)
                 continue
             need = meta.target - meta.done
@@ -2097,8 +2121,9 @@ class ServeEngine:
         for r in batch:
             if r.done or r.remaining <= 0:
                 if r.finish(error=DeadlineExceeded(f"request {r.rid} expired in queue")):
-                    self._count("expired")
-                    self._qos_stats.count(r.priority, "expired")
+                    self._count_outcome(r, "expired")
+                    if not r.shadow:
+                        self._qos_stats.count(r.priority, "expired")
                 if r.kind == "stream":
                     self._invalidate_stream(r.stream_id)
             else:
@@ -2574,10 +2599,11 @@ class ServeEngine:
             # counted BEFORE the waiter wakes, so a stats read issued after
             # the caller observed this result always sees it counted
             self._latency_hist.observe(latency_ms)
-            self._qos_stats.count(r_.priority, "completed")
-            self._qos_stats.observe_latency(r_.priority, latency_ms)
+            if not r_.shadow:
+                self._qos_stats.count(r_.priority, "completed")
+                self._qos_stats.observe_latency(r_.priority, latency_ms)
             with self._lock:
-                self._counters["completed"] += 1
+                self._counters["shadow_completed" if r_.shadow else "completed"] += 1
                 self._latency.setdefault(r_.bucket, []).append(latency_ms)
                 del self._latency[r_.bucket][: -self.config.latency_window]
 
@@ -2638,7 +2664,9 @@ class ServeEngine:
                 retry_after_ms=retry_ms,
             )
             if v.finish(error=err):
-                self._count("shed")
+                self._count_outcome(v, "shed")
+                if v.shadow:
+                    continue
                 self._qos_stats.count(v.priority, "preempted")
                 self.recorder.record("qos_preempt", rid=v.rid, priority=v.priority, tenant=v.tenant, by_rid=by.rid,
                                      by_priority=by.priority, retry_after_ms=retry_ms)

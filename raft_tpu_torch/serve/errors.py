@@ -2,7 +2,7 @@
 
 The port's copy of the JAX package's ``raft_tpu/serve/errors.py`` (the
 port cannot import it: importing ``raft_tpu.serve`` loads jax), without
-the artifact and rollout errors, whose features are not ported.
+the warmup-artifact error, whose feature is not ported.
 
 The serving contract (the JAX package's docs/failure_model.md, serving ladder) is that a
 request fails in exactly one of a small set of ways, each telling the
@@ -37,6 +37,7 @@ __all__ = [
     "ShapeRejected",
     "PoisonedInput",
     "EngineStopped",
+    "RolloutAborted",
 ]
 
 
@@ -154,3 +155,22 @@ class PoisonedInput(ServeError):
 class EngineStopped(ServeError):
     """The engine is not running (never started, stopping, or stopped)."""
 
+
+class RolloutAborted(ServeError):
+    """A candidate rollout was rolled back instead of promoted.
+
+    Raised by :meth:`~raft_tpu_torch.serve.rollout.RolloutController.wait`
+    (and recorded on the router's flight recorder) when a staged promotion
+    (shadow -> canary -> promoted) breached its diff gate or the candidate
+    crashed or was evicted mid-rollout. ``stage`` names where the ladder
+    stood when the abort fired; ``reason`` is the gate or eviction cause
+    (e.g. ``'flow_mean'``, ``'latency'``, ``'candidate_crash'``). Never
+    raised on the live dispatch path: live traffic rides the incumbent
+    replicas throughout; the abort is the operator's signal, not the
+    caller's.
+    """
+
+    def __init__(self, msg: str, stage: str = "", reason: str = ""):
+        super().__init__(msg)
+        self.stage = stage
+        self.reason = reason

@@ -43,7 +43,7 @@ class Request:
     __slots__ = (
         "rid", "bucket", "p1", "p2", "orig_hw", "deadline", "t_submit",
         "slow_path", "kind", "stream_id", "iters", "warm", "init8", "priority",
-        "tenant", "rank", "trace", "_event", "_lock", "_done", "_callbacks", "result", "error",
+        "tenant", "rank", "shadow", "trace", "_event", "_lock", "_done", "_callbacks", "result", "error",
     )
 
     def __init__(
@@ -61,6 +61,7 @@ class Request:
         iters: Optional[int] = None,
         priority: str = "standard",
         tenant: str = "default",
+        shadow: bool = False,
     ):
         self.rid = rid
         self.bucket = bucket
@@ -76,6 +77,7 @@ class Request:
         self.priority = priority            # QoS class
         self.tenant = tenant
         self.rank = rank_of(priority)       # 0 = interactive ... 2 = batch
+        self.shadow = shadow  # mirrored rollout traffic: counted in the shadow_* counters only
         self.trace = None     # obs.trace.Trace when sampled
         self.warm = False     # admitted with a warm-start seed
         self.init8 = None     # (1, bh/8, bw/8, 2) init_flow seed (pair requests only)

@@ -47,20 +47,30 @@ The routing mechanics, in the order a request meets them:
   re-routes via the retryable ``Draining``), rebuilds it through the
   replica factory with the given overrides, boots it and re-admits it.
 
+* **guarded rollouts**: :meth:`ServeRouter.add_candidate` boots a
+  candidate replica outside the fleet and starts a
+  :class:`~raft_tpu_torch.serve.rollout.RolloutController` ladder: shadow
+  (live replies mirrored to the candidate through each submit closure's
+  ``**mkw`` seam, ``shadow=True``), canary (a fraction of pair dispatches
+  served by the candidate, a failure re-served by an incumbent), then
+  promotion through draining restarts or an automatic rollback.
+
 ``FaultInjector.patch_router`` exposes the chaos seams
-(``router.heartbeat``, ``router.dispatch``). Every lifecycle transition is
+(``router.heartbeat``, ``router.dispatch``; the candidate's beat goes
+through the heartbeat seam too). Every lifecycle transition is
 a flight-recorder event, every eviction dumps a postmortem bundle
 (:meth:`ServeRouter.dump_postmortem`), and :meth:`ServeRouter.prometheus`
 exposes the whole tier in one scrape, each replica's series labelled
 ``replica=``.
 
 The router holds no reference cycle: its gauges and alert snapshot close
-over its counters and replica list, not over the router, so a closed
-router and its stopped engines are freed as soon as the caller lets go.
+over its counters and replica list, or read the router weakly, and its
+rollout controller holds it weakly, so a closed router and its stopped
+engines are freed as soon as the caller lets go.
 
-Not ported yet: the guarded rollout (``add_candidate``, the canary pick
-and the shadow mirror; ROADMAP queue 1 item 4a-ii) and remote replicas
-(``add_remote_replica``; item 4b); both raise ``NotImplementedError``.
+Not ported yet: remote replicas and candidates in worker processes
+(``add_remote_replica``, ``backend='process'|'remote'``; ROADMAP queue 1
+item 4b) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ from raft_tpu_torch.serve.errors import (
     ServeError,
 )
 from raft_tpu_torch.serve.replica import Replica, ReplicaState
+from raft_tpu_torch.serve.rollout import RolloutConfig, RolloutController, RolloutStage
 from raft_tpu_torch.serve.tiler import TilePlanner, blend_tiles
 
 __all__ = ["ServeRouter", "RouterConfig", "ConsistentHashRing", "RouterStream"]
@@ -265,7 +276,8 @@ _ROUTER_COUNTERS = (
     "no_healthy_replicas", "evictions", "readmissions",
     "restarts", "drains", "heartbeat_misses", "stream_remaps",
     "streams_opened",
-    # rollout accounting (item 4a-ii): always present, zero until ported
+    # rollout accounting: always present (zero with no candidate), never
+    # in the engine aggregate the autoscaler reads
     "mirrored", "mirror_shed", "canary_routed",
     # tiled: whole-plan affinity dispatches vs per-tile fan-outs
     "tiled_routed", "tiled_fanout",
@@ -357,8 +369,17 @@ class ServeRouter:
         # fired after every successful draining restart (the one seam every
         # serving-weights swap goes through)
         self._weights_listeners: List[Callable[..., None]] = []
-        # the rollout ladder is not ported (item 4a-ii): the gauge reads 0
-        self.metrics.gauge("rollout_active", lambda: 0.0, help="1 while a candidate rollout ladder is live")
+        # the guarded rollout: the candidate replica and its ladder live in a
+        # RolloutController OUTSIDE self._replicas (invisible to _pick, the
+        # ring, the stats aggregate and the autoscaler); the monitor drives
+        # it as it drives the autoscaler
+        self._rollout: Optional[RolloutController] = None
+        # reserved under _lock while a candidate boots: add_candidate lets
+        # go of the lock for the (slow) boot, and without the reservation
+        # two concurrent calls would both pass the one-ladder check
+        self._rollout_pending = False
+        self.metrics.gauge("rollout_active", _weakly(self._rollout_active, 0.0),
+                           help="1 while a candidate rollout ladder is live")
         # probes run off-thread so a wedged engine stalls a probe future,
         # never the monitor loop
         self._probe_pool = ThreadPoolExecutor(
@@ -463,6 +484,12 @@ class ServeRouter:
         self._stop_event.set()
         if self._monitor_thread is not None:
             self._monitor_thread.join(timeout=10.0)
+        rollout = self._rollout
+        if rollout is not None:
+            try:
+                rollout.shutdown()
+            except Exception:
+                pass
         with ThreadPoolExecutor(max_workers=len(self._replicas), thread_name_prefix="raft-router-stop") as ex:
             list(ex.map(lambda rep: rep.stop_engine(graceful=graceful, timeout=timeout), self._replicas))
         for rep in self._replicas:
@@ -486,18 +513,24 @@ class ServeRouter:
         replica shed. ``trace_ctx`` threads a trace born elsewhere through
         the pick and the replica's dispatch; ``priority`` / ``tenant`` ride
         to the replica engine; ``init_flow`` (a warm-start seed) rides only
-        when given, so engines without the kwarg keep working."""
+        when given, so engines without the kwarg keep working, and never
+        through the mirror seam: a candidate may not seed, and a mirror
+        failing on a hint would read as a candidate fault."""
         deadline = self._resolve_deadline(deadline_ms)
         kw: Dict[str, Any] = {} if trace_ctx is None else {"trace_ctx": trace_ctx}
         if priority is not None:
             kw["priority"] = priority
         if tenant is not None:
             kw["tenant"] = tenant
-        if init_flow is not None:
-            kw["init_flow"] = init_flow
 
-        def _call(eng, rem):
-            return eng.submit(image1, image2, deadline_ms=rem, num_flow_updates=num_flow_updates, **kw)
+        # **mkw is the mirror seam: the rollout controller replays this
+        # closure against the candidate engine with shadow=True; live
+        # dispatch passes nothing through it
+        def _call(eng, rem, **mkw):
+            skw = dict(kw)
+            if init_flow is not None and not mkw.get("shadow"):
+                skw["init_flow"] = init_flow
+            return eng.submit(image1, image2, deadline_ms=rem, num_flow_updates=num_flow_updates, **skw, **mkw)
 
         return self._dispatch("pair", _call, deadline, trace_ctx=trace_ctx, priority=priority)
 
@@ -553,9 +586,9 @@ class ServeRouter:
         if trace_ctx is not None:
             skw["trace_ctx"] = trace_ctx
 
-        def _call(eng, rem):
+        def _call(eng, rem, **mkw):
             fn = getattr(eng, "submit_tiled", None) or eng.submit
-            return fn(image1, image2, deadline_ms=rem, num_flow_updates=num_flow_updates, **skw)
+            return fn(image1, image2, deadline_ms=rem, num_flow_updates=num_flow_updates, **skw, **mkw)
 
         self._counters["tiled_routed"] += 1
         return self._dispatch("tiled", _call, deadline, trace_ctx=trace_ctx, priority=priority)
@@ -624,8 +657,8 @@ class ServeRouter:
             kw["tenant"] = tenant
         return self._dispatch(
             "stream",
-            lambda eng, rem: eng.submit_frame(
-                stream_id, frame, deadline_ms=rem, num_flow_updates=num_flow_updates, **kw,
+            lambda eng, rem, **mkw: eng.submit_frame(
+                stream_id, frame, deadline_ms=rem, num_flow_updates=num_flow_updates, **kw, **mkw,
             ),
             deadline,
             sticky_sid=stream_id,
@@ -643,6 +676,10 @@ class ServeRouter:
         # a drain window can leave cached frame state on an interim home
         for rep in reps:
             self._close_stream_on(rep, stream_id)
+        # a mirrored stream keeps shadow state on the candidate too
+        rollout = self._rollout
+        if rollout is not None:
+            self._close_stream_on(rollout.candidate, stream_id)
 
     def _close_stream_on(self, rep: Replica, stream_id: int) -> None:
         """Best-effort drop of one replica's cached state for a stream (a
@@ -730,6 +767,15 @@ class ServeRouter:
             asc = autoscaler.snapshot() if autoscaler is not None else {"attached": False}
         except Exception:
             asc = {"attached": autoscaler is not None}
+        # the rollout view: always present; no candidate ever added reads
+        # {"active": False}. The candidate's numbers live ONLY here: it is
+        # outside self._replicas, so nothing above (aggregate, qos,
+        # per-replica) carries its load into the sizing signals
+        rollout = self._rollout
+        try:
+            ro_snap = rollout.snapshot() if rollout is not None else {"active": False}
+        except Exception:
+            ro_snap = {"active": rollout is not None}
         return {
             "router": counters,
             "replica_count": len(self._replicas),
@@ -740,8 +786,7 @@ class ServeRouter:
             "alerts": self._alerts.snapshot(),
             "autoscaler": asc,
             "qos": qos,
-            # the JAX value when no rollout exists (the ladder is item 4a-ii)
-            "rollout": {"active": False},
+            "rollout": ro_snap,
         }
 
     def alerts(self) -> Dict[str, Any]:
@@ -765,7 +810,9 @@ class ServeRouter:
         """Prometheus text exposition: the router's registry + every live
         replica's engine registry, each replica's series labelled
         ``replica="rN"`` (N replicas expose the same names), in one
-        scrape."""
+        scrape. A live rollout candidate's series carry
+        ``replica="candidate"``; they are not the fleet's, so a rule that
+        sums over ``replica=`` must leave it out."""
         parts = [self.metrics.prometheus_text()]
         for rep in list(self._replicas):
             eng = rep.engine
@@ -774,6 +821,13 @@ class ServeRouter:
                     parts.append(relabel_prometheus(eng.prometheus(), replica=rep.replica_id))
                 except Exception:
                     pass
+        rollout = self._rollout
+        eng = None if rollout is None else rollout.candidate.engine
+        if eng is not None:
+            try:
+                parts.append(relabel_prometheus(eng.prometheus(), replica="candidate"))
+            except Exception:
+                pass
         return "".join(parts)
 
     def dump_postmortem(self, reason: str, extra: Optional[dict] = None) -> dict:
@@ -872,14 +926,29 @@ class ServeRouter:
         last_err: Optional[str] = None
         max_attempts = self.config.max_attempts or len(self._replicas)
         edge_trace = None if trace_ctx is None else trace_ctx.trace
+        # the canary pick: during the canary stage the rollout claims a
+        # deterministic fraction of pair dispatches for the candidate. The
+        # claimed attempt rides the SAME loop below (one extra attempt
+        # granted): a candidate shed or fault falls through to the
+        # incumbents, so a canary request is re-served, never dropped
+        ro = self._rollout
+        canary_rep = ro.maybe_canary_pick(kind) if ro is not None and sticky_sid is None else None
+        if canary_rep is not None:
+            max_attempts += 1
         for attempt in range(max_attempts):
             remaining_ms = (deadline - time.monotonic()) * 1e3
             if remaining_ms <= 0:
                 break
             t_pick = time.monotonic()
-            rep = self._pick_sticky(sticky_sid, tried) if sticky_sid is not None else self._pick(tried)
+            if canary_rep is not None and canary_rep.replica_id not in tried:
+                rep = canary_rep
+            elif sticky_sid is not None:
+                rep = self._pick_sticky(sticky_sid, tried)
+            else:
+                rep = self._pick(tried)
             if rep is None:
                 break
+            was_canary = rep is canary_rep
             if edge_trace is not None:
                 # the routing decision joins the propagated trace
                 edge_trace.add_span("route_pick", t_pick, proc="router", replica=rep.replica_id, attempt=attempt + 1)
@@ -901,12 +970,16 @@ class ServeRouter:
                 # router-drained replica, so the re-pick lands elsewhere)
                 rep.note_shed(priority)
                 sheds.append(e.retry_after_ms)
+                if was_canary:
+                    ro.note_canary_outcome(False, None, None)
                 continue
             except Overloaded as e:
                 # shed: the replica is fine, just full; not an error-budget
                 # event, but score feedback between heartbeats
                 rep.note_shed(priority)
                 sheds.append(e.retry_after_ms)
+                if was_canary:
+                    ro.note_canary_outcome(False, None, None)
                 if sticky_sid is not None:
                     raise  # sticky: never spill a stream for load
                 continue
@@ -917,14 +990,20 @@ class ServeRouter:
                 # correlated across replicas, and counting them would turn
                 # a load spike into a fleet-wide eviction
                 rep.note_deadline_miss()
+                if was_canary:
+                    ro.note_canary_outcome(False, None, None)
                 raise  # the caller's deadline is global; a retry cannot win
             except Exception as e:
                 rep.note_error()
                 last_err = repr(e)
+                if was_canary:
+                    ro.note_canary_outcome(False, None, None)
                 self._on_dispatch_fault(rep, e)
                 continue
             else:
                 rep.note_ok()
+                if was_canary:
+                    ro.note_canary_outcome(True, res.latency_ms, res.num_flow_updates)
                 if sticky_sid is not None:
                     self._note_stream_home(sticky_sid, rep.replica_id)
                 with self._lock:
@@ -941,6 +1020,11 @@ class ServeRouter:
                         rec = rep.engine.tracer.find(tid)
                         if rec is not None:
                             self.recorder.add_trace(rec)
+                if ro is not None and not was_canary:
+                    # mirror after the reply: the live result exists and the
+                    # caller's latency is banked; the closure goes to the
+                    # rollout's bounded mirror queue (a full queue sheds)
+                    ro.maybe_mirror(kind, fn, res)
                 return res
             finally:
                 with rep._lock:
@@ -1003,25 +1087,42 @@ class ServeRouter:
         the caller's thread just before the replica dispatch."""
 
     def _monitor(self) -> None:
-        """Heartbeat every replica; evict on the health ladder; probe
-        evicted replicas back in after cooldown. Survives any per-probe
-        failure."""
+        """Beat every ``heartbeat_interval_s`` until the router closes."""
         while not self._stop_event.wait(self.config.heartbeat_interval_s):
-            for rep in list(self._replicas):
-                try:
-                    if rep.state == ReplicaState.HEALTHY:
-                        self._heartbeat(rep)
-                    elif rep.state == ReplicaState.UNHEALTHY and time.monotonic() >= rep.cooldown_until:
-                        self._readmit(rep)
-                except Exception:
-                    pass  # the monitor never dies; the next beat retries
-            self._alerts.maybe_observe()
-            autoscaler = self._autoscaler
-            if autoscaler is not None:
-                try:
-                    autoscaler.maybe_evaluate()
-                except Exception:
-                    pass  # sizing never takes down health monitoring
+            self._beat()
+
+    def _beat(self) -> None:
+        """One monitor beat: heartbeat every replica, evict on the health
+        ladder, probe evicted replicas back in after cooldown; then the
+        alerts, the autoscaler, and the rollout (its candidate's heartbeat,
+        then one control beat). Survives any per-probe failure."""
+        for rep in list(self._replicas):
+            try:
+                if rep.state == ReplicaState.HEALTHY:
+                    self._heartbeat(rep)
+                elif rep.state == ReplicaState.UNHEALTHY and time.monotonic() >= rep.cooldown_until:
+                    self._readmit(rep)
+            except Exception:
+                pass  # the monitor never dies; the next beat retries
+        self._alerts.maybe_observe()
+        autoscaler = self._autoscaler
+        if autoscaler is not None:
+            try:
+                autoscaler.maybe_evaluate()
+            except Exception:
+                pass  # sizing never takes down health monitoring
+        rollout = self._rollout
+        if rollout is not None:
+            # the candidate rides the fleet's heartbeat-to-evict ladder (a
+            # crash becomes an eviction, which the controller turns into a
+            # rollback); then the gate verdict, the stage clock, promotion
+            try:
+                cand = rollout.candidate
+                if cand.state == ReplicaState.HEALTHY and rollout.stage not in RolloutStage.TERMINAL:
+                    self._heartbeat(cand)
+                rollout.maybe_observe()
+            except Exception:
+                pass  # rollouts never take down health monitoring
 
     def _heartbeat(self, rep: Replica) -> None:
         fut = self._probe_pool.submit(self._probe_health, rep)
@@ -1243,12 +1344,83 @@ class ServeRouter:
 
     # -- guarded rollout ---------------------------------------------------
 
-    def add_candidate(self, factory=None, **kw):
-        """Start a guarded rollout ladder: not ported yet."""
-        raise NotImplementedError(
-            "guarded rollouts (candidate, shadow mirror, canary) are not ported yet: "
-            "ROADMAP queue 1 item 4a-ii"
-        )
+    @property
+    def rollout(self) -> Optional[RolloutController]:
+        """The current (possibly terminal) rollout ladder, or None."""
+        return self._rollout
+
+    def _rollout_active(self) -> float:
+        """The ``rollout_active`` gauge: 1 while a ladder is live."""
+        rollout = self._rollout
+        return 1.0 if rollout is not None and rollout.stage not in RolloutStage.TERMINAL else 0.0
+
+    def add_candidate(self, factory: Optional[Callable[..., ServeEngine]] = None, *,
+                      rollout_config: Optional[RolloutConfig] = None, backend: Optional[str] = None,
+                      worker_options: Optional[Dict[str, Any]] = None, **overrides) -> RolloutController:
+        """Boot a candidate replica and start the guarded rollout ladder
+        (shadow -> canary -> promoted, automatic rollback on a breach).
+
+        ``factory`` / ``overrides`` say what is trialled: by default the
+        first replica's factory with ``overrides`` applied (a config
+        trial, exactly what a promotion replays through
+        ``restart_replica(**overrides)``); pass another ``factory`` to
+        trial a new checkpoint. The candidate boots on the caller's thread
+        (on the card its warm-up takes its turn with any other boot) and
+        lives OUTSIDE the replica list: it takes no live traffic until the
+        canary stage, and its load never reaches QoS quotas or the
+        autoscaler's signals. Only a thread-backed candidate exists in the
+        port: ``backend='process'|'remote'`` or ``worker_options`` raise
+        ``NotImplementedError`` (ROADMAP queue 1 item 4b). Returns the
+        :class:`~raft_tpu_torch.serve.rollout.RolloutController`; its
+        ``wait()`` blocks until promotion (the final snapshot) or rollback
+        (:class:`~raft_tpu_torch.serve.errors.RolloutAborted`).
+        """
+        self._check_started()
+        if worker_options is not None:
+            raise NotImplementedError(
+                "worker_options configure a candidate in a worker process, which is not ported yet: "
+                "ROADMAP queue 1 item 4b, the process fleet"
+            )
+        with self._lock:
+            current = self._rollout
+            if self._rollout_pending or (current is not None and current.stage not in RolloutStage.TERMINAL):
+                stage = "booting" if self._rollout_pending else current.stage
+                raise ServeError(
+                    f"a rollout is already {stage}; wait for it to terminate (or roll it back) before starting "
+                    f"another"
+                )
+            # reserve the slot while holding the lock: the boot below is
+            # slow and lock-free, and a concurrent add_candidate must fail
+            # here, not orphan a booted candidate
+            self._rollout_pending = True
+        try:
+            with self._lock:
+                proto = self._replicas[0]
+                cand = Replica("candidate", factory or proto.factory, error_window=self.config.error_window,
+                               backend=backend or proto.backend)
+            self.recorder.record("rollout_candidate", backend=cand.backend, overrides=sorted(overrides))
+            # the boot error's repr, never the error: its traceback holds the
+            # failed engine's frames
+            boot_error = None
+            try:
+                cand.start(**overrides)
+            except Exception as e:
+                boot_error = repr(e)
+            if boot_error is not None:
+                self.recorder.record("rollout_candidate_failed", error=boot_error)
+                cand.stop_engine()
+                cand.engine = None
+                raise ServeError(f"candidate failed to boot: {boot_error}")
+            controller = RolloutController(self, cand, overrides, rollout_config)
+        except BaseException:
+            with self._lock:
+                self._rollout_pending = False
+            raise
+        with self._lock:
+            self._rollout = controller
+            self._rollout_pending = False
+        self._log()
+        return controller
 
     # -- accounting --------------------------------------------------------
 

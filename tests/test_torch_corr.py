@@ -11,6 +11,8 @@ the two packages order the sums differently) and 1e-4 for the projection
 (a 100-324-term fp32 dot per output).
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ import torch
 # flax): these modules then skip as a whole
 pytest.importorskip("raft_tpu")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from raft_tpu.kernels.lookup_xtap import lookup_project_fused as jax_lookup_project_fused
@@ -50,7 +53,10 @@ def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
 
+@partial(jax.jit, static_argnums=2)
 def _jax_pyramid(f1, f2, levels):
+    """The JAX pyramid, jitted: one compile a shape, where op by op every
+    primitive compiles on its own."""
     return jcorr.pool_pyramid(jcorr.correlation_volume(jnp.asarray(f1), jnp.asarray(f2)), levels)
 
 
@@ -60,6 +66,10 @@ def _port_pyramid(f1, f2, levels):
 
 def _centroids(rng, b, h, w, lo, hi):
     return rng.uniform(lo, hi, (b, h, w, 2)).astype(np.float32)
+
+
+# the JAX lookups at radius 3, jitted once for every centroid range
+_JAX_LOOKUP = {fn: jax.jit(partial(getattr(jcorr, fn), radius=3)) for fn in ("lookup_pyramid", "lookup_pyramid_gather")}
 
 
 class TestPlainCorr:
@@ -86,7 +96,7 @@ class TestPlainCorr:
     def test_lookup(self, rng, lo, hi, fn):
         f1, f2 = _fmaps(rng, 2, 12, 14, 8)
         cents = _centroids(rng, 2, 12, 14, lo, hi)
-        want = getattr(jcorr, fn)(_jax_pyramid(f1, f2, 3), jnp.asarray(cents), 3)
+        want = _JAX_LOOKUP[fn](_jax_pyramid(f1, f2, 3), jnp.asarray(cents))
         got = getattr(corr, fn)(_port_pyramid(f1, f2, 3), torch.from_numpy(cents), 3)
         assert tuple(got.shape) == want.shape == (2, 12, 14, 3 * 49)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LOOKUP_TOL, atol=LOOKUP_TOL)

@@ -938,6 +938,32 @@ def test_routed_request_matches_a_single_engine(cuda_device):
         np.testing.assert_allclose(flow, want, rtol=0, atol=1e-4)
 
 
+def test_shadow_submit_lands_in_the_twin_counters(cuda_device):
+    """A shadow submit (a rollout's mirror) on the card is served by the
+    captured graphs like a live one and counted only in the ``shadow_*``
+    twins; at 'throughput' precision its flow is within that preset's
+    serving bounds (mean 0.1 px, max 2 px) of the live submit's for the
+    same pair."""
+    from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = _tiny_serving_model(cuda_device, compute_dtype="bfloat16", corr_dtype="bfloat16")  # 'throughput'
+    cfg = ServeConfig(buckets=((48, 64),), ladder=(3,), pool_capacity=2, warmup=True, default_deadline_ms=60000.0)
+    rng = np.random.default_rng(22)
+    pair = [rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2)]
+    keys = ("submitted", "completed", "shed", "expired", "shadow_submitted", "shadow_completed", "shadow_shed",
+            "shadow_expired")
+    with ServeEngine(model, cfg, device=cuda_device) as engine:
+        live = engine.submit(*pair)
+        shadow = engine.submit(*pair, shadow=True)
+        stats = engine.stats()
+    assert {k: stats[k] for k in keys} == dict(submitted=1, completed=1, shed=0, expired=0, shadow_submitted=1,
+                                               shadow_completed=1, shadow_shed=0, shadow_expired=0)
+    assert stats["qos"]["classes"]["standard"]["submitted"] == 1
+    gap = np.linalg.norm(shadow.flow - live.flow, axis=-1)
+    assert shadow.flow.shape == live.flow.shape == (45, 60, 2)
+    assert gap.mean() <= 0.1 and gap.max() <= 2.0, (gap.mean(), gap.max())
+
+
 # -- training on the card ------------------------------------------------------
 
 # tests/test_train.py's tiny_cfg widths (raft_small, and raft_large with its

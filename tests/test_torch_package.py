@@ -44,6 +44,7 @@ SLICE_MODULES = (
     "raft_tpu_torch/serve/config.py",
     "raft_tpu_torch/serve/replica.py",
     "raft_tpu_torch/serve/router.py",
+    "raft_tpu_torch/serve/rollout.py",
     "raft_tpu_torch/serve/autoscale.py",
     "raft_tpu_torch/checkpoint/convert.py",
     "raft_tpu_torch/data/datasets.py",

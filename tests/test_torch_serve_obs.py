@@ -46,10 +46,10 @@ torch.set_num_threads(2)
 
 MODES = {"pool": dict(pool_capacity=3), "whole-request": dict(pool_capacity=0)}
 
-# stats() keys of the JAX engine the port does not have: the rollout's
-# mirrored-traffic counters (ROADMAP queue 1 item 4a-ii); the port's own:
-# the graphs' kernel launches
-JAX_ONLY = {"shadow_submitted", "shadow_completed", "shadow_shed", "shadow_expired"}
+# stats() keys of the JAX engine the port does not have (none since the
+# rollout's shadow_* counters were ported); the port's own: the graphs'
+# kernel launches
+JAX_ONLY = set()
 PORT_ONLY = {"launches"}
 # blocks whose keys must be equal; 'boot' differs by design (the port
 # captures CUDA graphs, the JAX engine loads or compiles executables)

@@ -66,14 +66,16 @@ class StubEngine:
     maps ``(replica name, request label)`` to ``'shed'`` (``Overloaded``
     with ``retry_after_ms`` = 10 x label), ``'fault'`` (a replica-side
     ``RuntimeError``) or ``'poison'`` (``PoisonedInput``); the label is
-    the first image."""
+    the first image. A ``shadow=True`` request is counted in the
+    ``shadow_*`` twins; every flow is ``flow`` (a constant)."""
 
-    def __init__(self, errors, name, script=None, *, variables_hash="h0", **overrides):
+    def __init__(self, errors, name, script=None, *, variables_hash="h0", flow=0.0, **overrides):
         self.errors, self.name, self.script = errors, name, script or {}
-        self.overrides, self.variables_hash = overrides, variables_hash
+        self.overrides, self.variables_hash, self.flow = overrides, variables_hash, flow
         self.config = SimpleNamespace(default_deadline_ms=1000.0, queue_capacity=8)
         self.running, self.streams, self.level, self.queue_depth = False, set(), 0, 0
-        self.counters = dict(submitted=0, completed=0, shed=0, shed_slow_path=0, expired=0)
+        self.counters = dict(submitted=0, completed=0, shed=0, shed_slow_path=0, expired=0, shadow_submitted=0,
+                             shadow_completed=0, shadow_shed=0, shadow_expired=0)
         self.tracer = SimpleNamespace(snapshot=lambda: [], find=lambda tid: None)
         self.recorder = SimpleNamespace(events=lambda: [])
 
@@ -97,31 +99,32 @@ class StubEngine:
     def prometheus(self):
         return f'# TYPE serve_counters counter\nserve_counters{{key="submitted"}} {self.counters["submitted"]}\n'
 
-    def submit(self, image1, image2, *, deadline_ms=None, num_flow_updates=None, **kw):
-        return self._serve(image1)
+    def submit(self, image1, image2, *, deadline_ms=None, num_flow_updates=None, shadow=False, **kw):
+        return self._serve(image1, shadow=shadow)
 
-    def submit_frame(self, stream_id, frame, *, deadline_ms=None, num_flow_updates=None, **kw):
+    def submit_frame(self, stream_id, frame, *, deadline_ms=None, num_flow_updates=None, shadow=False, **kw):
         primed = stream_id not in self.streams
         self.streams.add(stream_id)
-        return self._serve(frame, primed)
+        return self._serve(frame, primed, shadow=shadow)
 
     def close_stream(self, stream_id):
         self.streams.discard(stream_id)
 
-    def _serve(self, label, primed=False):
+    def _serve(self, label, primed=False, shadow=False):
         if not self.running:
             raise self.errors.EngineStopped("stub stopped")
-        self.counters["submitted"] += 1
+        pre = "shadow_" if shadow else ""
+        self.counters[pre + "submitted"] += 1
         what = self.script.get((self.name, label))
         if what == "shed":
-            self.counters["shed"] += 1
+            self.counters[pre + "shed"] += 1
             raise self.errors.Overloaded("stub shed", retry_after_ms=10.0 * label)
         if what == "fault":
             raise RuntimeError("stub replica fault")
         if what == "poison":
             raise self.errors.PoisonedInput("stub poisoned")
-        self.counters["completed"] += 1
-        return SimpleNamespace(flow=None if primed else np.zeros((2, 2, 2), np.float32), primed=primed,
+        self.counters[pre + "completed"] += 1
+        return SimpleNamespace(flow=None if primed else np.full((2, 2, 2), self.flow, np.float32), primed=primed,
                                replica=self.name, trace_id=None, latency_ms=0.0, num_flow_updates=1)
 
 
@@ -267,15 +270,18 @@ def test_unported_backends_name_their_item(backend):
 
 
 def test_unported_router_entry_points_raise():
-    """The rollout and remote entry points raise, naming their ROADMAP
-    items; the rollout block reads inactive, as JAX's does with no
-    candidate."""
+    """The remote entry points raise, naming their ROADMAP item: a remote
+    replica, and a rollout candidate in a worker process (its backend or
+    its worker options); no candidate was booted, and the rollout block
+    reads inactive, as JAX's does with no candidate."""
     router = _stub_router("port", **QUIET).start()
     try:
-        with pytest.raises(NotImplementedError, match="item 4a-ii"):
-            router.add_candidate()
         with pytest.raises(NotImplementedError, match="item 4b"):
             router.add_remote_replica("localhost:1")
+        for kw in (dict(backend="process"), dict(backend="remote"), dict(worker_options={})):
+            with pytest.raises(NotImplementedError, match="item 4b"):
+                router.add_candidate(**kw)
+        assert router.rollout is None and not router._rollout_pending
         assert router.stats()["rollout"] == {"active": False}
         assert 'router_rollout_active 0' in router.prometheus()
     finally:

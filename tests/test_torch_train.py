@@ -271,12 +271,15 @@ def test_schedule_matches_optax(pct_start):
 
 def test_optimizer_matches_optax():
     """Clip + AdamW over five updates of a random parameter list, the
-    second one clipped, against optax on the same gradients."""
+    second one clipped, against optax on the same gradients (optax's
+    update and apply jitted: one compile each, where op by op every
+    primitive compiles on its own)."""
     rng = np.random.default_rng(3)
     shapes = [(4, 3, 3, 3), (4,), (7, 5), (1,)]
     params = [rng.normal(0, 1, s).astype(np.float32) for s in shapes]
     sched = lambda c: 1e-2 * (1.0 + 0.1 * c)  # noqa: E731
     jtx = jax_make_optimizer(sched, weight_decay=1e-2, clip_norm=1.0)
+    jupdate, japply = jax.jit(jtx.update), jax.jit(optax.apply_updates)
     jparams = [jnp.asarray(p) for p in params]
     jstate = jtx.init(jparams)
     ptx = make_optimizer(lambda c: 1e-2 * (1.0 + 0.1 * c.to(torch.float32)), weight_decay=1e-2, clip_norm=1.0)
@@ -285,8 +288,8 @@ def test_optimizer_matches_optax():
     for i, scale in enumerate([0.01, 5.0, 0.02, 0.05, 0.03]):
         grads = [(scale * rng.normal(0, 1, s)).astype(np.float32) for s in shapes]
         assert (float(optax.global_norm(grads)) >= 1.0) == (i == 1)
-        updates, jstate = jtx.update([jnp.asarray(g) for g in grads], jstate, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        updates, jstate = jupdate([jnp.asarray(g) for g in grads], jstate, jparams)
+        jparams = japply(jparams, updates)
         pparams, pstate = ptx.update([torch.from_numpy(g) for g in grads], pstate, pparams)
         for got, want in zip(pparams, jparams):
             # atol: about ten ulps of an update of size lr (XLA fuses the
