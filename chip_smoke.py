@@ -151,6 +151,22 @@ Phases, each of which raises on failure (exit code 1):
      ``Autoscaler`` (1..2): idle 2 -> 1, a flood of 24 clients 1 -> 2, a
      trickle 2 -> 1 (every request a flow or a typed shed, the memory
      back); ``prometheus()`` parsed; every engine gone after ``close()``;
+     then the guarded rollouts over that fleet (an identical candidate
+     promoted, a perturbed one rolled back on the flow gate, a crashed one
+     rolled back); then the process fleet: the same requests through one
+     in-process engine, then ``ServeRouter.from_factory(..., 2,
+     backend='process')`` over ``ProcessFactory`` (a spawned worker each,
+     its own CUDA context, the weights from a checkpoint the phase
+     writes; the shared-memory rings sized to what a request moves and
+     checked against ``/dev/shm``): distinct live PIDs, each boot's
+     seconds and captures, the card's free memory and nvidia-smi's
+     per-process list, no nvcc run in a worker, the 24 requests (within
+     'throughput''s bounds of the in-process engine, both served, no
+     capture after ``start()``, requests/s and p50/p99 beside the thread
+     replicas), a worker SIGKILLed holding work (its work re-served, its
+     PID gone and its memory back before a new PID is readmitted), a
+     draining restart under load, a process candidate promoted, and after
+     ``close()`` no worker PID and the card's memory back;
  15. training: ``Trainer`` at raft_large's chairs stage, full width (batch
      8, crop 368x496, 12 updates, dense fp32), on a synthetic FlyingChairs
      tree of 24 pairs at 384x512: 8 steps, a checkpoint every 4, a
@@ -3066,10 +3082,10 @@ class ClosedLoop:
             t.join(120.0)
 
 
-def router_single_engine(model, cfg, device, card, pairs, targets, base):
+def router_single_engine(model, cfg, device, card, pairs, targets, base, what="router"):
     """One engine at ``cfg``: the requests' flows (the router's reference),
     its requests/s and K1 replays; then stop and drop it: the reserved
-    memory must come back to ``base`` (F7)."""
+    memory must come back to ``base`` (F7). ``what`` prefixes its log."""
     import weakref
 
     from raft_tpu_torch.serve import ServeEngine
@@ -3084,11 +3100,11 @@ def router_single_engine(model, cfg, device, card, pairs, targets, base):
     ref = weakref.ref(engine)
     del engine
     after = reserved_gib(device)
-    log(f"router: one engine: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads at {rps:.3f} requests/s; "
+    log(f"{what}: one engine: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads at {rps:.3f} requests/s; "
         f"reserved {base:.3f} GiB before it, {booted:.3f} with it booted, {after:.3f} after its stop() and del (no "
         f"collection; gone: {ref() is None}); K1 {k1}; card {card}")
     if ref() is not None or after > base + ROUTER_MEM_TOL_GIB:
-        raise AssertionError("router: a stopped, dropped engine still holds the card (F7)")
+        raise AssertionError(f"{what}: a stopped, dropped engine still holds the card (F7)")
     return want, rps, k1, booted - base
 
 
@@ -3585,6 +3601,306 @@ def rollout_phase(device, card, weights):
         gc.enable()
 
 
+PROCESS_SLOTS = 2 * SERVE_THREADS  # request slots a worker's ring holds: every client's pair in flight
+PROCESS_COOLDOWN_S = 3.0  # the killed worker's memory is read back before its readmission begins
+PROCESS_MEM_TOL_GIB = 0.5
+
+
+class ProcessFactory:
+    """The process phase's engine factory, picklable: a spawned worker
+    imports this script as ``__mp_main__`` (its top level does no work) and
+    calls this in its own CUDA context, rebuilding raft_large at
+    'throughput' (fused, K1's bf16 product) from the checkpoint the phase
+    wrote, so every worker serves the phase's weights."""
+
+    def __init__(self, checkpoint: str, config):
+        self.checkpoint, self.config = checkpoint, config
+
+    def __call__(self, **overrides):
+        import dataclasses
+
+        import raft_tpu_torch as rt
+        from raft_tpu_torch.serve import ServeConfig, ServeEngine
+
+        model = rt.raft_for_serving(ServeConfig.preset("throughput"), corr_impl="fused", checkpoint=self.checkpoint,
+                                    device="cuda")
+        return ServeEngine(model, dataclasses.replace(self.config, **overrides), device="cuda")
+
+
+def card_free_gib(device) -> float:
+    """The card's free memory, every process's use included."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(device)[0] / 2**30
+
+
+def compute_apps() -> str:
+    """Per-process card memory as nvidia-smi reports it (PID, MiB)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30)
+        return "; ".join(line.strip() for line in out.stdout.splitlines() if line.strip()) or "none listed"
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"unavailable ({e!r})"
+
+
+def pid_gone(pid: int) -> bool:
+    """True once ``pid`` is no live process (a reaped child: no /proc entry;
+    an unreaped zombie still counts as there)."""
+    return not Path(f"/proc/{pid}").exists()
+
+
+def process_phase(device, card, weights, thread_rps):
+    """The process fleet on the card, with the collector off: raft_large at
+    'throughput' (fused, bf16 levels, K1's bf16 product), bucket 440x1024,
+    warmed, a one-rung ladder (R5), the router phase's weights written to
+    a temporary checkpoint that every worker loads (``ProcessFactory``).
+
+    One in-process engine serves the 24 requests (the reference flows) and
+    is dropped. Then ``ServeRouter.from_factory(..., 2,
+    backend='process')``: two spawned workers booting together, each in its
+    own CUDA context (distinct live PIDs, each boot's seconds and captures,
+    the card's free memory and nvidia-smi's per-process list, no nvcc run:
+    the kernel libraries' files unchanged); the 24 requests from 8 threads
+    (each flow within 'throughput''s bounds of the in-process engine's,
+    both replicas served, no capture after ``start()``, requests/s and
+    p50/p99 beside the router phase's two thread replicas); one worker
+    SIGKILLed while it holds work under a closed loop (one eviction, every
+    request a flow, the PID gone and its memory back on the card before
+    its readmission under a new PID); a draining restart under load
+    (nothing dropped, a new PID); an identical-weights process candidate
+    through ``add_candidate(backend='process')``, promoted (both
+    incumbents rebuilt onto it, its worker gone after); ``close()``: no
+    worker PID left and the card's free memory back. The rings are sized
+    from what the phase sends (a pair of 436x1024x3 uint8 images and a
+    436x1024x2 fp32 flow a request) and checked against ``/dev/shm``.
+    Returns K1's launches (the in-process engine's replays and every
+    worker's, read from its ``stats()['launches']`` before it ends) and
+    the numbers."""
+    import dataclasses
+    import gc
+    import os
+    import signal
+    import tempfile
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.kernels import build
+    from raft_tpu_torch.serve import RolloutStage, RouterConfig, ServeConfig, ServeRouter
+
+    t_phase = time.perf_counter()
+    gc.disable()
+    tmp = tempfile.TemporaryDirectory(prefix="raft-process-phase-")
+    try:
+        # the rings: one slot a tensor, sized to the largest a request moves
+        h, w = IMAGE
+        slot_bytes = 1 << math.ceil(math.log2(max(h * w * 3, h * w * 2 * 4)))
+        opts = dict(ring_slots=PROCESS_SLOTS, slot_bytes=slot_bytes, dump_dir=os.path.join(tmp.name, "dumps"))
+        shm = os.statvfs("/dev/shm")
+        shm_free, need = shm.f_bavail * shm.f_frsize, 3 * 2 * PROCESS_SLOTS * slot_bytes  # 3 workers at most
+        log(f"process: /dev/shm {shm.f_blocks * shm.f_frsize / 2**20:.0f} MiB, {shm_free / 2**20:.0f} MiB free; "
+            f"rings {PROCESS_SLOTS} slots x {slot_bytes} bytes a direction, {need / 2**20:.0f} MiB for three "
+            f"workers")
+        if shm_free < need:
+            raise AssertionError(f"process: /dev/shm has {shm_free} bytes free, the rings need {need}")
+
+        base = reserved_gib(device)
+        model = rt.raft_for_serving(ServeConfig.preset("throughput"), corr_impl="fused", device=device)
+        model.load_state_dict(weights)
+        cfg = ServeConfig(buckets=(SERVE_BUCKET,), pool_capacity=SERVE_CAPACITY, ladder=SERVE_LADDER[:1],
+                          warmup=True, default_deadline_ms=120_000.0, ledger_sample_every=0,
+                          queue_capacity=ROUTER_QUEUE)
+        pairs = [request_pair(300 + i)[:2] for i in range(SERVE_REQUESTS)]
+        targets = [SERVE_LADDER[i % len(SERVE_LADDER)] for i in range(SERVE_REQUESTS)]
+        want, single_rps, k1_single, _ = router_single_engine(model, cfg, device, card, pairs, targets, base,
+                                                              what="process")
+        checkpoint = os.path.join(tmp.name, "raft_large_throughput.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, checkpoint)
+        del model
+        libs0 = {p.name: p.stat().st_mtime_ns for p in build.BUILD_DIR.glob("*.so")}
+        free0 = card_free_gib(device)
+        apps0 = compute_apps()
+        k1_workers = 0  # replays read from each worker's stats() before it ends
+
+        def k1_of(client) -> int:
+            return by_kernel(client.stats()["launches"])["k1"]
+
+        router = ServeRouter.from_factory(
+            ProcessFactory(checkpoint, cfg), 2,
+            RouterConfig(heartbeat_interval_s=ROUTER_BEAT_S, cooldown_s=PROCESS_COOLDOWN_S, drain_timeout_s=60.0),
+            backend="process", worker_options=opts)
+        pids_seen = []
+        try:
+            # 1. two workers booting together, each in its own context
+            t0 = time.perf_counter()
+            router.start()
+            boot_s = time.perf_counter() - t0
+            if any(r.state != "healthy" for r in router.replicas):
+                raise AssertionError(f"process: a worker failed to boot: "
+                                     f"{[(r.replica_id, r.last_evict_reason) for r in router.replicas]}")
+            clients = {r.replica_id: r.engine for r in router.replicas}
+            pids = {rid: c.pid for rid, c in clients.items()}
+            pids_seen += pids.values()
+            boots = {rid: c.boot for rid, c in clients.items()}
+            free2 = card_free_gib(device)
+            per_worker = (free0 - free2) / 2
+            progs0 = {rid: sum(max(n, 0) for n in c.stats()["programs"].values()) for rid, c in clients.items()}
+            libs1 = {p.name: p.stat().st_mtime_ns for p in build.BUILD_DIR.glob("*.so")}
+            log(f"process: 2 workers booted together in {boot_s:.3f} s, PIDs {pids} (this process {os.getpid()}); "
+                f"boots {[(rid, round(b['boot_to_ready_ms'] / 1e3, 3), b['captures']) for rid, b in boots.items()]} "
+                f"(s to ready, captures); card free {free0:.3f} GiB before, {free2:.3f} with the fleet "
+                f"({per_worker:.3f} a worker); nvidia-smi compute apps before: {apps0}; with the fleet: "
+                f"{compute_apps()}; kernel libraries unchanged by the workers: {libs1 == libs0}; card {card}")
+            if len(set(pids.values())) != 2 or os.getpid() in pids.values() or any(pid_gone(p) for p in pids.values()) \
+                    or libs1 != libs0 or (device.type == "cuda" and any(b["captures"] <= 0 for b in boots.values())):
+                raise AssertionError("process: the workers' PIDs, captures or kernel libraries are not as specified")
+
+            # 2. routed traffic through the workers
+            lat = []
+
+            def timed(i):
+                t = time.perf_counter()
+                r = router.submit(*pairs[i], num_flow_updates=targets[i])
+                lat.append((time.perf_counter() - t) * 1e3)
+                return r
+
+            from concurrent.futures import ThreadPoolExecutor
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_THREADS) as ex:
+                routed = list(ex.map(timed, range(SERVE_REQUESTS)))
+            rps = SERVE_REQUESTS / (time.perf_counter() - t0)
+            st = router.stats()
+            served = {rid: e["completed"] for rid, e in st["engines"].items()}
+            progs1 = {rid: sum(max(n, 0) for n in c.stats()["programs"].values()) for rid, c in clients.items()}
+            mean_d, max_d = flow_gap([r.flow for r in routed], [x.flow for x in want])
+            tol_mean, tol_max = SERVE_TOL["throughput"]
+            k1_run = {rid: k1_of(c) for rid, c in clients.items()}
+            worker_lat = [r.latency_ms for r in routed]
+            log(f"process: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads through 2 workers at {rps:.3f} "
+                f"requests/s (2 thread replicas in the router phase {thread_rps:.3f}, one in-process engine "
+                f"{single_rps:.3f}); caller's latency p50 {np.percentile(lat, 50):.3f} p99 {np.percentile(lat, 99):.3f} "
+                f"ms, the workers' own p50 {np.percentile(worker_lat, 50):.3f} p99 {np.percentile(worker_lat, 99):.3f} "
+                f"ms; served {served}; |dflow| vs the in-process engine mean {mean_d:.3e} px (tol {tol_mean:g}), max "
+                f"{max_d:.3e} (tol {tol_max:g}); programs at boot {progs0}, after {progs1}; K1 replays {k1_run}; "
+                f"card {card}")
+            off = [(r.rid, r.num_flow_updates) for r, n in zip(routed, targets) if r.num_flow_updates != n]
+            if off or progs1 != progs0 or len(served) != 2 or min(served.values()) == 0 or not (
+                    mean_d <= tol_mean and max_d <= tol_max) or (device.type == "cuda" and min(k1_run.values()) <= 0):
+                raise AssertionError(f"process: routed traffic off target {off}, captures after start(), served "
+                                     f"{served}, or flows off the in-process engine's")
+
+            # 3. SIGKILL a worker while it holds work
+            victim = router._by_id["r0"]
+            pid0 = victim.engine.pid
+            with ClosedLoop(router, pairs, SERVE_THREADS) as loop:
+                settle(lambda: victim.inflight >= 2, 30.0, "work on the victim")
+                k1_workers += k1_of(victim.engine)
+                os.kill(pid0, signal.SIGKILL)
+                t_kill = time.monotonic()
+                evict_s = settle(lambda: router.stats()["router"]["evictions"] >= 1, 30.0, "the eviction of r0")
+                settle(lambda: pid_gone(pid0), 10.0, "the killed worker's exit")
+                gone_s = time.monotonic() - t_kill
+                back = free2 + 0.75 * per_worker
+                settle(lambda: card_free_gib(device) >= back, PROCESS_COOLDOWN_S - 0.2,
+                       "the return of the killed worker's memory before its readmission")
+                back_s = time.monotonic() - t_kill
+                free_killed = card_free_gib(device)
+                apps_killed = compute_apps()
+                readmit_s = settle(lambda: router.stats()["router"]["readmissions"] >= 1, 180.0,
+                                   "the readmission of r0")
+                time.sleep(0.5)  # the healed fleet serves
+                loop_out = loop.stop()
+            st = router.stats()
+            new_pid = victim.engine.pid
+            pids_seen.append(new_pid)
+            new_boot = victim.engine.boot
+            log(f"process: SIGKILL of r0 (PID {pid0}) holding work under {SERVE_THREADS} clients: evicted "
+                f"{evict_s:.3f} s after the kill, PID reaped {gone_s:.3f} s after it, the card's free memory at "
+                f"{back:.3f} GiB or more {back_s:.3f} s after it ({free_killed:.3f} then; fleet level {free2:.3f}, a "
+                f"worker {per_worker:.3f}); nvidia-smi then: {apps_killed}; readmitted {readmit_s:.3f} s after that "
+                f"as PID {new_pid} (boot to ready {new_boot['boot_to_ready_ms']:.1f} ms, {new_boot['captures']} "
+                f"captures); outcomes {loop_out}; rerouted {st['router']['rerouted']}, evictions "
+                f"{st['router']['evictions']}; card {card}")
+            if set(loop_out) != {"flow"} or st["router"]["evictions"] != 1 or new_pid in (pid0, None) \
+                    or pid_gone(new_pid) or victim.state != "healthy":
+                raise AssertionError("process: the killed worker was not handled as specified")
+
+            # 4. a draining restart under load
+            rep1 = router._by_id["r1"]
+            old_pid = rep1.engine.pid
+            with ClosedLoop(router, pairs, SERVE_THREADS) as loop:
+                time.sleep(0.3)
+                k1_workers += k1_of(rep1.engine)
+                t0 = time.perf_counter()
+                router.restart_replica("r1")
+                restart_s = time.perf_counter() - t0
+                time.sleep(0.3)
+                loop_out = loop.stop()
+            pids_seen.append(rep1.engine.pid)
+            log(f"process: draining restart of r1 (PID {old_pid} -> {rep1.engine.pid}) under {SERVE_THREADS} "
+                f"clients in {restart_s:.3f} s: outcomes {loop_out}, old PID gone {pid_gone(old_pid)}; card {card}")
+            if set(loop_out) != {"flow"} or not pid_gone(old_pid) or rep1.engine.pid == old_pid:
+                raise AssertionError("process: the draining restart dropped a request or kept its worker")
+
+            # 5. an identical-weights process candidate, promoted (its
+            # rebuilds replace both workers: their replays are read first)
+            for r in router.replicas:
+                k1_workers += k1_of(r.engine)
+            t0 = time.perf_counter()
+            ctrl = router.add_candidate(backend="process", rollout_config=rollout_config())
+            cand_boot_s = time.perf_counter() - t0
+            cand_pid = ctrl.candidate.engine.pid
+            pids_seen.append(cand_pid)
+            cand_free = card_free_gib(device)
+            with ClosedLoop(router, pairs, SERVE_THREADS) as loop:
+                t1 = time.perf_counter()
+                cand_k1 = 0
+                while ctrl.stage not in RolloutStage.TERMINAL and time.perf_counter() - t1 < ROLLOUT_WAIT_S:
+                    eng = ctrl.candidate.engine
+                    if ctrl.stage == RolloutStage.CANARY and eng is not None:
+                        try:
+                            cand_k1 = k1_of(eng)
+                        except Exception:  # noqa: BLE001 -- the candidate retired under the read
+                            pass
+                    del eng
+                    time.sleep(0.05)
+                snap = ctrl.wait(timeout=ROLLOUT_WAIT_S)
+                ladder_s = time.perf_counter() - t1
+                loop_out = loop.stop()
+            k1_workers += cand_k1
+            settle(lambda: pid_gone(cand_pid), 30.0, "the promoted candidate's worker exit")
+            stages = [(h["stage"], h["t_s"]) for h in snap["stage_history"]]
+            hashes = {r.variables_hash for r in router.replicas}
+            for r in router.replicas:
+                pids_seen.append(r.engine.pid)
+            log(f"process: a process candidate (PID {cand_pid}) booted in {cand_boot_s:.3f} s (card free "
+                f"{cand_free:.3f} GiB with it), promoted {ladder_s:.3f} s later, stages {stages}; mirrored "
+                f"{snap['mirrored']}, canary routed {snap['canary_routed']}; outcomes {loop_out}; replicas' hashes "
+                f"{hashes} (candidate {ctrl.candidate.variables_hash}); candidate worker gone "
+                f"{pid_gone(cand_pid)}; card {card}")
+            if snap["stage"] != RolloutStage.PROMOTED or set(loop_out) != {"flow"} \
+                    or hashes != {ctrl.candidate.variables_hash}:
+                raise AssertionError(f"process: the process candidate ended {snap['stage']}, outcomes {loop_out}")
+            for r in router.replicas:
+                k1_workers += k1_of(r.engine)
+        finally:
+            router.close()
+        del router
+        close_gone = settle(lambda: all(pid_gone(p) for p in pids_seen if p is not None), 30.0,
+                            "the exit of every worker after close()")
+        free_end = card_free_gib(device)
+        log(f"process: close(): every worker PID gone ({sorted(pids_seen)}, {close_gone:.3f} s), card free "
+            f"{free_end:.3f} GiB (before the fleet {free0:.3f}); nvidia-smi: {compute_apps()}; K1 {k1_single + k1_workers} "
+            f"launches in the phase (the in-process engine's replays {k1_single}, the workers' replays "
+            f"{k1_workers}); phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+        if abs(free_end - free0) > PROCESS_MEM_TOL_GIB:
+            raise AssertionError("process: the card's memory did not come back after close()")
+        return k1_single + k1_workers, {"rps": rps, "boot_s": boot_s, "per_worker_gib": per_worker}
+    finally:
+        tmp.cleanup()
+        gc.enable()
+
+
 def tf32_flags():
     """The TF32 settings of cuDNN convolutions and cuBLAS matmuls as the
     per-operator API reads them (it reads legacy settings too)."""
@@ -3668,8 +3984,9 @@ def main() -> int:
     k1_qos_quality = qos_flood_phase(device, card, "quality", weights)
     k1_qos_edge = qos_flood_phase(device, card, "edge", weights)
     k1_obs, _ = observability_phase(device, card, weights)
-    k1_router, _ = router_phase(device, card, weights)
+    k1_router, router_numbers = router_phase(device, card, weights)
     k1_rollout = rollout_phase(device, card, weights)
+    k1_process, _ = process_phase(device, card, weights, router_numbers["router_rps"])
     train_phase(device, card)
     fused_launches = train_phase(device, card, corr_impl="fused", window_size=2)
     fused_training_checks(device, card)
@@ -3738,6 +4055,11 @@ def main() -> int:
                            f"closed-loop clients: an identical candidate promoted, a perturbed one rolled back, a "
                            f"crashed one rolled back (graph replays, boots included)",
               rollout_launches=k1_rollout,
+              process_path=f"ServeRouter over 2 worker processes (backend='process') at 'throughput' (one "
+                           f"in-process engine first): {SERVE_REQUESTS} requests, a SIGKILLed worker, a draining "
+                           f"restart, a process candidate promoted (graph replays read from each worker's stats() "
+                           f"before it ended: at least this many)",
+              process_launches=k1_process,
               training_path="bench --train --corr fused --corr-dtype bfloat16 --dtype bfloat16 (b=6, 368x768, "
                             "12 updates, remat)", bench_train_k1_launches_per_step=bench_train_k1[
                   "corr_impl=fused, corr_dtype=bf16, compute_dtype=bf16"]["k1_launches_per_step"],

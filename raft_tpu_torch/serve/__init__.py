@@ -33,12 +33,21 @@ engine, ``ServeEngine`` (the iteration pool, or the whole-request engine at
         ctrl = router.add_candidate(new_factory, rollout_config=RolloutConfig(min_samples=16))
         ctrl.wait(timeout=600.0)               # RolloutAborted on rollback
 
+    # each replica's engine in a worker process of its own (its own
+    # interpreter and CUDA context): the factory must be picklable (a
+    # module-level class or function; spawn re-imports its module), and
+    # the shared-memory rings are sized to /dev/shm
+    router = ServeRouter.from_factory(
+        EngineFactory(checkpoint_path), 2, backend="process",
+        worker_options=dict(ring_slots=8, slot_bytes=4 << 20, dump_dir="dumps"))
+
 Importing the package builds no kernel and needs no card; the engine runs
-on the card unless ``device='cpu'`` is passed. Not ported yet: replicas and
-rollout candidates in worker processes (``backend='process'|'remote'``,
-ROADMAP queue 1 item 4b) raise ``NotImplementedError``.
+on the card unless ``device='cpu'`` is passed. Not ported yet: replicas
+behind TCP (``backend='remote'``, ``add_remote_replica``, ROADMAP queue 1
+item 4b-ii) raise ``NotImplementedError``.
 """
 
+from raft_tpu_torch.serve import ipc
 from raft_tpu_torch.serve.autoscale import AutoscaleConfig, Autoscaler
 from raft_tpu_torch.serve.config import PRESETS, ServeConfig
 from raft_tpu_torch.serve.engine import ServeEngine, ServeResult, StreamSession
@@ -59,11 +68,13 @@ from raft_tpu_torch.serve.rollout import RolloutConfig, RolloutController, Rollo
 from raft_tpu_torch.serve.router import ConsistentHashRing, RouterConfig, RouterStream, ServeRouter
 from raft_tpu_torch.serve.qos import PRIORITIES, QosPolicy, brownout_level, effective_rank
 from raft_tpu_torch.serve.tiler import TilePlan, TilePlanner, blend_tiles, nearest_bucket
+from raft_tpu_torch.serve.worker import ProcessEngineClient, config_from_wire, serve_result_to_wire
 
 __all__ = [
     "AutoscaleConfig",
     "Autoscaler",
     "ConsistentHashRing",
+    "ProcessEngineClient",
     "Replica",
     "ReplicaState",
     "RolloutAborted",
@@ -79,6 +90,9 @@ __all__ = [
     "TilePlan",
     "TilePlanner",
     "blend_tiles",
+    "config_from_wire",
+    "ipc",
+    "serve_result_to_wire",
     "brownout_level",
     "effective_rank",
     "nearest_bucket",

@@ -24,10 +24,12 @@ and a bounded window of router-observed dispatch outcomes (the error-rate
 budget is judged on what the *router* saw, because a replica whose worker
 died mid-batch fails requests without updating its own counters).
 
-Only the in-process ``"thread"`` backend is ported: the factory's engine
-runs in this process. ``backend="process"`` and ``"remote"`` (engines in
-worker processes behind a socket transport) raise ``NotImplementedError``
-(ROADMAP queue 1 item 4b).
+Backends: ``"thread"`` (the factory's engine runs in this process) and
+``"process"`` (the engine runs in a spawned worker process behind a
+:class:`~raft_tpu_torch.serve.worker.ProcessEngineClient`, its own
+interpreter and CUDA context; the factory must be picklable and
+``worker_options`` are the client's knobs). ``"remote"`` (a worker behind
+TCP) raises ``NotImplementedError`` (ROADMAP queue 1 item 4b-ii).
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ from typing import Any, Callable, Dict, Optional
 from raft_tpu_torch.serve.engine import ServeEngine
 
 __all__ = ["Replica", "ReplicaState"]
-
-_UNPORTED_BACKENDS = ("process", "remote")
 
 
 class ReplicaState:
@@ -70,18 +70,20 @@ class Replica:
         *,
         error_window: int = 32,
         backend: str = "thread",
+        worker_options: Optional[Dict[str, Any]] = None,
     ):
-        if backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend={backend!r} (engines in worker processes) is not ported yet: "
-                "ROADMAP queue 1 item 4b, the process fleet"
-            )
-        if backend != "thread":
+        if backend not in ("thread", "process", "remote"):
             raise ValueError(f"backend must be 'thread', 'process', or 'remote', got {backend!r}")
+        if backend == "remote":
+            raise NotImplementedError(
+                "backend='remote' (an engine in a worker behind TCP) is not ported yet: "
+                "ROADMAP queue 1 item 4b-ii, the TCP remote arm"
+            )
         self.replica_id = str(replica_id)
         self.factory = factory
         self.backend = backend
-        self.endpoint: Optional[str] = None  # a remote worker's address (item 4b)
+        self.endpoint: Optional[str] = None  # a remote worker's address (item 4b-ii)
+        self.worker_options = dict(worker_options or {})
         self.engine: Optional[ServeEngine] = None
         self.state = ReplicaState.STARTING
         self.generation = 0           # bumped by every (re)build
@@ -124,9 +126,17 @@ class Replica:
         """Build (not start) a fresh engine through the factory; the old
         one, if any, must already be stopped by the caller. The replica
         lets go of the old engine first: on the card the two never hold
-        their memory together."""
+        their memory together. Process backend: the "engine" is a
+        :class:`~raft_tpu_torch.serve.worker.ProcessEngineClient` that
+        spawns a fresh worker on start (the same rebuild-not-resuscitate
+        contract, with a new PID)."""
         self.engine = None
-        self.engine = self.factory(**overrides)
+        if self.backend == "process":
+            from raft_tpu_torch.serve.worker import ProcessEngineClient
+
+            self.engine = ProcessEngineClient(self.factory, overrides, **self.worker_options)
+        else:
+            self.engine = self.factory(**overrides)
         self.generation += 1
         self._trip_baseline = 0
         with self._lock:
@@ -164,6 +174,20 @@ class Replica:
             # a replica being evicted may be arbitrarily broken; teardown
             # is best-effort by design (the rebuild is the real recovery)
             pass
+
+    def dump_worker_postmortem(self, reason: str) -> bool:
+        """Pull the worker's own flight-recorder bundle into the parent's
+        dump directory (process backend; a thread engine shares the
+        parent's recorder already). Best-effort: a SIGKILLed worker has
+        nothing left to dump, and that must not block the eviction that
+        found it."""
+        dump = getattr(self.engine, "dump_postmortem", None)
+        if dump is None:
+            return False
+        try:
+            return bool(dump(reason))
+        except Exception:
+            return False
 
     # -- dispatch-path bookkeeping ----------------------------------------
 

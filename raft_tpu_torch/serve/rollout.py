@@ -41,9 +41,10 @@ router's recorder, and a rollback dumps a postmortem bundle.
 snapshot on promotion, the typed
 :class:`~raft_tpu_torch.serve.errors.RolloutAborted` on rollback.
 
-Only thread-backed candidates exist in the port (engines in worker
-processes are ROADMAP queue 1 item 4b), so every mirror rides
-``shadow=True``. The controller holds its router weakly, as the
+A thread-backed candidate's mirrors ride ``shadow=True``. A process
+candidate's wire has no ``shadow`` key (the JAX wire's), so its mirrors go
+out without it and land in that worker's own counters, which the fleet
+does not see. The controller holds its router weakly, as the
 :class:`~raft_tpu_torch.serve.autoscale.Autoscaler` does: the router holds
 the controller, and neither sits in a reference cycle; at every terminal
 stage the mirror queue (which holds the callers' closures, images and
@@ -291,6 +292,10 @@ class RolloutController:
         # converges back to the incumbent build
         self._saved_factories: Dict[str, Callable] = {}
         self.rollbacks = 0
+        # a candidate behind a worker client has the wire's fixed signature:
+        # the shadow flag stays on this side, and its mirrored load lands in
+        # the worker's own (fleet-invisible) counters
+        self._shadow_kw = candidate.backend == "thread"
         self._mirror_q: "_queue.Queue" = _queue.Queue(maxsize=self.config.mirror_queue_depth)
         self._mirror_thread = threading.Thread(target=self._mirror_loop, name="raft-rollout-mirror", daemon=True)
         self._promote_thread: Optional[threading.Thread] = None
@@ -381,7 +386,7 @@ class RolloutController:
         with router._lock:
             router._counters["mirrored"] += 1
         try:
-            res = fn(eng, deadline_ms, shadow=True)
+            res = fn(eng, deadline_ms, **({"shadow": True} if self._shadow_kw else {}))
         except Exception as e:
             # a typed shed is counted, never retried: the error mix is the
             # evidence, and a retry would only blur it

@@ -1,12 +1,13 @@
 """Horizontal serving tier: N engine replicas behind one router.
 
-The port's copy of the JAX package's ``raft_tpu/serve/router.py``, in
-process. One :class:`~raft_tpu_torch.serve.ServeEngine` is one worker
-thread on the card. :class:`ServeRouter` owns N independent
-:class:`~raft_tpu_torch.serve.replica.Replica` instances, each with its own
-engine, config and worker, boots them concurrently, and exposes the
-**same caller API as a single engine**: ``submit`` / ``submit_tiled`` /
-``open_stream`` / ``submit_frame`` / ``health`` / ``stats``.
+The port's copy of the JAX package's ``raft_tpu/serve/router.py``. One
+:class:`~raft_tpu_torch.serve.ServeEngine` is one worker thread on the card,
+in this process or in a worker process of its own. :class:`ServeRouter`
+owns N independent :class:`~raft_tpu_torch.serve.replica.Replica`
+instances, each with its own engine, config and worker, boots them
+concurrently, and exposes the **same caller API as a single engine**:
+``submit`` / ``submit_tiled`` / ``open_stream`` / ``submit_frame`` /
+``health`` / ``stats``.
 
 On one card the replicas share the device: the tier buys fault isolation
 (an evicted replica is rebuilt from its factory, with a fresh worker, pool
@@ -68,9 +69,13 @@ over its counters and replica list, or read the router weakly, and its
 rollout controller holds it weakly, so a closed router and its stopped
 engines are freed as soon as the caller lets go.
 
-Not ported yet: remote replicas and candidates in worker processes
-(``add_remote_replica``, ``backend='process'|'remote'``; ROADMAP queue 1
-item 4b) raise ``NotImplementedError``.
+Replicas and rollout candidates run in this process (``backend='thread'``)
+or each in a spawned worker process (``backend='process'``, a picklable
+factory, ``worker_options`` for the worker client; an evicted live worker
+dumps its own postmortem bundle into ``worker_options['dump_dir']``). Not
+ported yet: remote replicas (``add_remote_replica``,
+``backend='remote'``; ROADMAP queue 1 item 4b-ii) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -388,20 +393,28 @@ class ServeRouter:
 
     @classmethod
     def from_factory(cls, factory: Callable[..., ServeEngine], num_replicas: int,
-                     config: Optional[RouterConfig] = None, *, backend: str = "thread", **kw) -> "ServeRouter":
+                     config: Optional[RouterConfig] = None, *, backend: str = "thread",
+                     worker_options: Optional[Dict[str, Any]] = None, **kw) -> "ServeRouter":
         """Build N replicas over one engine factory.
 
         ``factory(**overrides) -> ServeEngine`` (unstarted) is called once
         per replica at boot and again on every rebuild: evicted-replica
-        recovery and draining restarts both go through it. Only
-        ``backend="thread"`` is ported; ``"process"`` and ``"remote"`` raise
-        ``NotImplementedError`` (ROADMAP queue 1 item 4b).
+        recovery and draining restarts both go through it.
+
+        ``backend="process"`` runs every replica's engine in its own spawned
+        worker process behind the same surface: the factory is pickled into
+        the child, so it must be a module-level callable, and
+        ``worker_options`` forwards
+        :class:`~raft_tpu_torch.serve.worker.ProcessEngineClient` knobs:
+        ``ring_slots``, ``slot_bytes`` (size both rings to ``/dev/shm``)
+        and ``dump_dir``. ``backend="remote"`` raises
+        ``NotImplementedError`` (ROADMAP queue 1 item 4b-ii).
         """
         if num_replicas < 1:
             raise ValueError(f"num_replicas must be >= 1, got {num_replicas}")
         cfg = config or RouterConfig()
         replicas = [
-            Replica(f"r{i}", factory, error_window=cfg.error_window, backend=backend)
+            Replica(f"r{i}", factory, error_window=cfg.error_window, backend=backend, worker_options=worker_options)
             for i in range(num_replicas)
         ]
         return cls(replicas, cfg, **kw)
@@ -1168,6 +1181,10 @@ class ServeRouter:
         self.recorder.record("evict", replica=rep.replica_id, reason=reason, generation=rep.generation)
         # an eviction is exactly the incident the flight recorder exists for
         self.dump_postmortem(f"evict:{rep.replica_id}")
+        # a process-backed replica also dumps ITS OWN recorder into the
+        # parent's dump directory while it still can (a worker killed
+        # outright has nothing left to say: best-effort)
+        rep.dump_worker_postmortem(f"evict:{rep.replica_id}:{reason}")
         # rescue queued work off-thread: stop() fails every pending request
         # (EngineStopped, retryable at the router) and may block joining a
         # wedged worker; never block the monitor or a dispatch on it
@@ -1229,8 +1246,9 @@ class ServeRouter:
 
     def add_replica(self, *, reason: Optional[str] = None, signals: Optional[Dict[str, Any]] = None) -> str:
         """Grow the fleet by one replica cloned from the first replica's
-        factory and boot it. A replica that fails to boot is left evicted
-        (probed back in after cooldown). Returns the new replica id.
+        factory, backend and worker options, and boot it. A replica that
+        fails to boot is left evicted (probed back in after cooldown).
+        Returns the new replica id.
         ``reason``/``signals`` (from the autoscaler) ride the scale_up
         flight-recorder event."""
         self._check_started()
@@ -1239,7 +1257,8 @@ class ServeRouter:
             i = len(self._replicas)
             while f"r{i}" in self._by_id:
                 i += 1
-            rep = Replica(f"r{i}", proto.factory, error_window=self.config.error_window, backend=proto.backend)
+            rep = Replica(f"r{i}", proto.factory, error_window=self.config.error_window, backend=proto.backend,
+                          worker_options=proto.worker_options)
             self._replicas.append(rep)
             self._by_id[rep.replica_id] = rep
         self.recorder.record("scale_up", replica=rep.replica_id, reason=reason, signals=signals)
@@ -1261,8 +1280,8 @@ class ServeRouter:
     def add_remote_replica(self, endpoint: str, **kw) -> str:
         """Join a remote TCP worker: not ported yet."""
         raise NotImplementedError(
-            "remote replicas (engines in worker processes) are not ported yet: "
-            "ROADMAP queue 1 item 4b, the process fleet"
+            "remote replicas (a worker behind TCP) are not ported yet: "
+            "ROADMAP queue 1 item 4b-ii, the TCP remote arm"
         )
 
     def remove_replica(self, replica_id: str, *, drain: bool = True, reason: Optional[str] = None,
@@ -1368,19 +1387,16 @@ class ServeRouter:
         (on the card its warm-up takes its turn with any other boot) and
         lives OUTSIDE the replica list: it takes no live traffic until the
         canary stage, and its load never reaches QoS quotas or the
-        autoscaler's signals. Only a thread-backed candidate exists in the
-        port: ``backend='process'|'remote'`` or ``worker_options`` raise
-        ``NotImplementedError`` (ROADMAP queue 1 item 4b). Returns the
+        autoscaler's signals. ``backend`` and ``worker_options`` default to
+        the first replica's: a process candidate boots its own worker (its
+        mirrors cannot carry ``shadow=``, so they land in that worker's own
+        counters); ``backend='remote'`` raises ``NotImplementedError``
+        (ROADMAP queue 1 item 4b-ii). Returns the
         :class:`~raft_tpu_torch.serve.rollout.RolloutController`; its
         ``wait()`` blocks until promotion (the final snapshot) or rollback
         (:class:`~raft_tpu_torch.serve.errors.RolloutAborted`).
         """
         self._check_started()
-        if worker_options is not None:
-            raise NotImplementedError(
-                "worker_options configure a candidate in a worker process, which is not ported yet: "
-                "ROADMAP queue 1 item 4b, the process fleet"
-            )
         with self._lock:
             current = self._rollout
             if self._rollout_pending or (current is not None and current.stage not in RolloutStage.TERMINAL):
@@ -1397,7 +1413,8 @@ class ServeRouter:
             with self._lock:
                 proto = self._replicas[0]
                 cand = Replica("candidate", factory or proto.factory, error_window=self.config.error_window,
-                               backend=backend or proto.backend)
+                               backend=backend or proto.backend,
+                               worker_options=proto.worker_options if worker_options is None else worker_options)
             self.recorder.record("rollout_candidate", backend=cand.backend, overrides=sorted(overrides))
             # the boot error's repr, never the error: its traceback holds the
             # failed engine's frames

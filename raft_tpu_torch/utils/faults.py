@@ -24,7 +24,7 @@ The port's own copy of the JAX package's ``raft_tpu/utils/faults.py``:
     dispatch seams, checkpoint commits.
 
 Not ported yet: ``NetworkFaultInjector`` (it drives remote replicas,
-ROADMAP queue 1 item 4b).
+ROADMAP queue 1 item 4b-ii).
 
 Nothing here touches the fault-free hot path: the watchdog costs two
 attribute writes per guarded region, the data policy engages only on

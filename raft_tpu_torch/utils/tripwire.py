@@ -1,8 +1,8 @@
 """Host-sync tripwire: proves the training hot loop never waits on the card.
 
-The port's counterpart of the JAX package's ``raft_tpu/utils/tripwire.py``
-(its :class:`HostSyncTripwire`; the transport's ``CopyTripwire`` waits for
-the serving host layer, ROADMAP queue 1 item 4).
+The port's counterpart of the JAX package's ``raft_tpu/utils/tripwire.py``:
+:class:`HostSyncTripwire`, and :class:`CopyTripwire` over the port's
+cross-process transport (:mod:`raft_tpu_torch.serve.ipc`).
 
 The fused window dispatch (``train.step.make_window_step``) only pays off
 if nothing between log boundaries forces a device->host synchronization:
@@ -47,13 +47,17 @@ import threading
 from contextlib import contextmanager
 from typing import Dict, List, Tuple
 
-__all__ = ["HostSyncError", "HostSyncTripwire"]
+__all__ = ["HostSyncError", "HostSyncTripwire", "CopyError", "CopyTripwire"]
 
 _MISSING = object()
 
 
 class HostSyncError(AssertionError):
     """The guarded region synced with the device when it must not have."""
+
+
+class CopyError(AssertionError):
+    """The guarded region copied transport buffers it must not have."""
 
 
 class HostSyncTripwire:
@@ -163,3 +167,101 @@ class HostSyncTripwire:
                 delattr(owner, name)  # the inherited method shows through again
             else:
                 setattr(owner, name, orig)
+
+
+class CopyTripwire:
+    """Counts transport-path buffer copies while installed and armed.
+
+    The cross-process serving transport (:mod:`raft_tpu_torch.serve.ipc`)
+    notes every buffer copy it performs (shm-ring put/get copies,
+    tensor-body pack/unpack materializations, contiguity fixups) through a
+    module-level hook. This tripwire registers a listener on that hook
+    (the :class:`HostSyncTripwire` pattern: arm/disarm scoping, counts by
+    site, ``assert_none``), so "this path moves bytes by reference" is an
+    assertion a test makes, not a claim a docstring repeats.
+
+    ``counts`` maps ipc copy site (``'ring_put'``, ``'ring_get'``,
+    ``'pack_copy'``, ``'unpack_copy'``, ``'pack_contig'``) to armed hits;
+    ``bytes_copied`` totals their payload sizes. Thread-safe, and scoped to
+    THIS process: a worker process's own copies are its own (read them
+    through the worker's transport stats instead).
+
+    Usage::
+
+        with CopyTripwire() as tw:
+            client.submit(...)                 # the copying path
+            assert tw.counts["ring_put"] == 2  # measured, not argued
+            tw.reset()
+            zero_copy_roundtrip()
+            tw.assert_none("the reserved-slot request path")
+    """
+
+    def __init__(self, armed: bool = True):
+        self.counts: collections.Counter = collections.Counter()
+        self.bytes_copied = 0
+        self._armed = armed
+        self._lock = threading.Lock()
+
+    # -- scoping (the HostSyncTripwire surface) ----------------------------
+
+    @property
+    def armed(self) -> bool:
+        return self._armed
+
+    def arm(self) -> None:
+        self._armed = True
+
+    def disarm(self) -> None:
+        self._armed = False
+
+    @contextmanager
+    def pause(self):
+        """Temporarily stop counting (legal-copy boundary work)."""
+        was, self._armed = self._armed, False
+        try:
+            yield self
+        finally:
+            self._armed = was
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counts.clear()
+            self.bytes_copied = 0
+
+    # -- results -----------------------------------------------------------
+
+    @property
+    def total(self) -> int:
+        with self._lock:
+            return sum(self.counts.values())
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.counts)
+
+    def assert_none(self, where: str = "the guarded region") -> None:
+        if self.total:
+            raise CopyError(
+                f"{self.total} transport buffer cop(ies) inside {where}: "
+                f"{dict(self.counts)} ({self.bytes_copied} bytes) — this "
+                "path must move bytes by reference, not by copy"
+            )
+
+    def _hit(self, site: str, nbytes: int) -> None:
+        if self._armed:
+            with self._lock:
+                self.counts[site] += 1
+                self.bytes_copied += int(nbytes)
+
+    # -- installation ------------------------------------------------------
+
+    def __enter__(self) -> "CopyTripwire":
+        from raft_tpu_torch.serve import ipc
+
+        ipc.add_copy_listener(self._hit)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from raft_tpu_torch.serve import ipc
+
+        ipc.remove_copy_listener(self._hit)

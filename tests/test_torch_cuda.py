@@ -938,6 +938,48 @@ def test_routed_request_matches_a_single_engine(cuda_device):
         np.testing.assert_allclose(flow, want, rtol=0, atol=1e-4)
 
 
+def test_process_worker_serves_and_leaves_nothing(cuda_device, tmp_path):
+    """One ``ProcessEngineClient`` over the tiny engine on the card (a
+    spawned worker: its own CUDA context and graph set): it boots, serves a
+    pair within 1e-4 px of the in-process engine's flow (the same graphs,
+    captured in another process: cuDNN's choices are a process's), and
+    after ``close()`` its PID is gone and the card's free memory is back
+    at its level before the boot (to 64 MiB)."""
+    import os
+
+    from torch_worker_factories import TinyEngineFactory, tiny_model
+
+    from raft_tpu_torch.serve import ProcessEngineClient
+
+    model = tiny_model(None, cuda_device)
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.05)
+    path = str(tmp_path / "tiny.pt")
+    torch.save(model.state_dict(), path)
+    del model
+    factory = TinyEngineFactory(path, device="cuda", ladder=(3,), warmup=True)
+    rng = np.random.default_rng(23)
+    pair = [rng.integers(0, 255, (45, 60, 3), dtype=np.uint8) for _ in range(2)]
+    with factory().start() as engine:
+        want = engine.submit(*pair).flow
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    client = ProcessEngineClient(factory, ring_slots=4, slot_bytes=1 << 16).start()
+    try:
+        pid = client.pid
+        assert pid != os.getpid() and client.boot["captures"] > 0
+        got = client.submit(*pair).flow
+        held = torch.cuda.mem_get_info()[0]
+    finally:
+        client.close()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    with pytest.raises(ProcessLookupError):
+        os.kill(pid, 0)
+    free1 = torch.cuda.mem_get_info()[0]
+    assert held < free0 and abs(free1 - free0) <= 64 << 20, (free0, held, free1)
+
+
 def test_shadow_submit_lands_in_the_twin_counters(cuda_device):
     """A shadow submit (a rollout's mirror) on the card is served by the
     captured graphs like a live one and counted only in the ``shadow_*``

@@ -45,6 +45,8 @@ SLICE_MODULES = (
     "raft_tpu_torch/serve/replica.py",
     "raft_tpu_torch/serve/router.py",
     "raft_tpu_torch/serve/rollout.py",
+    "raft_tpu_torch/serve/ipc.py",
+    "raft_tpu_torch/serve/worker.py",
     "raft_tpu_torch/serve/autoscale.py",
     "raft_tpu_torch/checkpoint/convert.py",
     "raft_tpu_torch/data/datasets.py",
@@ -103,6 +105,20 @@ def test_import_leaves_jax_unloaded():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+@pytest.mark.parametrize("module", ["raft_tpu_torch.serve.ipc", "raft_tpu_torch.serve.worker"])
+def test_worker_transport_imports_without_jax(module):
+    """The process fleet's transport and worker modules import alone in a
+    fresh interpreter (what a spawned worker does first) and load no ``jax``
+    and nothing of the JAX package."""
+    code = (
+        f"import importlib, sys; importlib.import_module({module!r}); "
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'raft_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_default_device_is_the_card():

@@ -28,7 +28,8 @@ import torch
 pytest.importorskip("raft_tpu")
 
 from test_torch_serve import TINY, _config, _image  # noqa: E402
-from test_torch_serve_router import PKGS, StubEngine, _stub_router  # noqa: E402
+from test_torch_serve_router import PKGS, _stub_router  # noqa: E402
+from torch_worker_factories import StubEngine  # noqa: E402
 
 from raft_tpu.serve import autoscale as jax_autoscale  # noqa: E402
 
@@ -269,7 +270,7 @@ def test_stub_engine_matches_both_packages_errors():
     """The stub raises each package's own typed errors (the routers
     classify by their own classes)."""
     for pkg, p in PKGS.items():
-        eng = StubEngine(p.errors, "r0", {("r0", 1): "shed"}).start()
+        eng = StubEngine(pkg, "r0", {("r0", 1): "shed"}).start()
         with pytest.raises(p.errors.Overloaded):
             eng.submit(1, 1)
         eng.close()

@@ -32,7 +32,8 @@ import torch
 pytest.importorskip("raft_tpu")
 
 from test_torch_serve import BUCKET, HW, _config, _image, _nchw, _nhwc, _padded, no_onednn, tiny  # noqa: E402,F401
-from test_torch_serve_router import PKGS, QUIET, StubEngine, _outcome, _stub_router  # noqa: E402
+from test_torch_serve_router import PKGS, QUIET, _outcome, _stub_router  # noqa: E402
+from torch_worker_factories import StubEngine  # noqa: E402
 
 from raft_tpu.serve import ServeConfig as JaxServeConfig  # noqa: E402
 from raft_tpu.serve import ServeEngine as JaxServeEngine  # noqa: E402
@@ -200,16 +201,15 @@ def test_gate_evaluate_matches_jax():
 def _stub_candidate(pkg, case):
     """The candidate factory (None: the first replica's) and the ladder's
     knobs for each case."""
-    errors = PKGS[pkg].errors
     if case == "perturbed":
-        return (lambda **ov: StubEngine(errors, "cand", flow=5.0, variables_hash="h-perturbed", **ov)), {}
+        return (lambda **ov: StubEngine(pkg, "cand", flow=5.0, variables_hash="h-perturbed", **ov)), {}
     if case == "hash_mismatch":
         hashes = iter(["h-cand", "h-other", "h-third"])  # a factory whose weights move between calls
-        return (lambda **ov: StubEngine(errors, "cand", variables_hash=next(hashes), **ov)), {}
+        return (lambda **ov: StubEngine(pkg, "cand", variables_hash=next(hashes), **ov)), {}
     if case == "crash":
         # label 5 is the first canary pick: it faults on the candidate and is
         # re-served by an incumbent; parked in canary until the crash
-        return (lambda **ov: StubEngine(errors, "cand", {("cand", 5): "fault"}, variables_hash="h-cand", **ov),
+        return (lambda **ov: StubEngine(pkg, "cand", {("cand", 5): "fault"}, variables_hash="h-cand", **ov),
                 dict(auto_promote=False, error_rate=1.0))
     return None, {}
 

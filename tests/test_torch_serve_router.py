@@ -2,10 +2,11 @@
 the JAX package's, on the CPU.
 
 The JAX router, replica and autoscaler duck-type their engine, so both
-packages' tiers run over the same pure-Python ``StubEngine`` (no XLA
-compile): each stub raises its own package's typed errors and follows a
-script keyed on the request's label, so a submission sequence meets the
-same sheds and faults in both tiers. With the monitor's heartbeat at 60 s
+packages' tiers run over the same pure-Python ``StubEngine`` of
+``tests/torch_worker_factories.py`` (no XLA compile): each stub raises its
+own package's typed errors and follows a script keyed on the replica and
+the request's label, so a submission sequence meets the same sheds and
+faults in both tiers. With the monitor's heartbeat at 60 s
 the dispatch scores move only by sheds, and the picks are deterministic.
 
 Then two of the port's engines at ``tests/test_torch_serve.py``'s tiny CPU
@@ -30,6 +31,7 @@ pytest.importorskip("raft_tpu")
 
 import jax  # noqa: E402
 from test_torch_serve import HW, _config, _image, _nchw, _nhwc, _padded, no_onednn, tiny  # noqa: E402,F401
+from torch_worker_factories import StubEngine  # noqa: E402
 
 from raft_tpu.serve import errors as jax_errors  # noqa: E402
 from raft_tpu.serve import replica as jax_replica  # noqa: E402
@@ -61,73 +63,6 @@ PKGS = {
 QUIET = dict(heartbeat_interval_s=60.0)  # no beat during a scripted sequence
 
 
-class StubEngine:
-    """A pure-Python engine with the surface the tier reads. ``script``
-    maps ``(replica name, request label)`` to ``'shed'`` (``Overloaded``
-    with ``retry_after_ms`` = 10 x label), ``'fault'`` (a replica-side
-    ``RuntimeError``) or ``'poison'`` (``PoisonedInput``); the label is
-    the first image. A ``shadow=True`` request is counted in the
-    ``shadow_*`` twins; every flow is ``flow`` (a constant)."""
-
-    def __init__(self, errors, name, script=None, *, variables_hash="h0", flow=0.0, **overrides):
-        self.errors, self.name, self.script = errors, name, script or {}
-        self.overrides, self.variables_hash, self.flow = overrides, variables_hash, flow
-        self.config = SimpleNamespace(default_deadline_ms=1000.0, queue_capacity=8)
-        self.running, self.streams, self.level, self.queue_depth = False, set(), 0, 0
-        self.counters = dict(submitted=0, completed=0, shed=0, shed_slow_path=0, expired=0, shadow_submitted=0,
-                             shadow_completed=0, shadow_shed=0, shadow_expired=0)
-        self.tracer = SimpleNamespace(snapshot=lambda: [], find=lambda tid: None)
-        self.recorder = SimpleNamespace(events=lambda: [])
-
-    def start(self):
-        self.running = True
-        return self
-
-    def close(self, graceful=False, timeout=None):
-        self.running = False
-
-    def health(self):
-        return {"ready": self.running, "healthy": self.running, "draining": False, "queue_depth": self.queue_depth,
-                "queue_capacity": 8, "level": self.level, "watchdog_trips": 0}
-
-    def stats(self):
-        return dict(self.counters, variables_hash=self.variables_hash)
-
-    def alerts(self):
-        return {"active": []}
-
-    def prometheus(self):
-        return f'# TYPE serve_counters counter\nserve_counters{{key="submitted"}} {self.counters["submitted"]}\n'
-
-    def submit(self, image1, image2, *, deadline_ms=None, num_flow_updates=None, shadow=False, **kw):
-        return self._serve(image1, shadow=shadow)
-
-    def submit_frame(self, stream_id, frame, *, deadline_ms=None, num_flow_updates=None, shadow=False, **kw):
-        primed = stream_id not in self.streams
-        self.streams.add(stream_id)
-        return self._serve(frame, primed, shadow=shadow)
-
-    def close_stream(self, stream_id):
-        self.streams.discard(stream_id)
-
-    def _serve(self, label, primed=False, shadow=False):
-        if not self.running:
-            raise self.errors.EngineStopped("stub stopped")
-        pre = "shadow_" if shadow else ""
-        self.counters[pre + "submitted"] += 1
-        what = self.script.get((self.name, label))
-        if what == "shed":
-            self.counters[pre + "shed"] += 1
-            raise self.errors.Overloaded("stub shed", retry_after_ms=10.0 * label)
-        if what == "fault":
-            raise RuntimeError("stub replica fault")
-        if what == "poison":
-            raise self.errors.PoisonedInput("stub poisoned")
-        self.counters[pre + "completed"] += 1
-        return SimpleNamespace(flow=None if primed else np.full((2, 2, 2), self.flow, np.float32), primed=primed,
-                               replica=self.name, trace_id=None, latency_ms=0.0, num_flow_updates=1)
-
-
 def _stub_router(pkg, names=("r0", "r1", "r2"), script=None, built=None, **cfg):
     """A router of ``pkg`` over stub replicas; ``built`` collects every
     engine the factories build."""
@@ -135,7 +70,7 @@ def _stub_router(pkg, names=("r0", "r1", "r2"), script=None, built=None, **cfg):
 
     def factory_for(name):
         def factory(**overrides):
-            eng = StubEngine(p.errors, name, script, **overrides)
+            eng = StubEngine(pkg, name, script, **overrides)
             if built is not None:
                 built.append(eng)
             return eng
@@ -223,7 +158,7 @@ def _replica_trace(pkg):
     built = []
 
     def factory(**overrides):
-        built.append(StubEngine(p.errors, "r0", variables_hash=f"h{len(built)}", **overrides))
+        built.append(StubEngine(pkg, "r0", variables_hash=f"h{len(built)}", **overrides))
         return built[-1]
 
     rep = p.replica.Replica("r0", factory, error_window=3)
@@ -260,26 +195,38 @@ def test_replica_state_machine_matches_jax():
 
 @pytest.mark.parametrize("backend", ["process", "remote"])
 def test_unported_backends_name_their_item(backend):
-    factory = partial(StubEngine, port_errors, "r0")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        Replica("r0", factory, backend=backend)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        ServeRouter.from_factory(factory, 2, backend=backend)
+    """``backend='remote'`` raises naming ROADMAP item 4b-ii, in the replica
+    and the router. ``'process'`` is ported (item 4b-i): its replica builds
+    an unstarted worker client with the worker options, and the router's
+    replicas carry both. An unknown backend is a ``ValueError``."""
+    factory = partial(StubEngine, "port", "r0")
+    if backend == "remote":
+        with pytest.raises(NotImplementedError, match="item 4b-ii"):
+            Replica("r0", factory, backend=backend)
+        with pytest.raises(NotImplementedError, match="item 4b-ii"):
+            ServeRouter.from_factory(factory, 2, backend=backend)
+    else:
+        rep = Replica("r0", factory, backend=backend, worker_options=dict(ring_slots=2))
+        eng = rep.build()
+        assert type(eng).__name__ == "ProcessEngineClient" and eng.pid is None and eng._ring_slots == 2
+        assert rep.snapshot()["backend"] == "process" and rep.snapshot()["pid"] is None
+        router = ServeRouter.from_factory(factory, 2, backend=backend, worker_options=dict(ring_slots=2))
+        assert [(r.backend, r.worker_options) for r in router.replicas] == [("process", dict(ring_slots=2))] * 2
     with pytest.raises(ValueError, match="backend must be"):
         Replica("r0", factory, backend="threads")
 
 
 def test_unported_router_entry_points_raise():
-    """The remote entry points raise, naming their ROADMAP item: a remote
-    replica, and a rollout candidate in a worker process (its backend or
-    its worker options); no candidate was booted, and the rollout block
-    reads inactive, as JAX's does with no candidate."""
+    """The remote entry points raise, naming their ROADMAP item (4b-ii): a
+    remote replica, and a remote rollout candidate; no candidate was
+    booted, and the rollout block reads inactive, as JAX's does with no
+    candidate. (A process candidate is ported: tests/test_torch_serve_worker.py.)"""
     router = _stub_router("port", **QUIET).start()
     try:
-        with pytest.raises(NotImplementedError, match="item 4b"):
+        with pytest.raises(NotImplementedError, match="item 4b-ii"):
             router.add_remote_replica("localhost:1")
-        for kw in (dict(backend="process"), dict(backend="remote"), dict(worker_options={})):
-            with pytest.raises(NotImplementedError, match="item 4b"):
+        for kw in (dict(backend="remote"), dict(backend="remote", worker_options={})):
+            with pytest.raises(NotImplementedError, match="item 4b-ii"):
                 router.add_candidate(**kw)
         assert router.rollout is None and not router._rollout_pending
         assert router.stats()["rollout"] == {"active": False}
